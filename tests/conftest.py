@@ -16,3 +16,8 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (the port's kernels); skips without one")

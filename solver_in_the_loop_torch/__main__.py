@@ -2,8 +2,9 @@
 
     python -m solver_in_the_loop_torch <command> [args...]
 
-The port covers the karman serving path so far; the other commands of
-`python -m solver_in_the_loop_tpu` follow as their slices are ported.
+The port covers the karman serving and training paths so far; the other
+commands of `python -m solver_in_the_loop_tpu` follow as their slices are
+ported.
 """
 
 from __future__ import annotations
@@ -13,12 +14,14 @@ import sys
 
 COMMANDS = {
     "karman-apply": ("solver_in_the_loop_torch.apps.karman_apply", "karman test rollout"),
+    "karman-train": ("solver_in_the_loop_torch.apps.karman_train", "karman SOL/NON training"),
 }
 
 
 def main(argv=None):
     """Run one command; returns what the command's main returns (karman-apply:
-    its frames), 0 for --help and 2 for an unknown command."""
+    its frames; karman-train: its TrainResult), 0 for --help and 2 for an
+    unknown command."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

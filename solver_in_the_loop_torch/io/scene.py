@@ -1,7 +1,8 @@
 """Scene on-disk I/O in the reference's legacy PhiFlow layout (numpy only).
 
 A copy of the parts of solver_in_the_loop_tpu/io/scene.py that karman-apply
-uses, with numpy's npz writer in place of the native batch writer:
+and karman-train use, with numpy's npz reader and writer in place of the
+native ones:
 
   <parent>/sim_%06d/
       params.pickle, params.json   run parameters
@@ -80,11 +81,29 @@ class Scene:
                     if (m := _re.fullmatch(r"sim_(\d{6})", d))]
         return cls(os.path.join(parent, f"sim_{max(existing, default=-1) + 1:06d}"))
 
+    @classmethod
+    def list(cls, parent: str):
+        """The sim_%06d scenes under `parent`, in order (none if it is missing)."""
+        dirs = sorted(d for d in os.listdir(parent)
+                      if _re.fullmatch(r"sim_\d{6}", d)) if os.path.isdir(parent) else []
+        return [cls(os.path.join(parent, d)) for d in dirs]
+
     def write_params(self, params: dict) -> None:
         with open(os.path.join(self.path, "params.pickle"), "wb") as f:
             pickle.dump(params, f)
         with open(os.path.join(self.path, "params.json"), "w") as f:
             json.dump({k: v for k, v in params.items() if _json_ok(v)}, f, indent=1)
+
+    def read_params(self) -> dict:
+        """params.json, which the data generators write beside params.pickle;
+        the pickle (the reference's own format) only where there is no json,
+        since unpickling a file can run code."""
+        p = os.path.join(self.path, "params.json")
+        if os.path.isfile(p):
+            with open(p) as f:
+                return json.load(f)
+        with open(os.path.join(self.path, "params.pickle"), "rb") as f:
+            return pickle.load(f)
 
     def frame_path(self, name: str, frame: int) -> str:
         return os.path.join(self.path, f"{name}_{frame:06d}.npz")
@@ -110,3 +129,9 @@ class Scene:
 
     def read_staggered(self, name: str, frame: int) -> Tuple[np.ndarray, np.ndarray]:
         return legacy_to_staggered(read_array(self.frame_path(name, frame)))
+
+    def frames(self, name: str):
+        """Sorted frame numbers of the <name>_%06d.npz files of this scene."""
+        pat = _re.compile(rf"{name}_(\d{{6}})\.npz")
+        return sorted(int(m.group(1)) for fn in os.listdir(self.path)
+                      if (m := pat.fullmatch(fn)))

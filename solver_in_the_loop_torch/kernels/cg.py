@@ -8,6 +8,16 @@ launches csrc/pcg.cu, which runs the whole loop in one launch; on a CPU
 tensor it runs `pcg_solve_plain`, the XLA reference's loop
 (`pcg_solve_info`, solver_in_the_loop_tpu/ops/poisson.py:191-228) with
 `.item()` stop checks.
+
+`pcg_solve_op` (`torch.ops.silt.pcg_solve`) is the differentiable solve the
+pressure projection calls: its forward is `pcg_solve` from the given start,
+and its backward solves the same SPD system cold for the cotangent, through
+`pcg_solve` again (the implicit-function adjoint of `lax.custom_linear_solve`
+with `transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). It is
+a registered custom op so that a selective-checkpoint policy can save its
+output (train/trainer.py), and it reaches the kernel only through the
+module-level `pcg_solve`, so replacing that wrapper replaces the kernel in
+both directions.
 """
 
 from __future__ import annotations
@@ -153,3 +163,35 @@ def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: 
 
 
 pcg_solve.launches = 0
+
+
+@torch.library.custom_op(
+    "silt::pcg_solve", mutates_args=(),
+    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, Tensor vy, "
+           "Tensor vx, Tensor invd, float tol, int max_iter) -> (Tensor, Tensor)")
+def pcg_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
+    """`pcg_solve` as a differentiable op in b (x0 and the operator are
+    constants). Returns (x, iterations)."""
+    x, iters = pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
+    # the plain loop hands back x0 itself when it is already converged; an
+    # op's output may not alias its input
+    return (x.clone() if x is x0 else x), iters
+
+
+def _pcg_setup(ctx, inputs, output):
+    _, _, fluid, face_u, face_v, vy, vx, invd, tol, max_iter = inputs
+    ctx.save_for_backward(fluid, face_u, face_v, vy, vx, invd)
+    ctx.tol, ctx.max_iter = tol, max_iter
+
+
+def _pcg_backward(ctx, grad_x, _grad_iters):
+    """A is symmetric, so the cotangent of b is A^-1 grad_x: a cold solve
+    with the forward's tolerance and iteration limit."""
+    grad_b = None
+    if ctx.needs_input_grad[0]:
+        g = grad_x.contiguous()
+        grad_b, _ = pcg_solve(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol, ctx.max_iter)
+    return (grad_b,) + (None,) * 9
+
+
+pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)

@@ -5,14 +5,29 @@ Port of solver_in_the_loop_tpu/ops/interp.py:
 * `bilinear_sample` — gather-based, arbitrary coordinates (`--advect gather`).
 * `shifted_stencil_sample` — gather-free sampling for bounded offsets
   (|delta| <= max_shift cells, `--advect shift`), as a weighted sum of shifted
-  copies of the field: the tap-sum of kernels/advect.py.
+  copies of the field: the differentiable tap-sum of kernels/advect.py.
+
+Both clip their coordinates with `clip`, which has `jnp.clip`'s gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from solver_in_the_loop_torch.kernels.advect import tap_sum_fwd
+from solver_in_the_loop_torch.kernels.advect import tap_sum
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)` with its gradient: 0.5 where x equals a bound
+    (max and min share a tie), where `torch.clamp` passes the whole of it.
+    Where no gradient is taken it is one `torch.clamp` (the same values, one
+    launch instead of two). The bounds are 0-d CPU tensors, which broadcast
+    like Python scalars and cost no device copy."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+    lo_t = torch.tensor(lo, dtype=x.dtype)
+    hi_t = torch.tensor(hi, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 def _gather_2d(values: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -41,8 +56,8 @@ def bilinear_sample(values: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
         y0 = torch.remainder(y0, h)
         x0 = torch.remainder(x0, w)
     else:
-        y = torch.clamp(y, 0.0, h - 1.0)
-        x = torch.clamp(x, 0.0, w - 1.0)
+        y = clip(y, 0.0, h - 1.0)
+        x = clip(x, 0.0, w - 1.0)
         y0 = torch.floor(y).long()
         x0 = torch.floor(x).long()
         y0 = torch.clamp_max(y0, h - 2) if h > 1 else y0
@@ -70,18 +85,18 @@ def shifted_stencil_sample(values: torch.Tensor, dy: torch.Tensor, dx: torch.Ten
 
     values, dy, dx: (B, H, W). Offsets are clamped to [-max_shift, max_shift]
     and, for OPEN domains, so that the sample stays inside the field (the
-    clamps of interp.py:97-106 in the JAX package). The tap-sum then runs in
-    the CUDA kernel for CUDA tensors and in its plain PyTorch twin for CPU
-    tensors.
+    clamps of interp.py:97-106 in the JAX package, with their gradient). The
+    tap-sum then runs in the CUDA kernels for CUDA tensors and in their plain
+    PyTorch twins for CPU tensors, forward and backward.
     """
     h, w = values.shape[-2:]
-    dy = torch.clamp(dy, -max_shift, max_shift)
-    dx = torch.clamp(dx, -max_shift, max_shift)
+    dy = clip(dy, -max_shift, max_shift)
+    dx = clip(dx, -max_shift, max_shift)
     if not periodic:
         jj = torch.arange(h, dtype=values.dtype, device=values.device)[None, :, None]
         ii = torch.arange(w, dtype=values.dtype, device=values.device)[None, None, :]
-        dy = torch.clamp(jj + dy, 0.0, h - 1.0) - jj
-        dx = torch.clamp(ii + dx, 0.0, w - 1.0) - ii
+        dy = clip(jj + dy, 0.0, h - 1.0) - jj
+        dx = clip(ii + dx, 0.0, w - 1.0) - ii
     dy = dy.expand(values.shape).contiguous()
     dx = dx.expand(values.shape).contiguous()
-    return tap_sum_fwd(values.contiguous(), dy, dx, max_shift, periodic)
+    return tap_sum(values.contiguous(), dy, dx, max_shift, periodic)

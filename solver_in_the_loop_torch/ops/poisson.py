@@ -1,11 +1,13 @@
-"""Masked Poisson solve and pressure projection (make_incompressible), forward.
+"""Masked Poisson solve and pressure projection (make_incompressible).
 
-Port of solver_in_the_loop_tpu/ops/poisson.py for inference: matrix-free CG
-on the masked 5-point Poisson operator with the fast-diagonalization
-preconditioner. On CUDA, `solve_pressure` dispatches to the fused kernel of
-kernels/cg.py wherever it fits; on the CPU it runs the plain loops, as the
-JAX package does off the TPU. The plain preconditioned loop, `pcg_solve_info`,
-lives beside the kernel in kernels/cg.py.
+Port of solver_in_the_loop_tpu/ops/poisson.py: matrix-free CG on the masked
+5-point Poisson operator with the fast-diagonalization preconditioner. On
+CUDA, `solve_pressure` dispatches to the fused kernel of kernels/cg.py
+wherever it fits; on the CPU it runs the plain loops, as the JAX package does
+off the TPU. The plain preconditioned loop, `pcg_solve_info`, lives beside the
+kernel in kernels/cg.py. The OPEN-boundary solve is differentiable in its
+right-hand side: the backward is a cold solve of the same system
+(kernels/cg.py `pcg_solve_op`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from solver_in_the_loop_torch.kernels.cg import (
     fd_apply,
     masked_matvec,
     pcg_kernel_fits,
-    pcg_solve,
+    pcg_solve_op,
 )
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
 
@@ -112,8 +114,11 @@ def _fd_precon_np(ny: int, nx: int):
 @functools.lru_cache(maxsize=8)
 def fd_factors(ny: int, nx: int, device: torch.device):
     """(vy (ny, ny), vx (nx, nx), invd (ny, nx)) float32 tensors on `device`;
-    cached so a rollout copies them to the device once. Read-only."""
-    return tuple(torch.from_numpy(a).to(device) for a in _fd_precon_np(ny, nx))
+    cached so a rollout copies them to the device once. Read-only. Made
+    outside inference mode, so that a solve under autograd can save them
+    after a rollout cached them."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in _fd_precon_np(ny, nx))
 
 
 def fd_minv(ny: int, nx: int, device=None):
@@ -125,14 +130,18 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
                    tol: float = 1e-5, max_iter: int = 1000, x0: Optional[torch.Tensor] = None):
     """Solve div(mask*grad(p)) = div on fluid cells (p = 0 in obstacles).
 
-    x0 warm-starts the solve (masked to the fluid cells). Returns
-    (p, iterations as a 0-d int32 tensor on div's device). On CUDA the fused
-    kernel runs; where it does not fit, or for PERIODIC domains, this raises
-    NotImplementedError rather than run the plain loop on the card.
+    x0 warm-starts the forward solve only: it is masked to the fluid cells
+    and detached (JAX's stop_gradient), since the solution does not depend on
+    it beyond the CG tolerance. The gradient w.r.t. div is a cold solve of
+    the same system. Returns (p, iterations as a 0-d int32 tensor on div's
+    device). On CUDA the fused kernel runs; where it does not fit, or for
+    PERIODIC domains, this raises NotImplementedError rather than run the
+    plain loop on the card.
     """
     fluid = masks.fluid
     rhs = torch.where(fluid > 0, -div, 0.0)
-    x0 = torch.zeros_like(rhs) if x0 is None else torch.where(fluid > 0, x0, 0.0)
+    x0 = (torch.zeros_like(rhs) if x0 is None
+          else torch.where(fluid > 0, x0.detach(), 0.0))
     on_card = div.device.type == "cuda"
     if periodic:
         if on_card:
@@ -153,8 +162,8 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
             "multigrid, which is not ported yet (ROADMAP.md, 'Modules to port': multigrid)")
     _, ny, nx = rhs.shape
     vy, vx, invd = fd_factors(ny, nx, div.device)
-    return pcg_solve(rhs.contiguous(), x0.contiguous(), fluid, masks.face_u, masks.face_v,
-                     vy, vx, invd, tol, max_iter)
+    return pcg_solve_op(rhs.contiguous(), x0.contiguous(), fluid, masks.face_u,
+                        masks.face_v, vy, vx, invd, tol, max_iter)
 
 
 def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: float = 1e-5,

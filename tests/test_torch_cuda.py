@@ -7,8 +7,11 @@ The kernels have no CPU mode, so every test here needs a CUDA card (and
 
 (`--noconftest` because tests/conftest.py configures JAX, which the card's
 machine does not have; this file imports nothing of JAX). Tolerances are
-those of chip_smoke.py: the tap-sum bit for bit, the PCG within one
-iteration and 1e-4 of the solution's max, a 10-step rollout within 1e-3.
+those of solver_in_the_loop_torch/parity.py, which chip_smoke.py holds the
+card to: the tap-sum forward and backward bit for bit on the
+offsets the solver passes, the PCG within one iteration and 1e-4 of the
+solution's max, a 10-step rollout within 1e-3, one SOL-32 train step's
+losses within 1e-4 and gradients within 1e-3.
 """
 
 from __future__ import annotations
@@ -16,10 +19,17 @@ from __future__ import annotations
 import pytest
 import torch
 
-from solver_in_the_loop_torch.kernels.advect import tap_sum_fwd, tap_sum_fwd_plain
+from solver_in_the_loop_torch import parity
+from solver_in_the_loop_torch.kernels import advect, cg
+from solver_in_the_loop_torch.kernels.advect import (
+    tap_sum_bwd,
+    tap_sum_bwd_plain,
+    tap_sum_fwd,
+    tap_sum_fwd_plain,
+)
 from solver_in_the_loop_torch.kernels.cg import pcg_solve, pcg_solve_plain
 from solver_in_the_loop_torch.models.networks import disable_tf32
-from solver_in_the_loop_torch.ops import interp, poisson
+from solver_in_the_loop_torch.ops import interp
 from solver_in_the_loop_torch.ops.poisson import fd_factors
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train.rollout import karman_rollout
@@ -86,9 +96,55 @@ def test_rollout_with_kernels_matches_plain(device, monkeypatch):
     with_kernels = karman_rollout(flow, d0, v0, re, 10)
     assert (tap_sum_fwd.launches, pcg_solve.launches) == (launches[0] + 30, launches[1] + 10)
     # the same solver with both kernels' wrappers swapped for their plain twins
-    monkeypatch.setattr(interp, "tap_sum_fwd", tap_sum_fwd_plain)
-    monkeypatch.setattr(poisson, "pcg_solve", pcg_solve_plain)
+    monkeypatch.setattr(advect, "tap_sum_fwd", tap_sum_fwd_plain)
+    monkeypatch.setattr(cg, "pcg_solve", pcg_solve_plain)
     plain = karman_rollout(flow, d0, v0, re, 10)
     assert (tap_sum_fwd.launches, pcg_solve.launches) == (launches[0] + 30, launches[1] + 10)
     for key in ("dens", "u", "v"):
         assert _rel(with_kernels[key], plain[key]) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 32), (3, 64, 33), (3, 65, 32), (1, 64, 32)])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_tap_sum_bwd_kernel_equals_plain(device, shape, periodic):
+    gen = torch.Generator(device=device).manual_seed(2)
+    vals, g = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
+    dy = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
+    dx = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
+    for offsets in ((dy, dx), (dy.round(), dx.round())):
+        launches = tap_sum_bwd.launches
+        got = tap_sum_bwd(vals, *offsets, g, 2, periodic)
+        assert tap_sum_bwd.launches == launches + 1
+        want = tap_sum_bwd_plain(vals, *offsets, g, 2, periodic)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert _rel(got[0], want[0]) <= parity.TAP_SUM_BWD_DV_REL_TOL
+
+
+def test_shift_sampler_gradients_equal_plain(device, monkeypatch):
+    """Through the solver's own clamps dV is bit-equal too: every tap that
+    leaves the field has a weight of exactly 0."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = (3, 64, 33)
+    inputs = [torch.randn(shape, generator=gen, device=device) * s for s in (1.0, 2.0, 2.0)]
+    cot = torch.randn(shape, generator=gen, device=device)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = interp.shifted_stencil_sample(*leaves, 2, False)
+        return torch.autograd.grad(out, leaves, cot)
+
+    launches = (tap_sum_fwd.launches, tap_sum_bwd.launches)
+    with_kernels = grads()
+    assert (tap_sum_fwd.launches, tap_sum_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    with parity.plain_path():
+        plain = grads()
+    assert all(torch.equal(a, b) for a, b in zip(with_kernels, plain))
+
+
+def test_train_step_with_kernels_matches_plain(device):
+    kernel = parity.parity_summary(parity.parity_step(device))
+    with parity.plain_path():
+        plain = parity.parity_summary(parity.parity_step(device))
+    errors = parity.parity_errors(kernel, plain)
+    for key, tol in parity.TRAIN_PARITY_TOL.items():
+        assert errors[key] <= tol, (key, errors)

@@ -31,12 +31,36 @@ each printing one JSON line:
 8. train_parity — one SOL-32 train step on the kernel path against the same
                   step on the plain path and against the JAX package's step
                   (tests/data/torch_port/karman_train_step_sol32.npz)
+8b.             — the same step with the nets' convs in the port's conv kernels
+                  (`--conv kernel`) against the same golden
 9. train_profile — where a training iteration's time goes (torch.profiler)
+10. burgers_gen — `burgers-gen` through the CLI: the Makefile's hi-res
+                  training set (seeds 0-9, 128x128, 30 skipped steps) cut to
+                  40 frames, and its test sim seed 100 at the full 200 frames;
+                  frame 0 of seed 100 against the JAX package's
+11. burgers_train — `burgers-train --conv kernel` through the CLI: the
+                  Makefile's SOL-04 run (MarsMoon 32x5, batch 5, msteps 4,
+                  32x32) on that set, cut to 1 epoch of 72 iterations
+                  (BURGERS_TRAIN_REDUCED), with the kernels' launch counts
+12. burgers_apply — `burgers-apply --conv kernel` through the CLI: the
+                  Makefile's SOL-04 run_test of the test sim (199 steps) with
+                  the trained artifacts/a3_b_sol04 net, after a warm-up run,
+                  with the launch counts; and the same run with `--conv library`
+13. burgers_parity — 20 steps of that CLI on the JAX golden's inputs against
+                  the JAX golden frames, the `--conv library` run and the
+                  plain path (tests/data/torch_port/burgers_apply_sol04_r32.npz)
+14. burgers_train_parity — one full-width SOL-04 train step with the conv
+                  kernels against the JAX package's
+                  (tests/data/torch_port/burgers_train_step_sol04.npz)
+15. burgers_profile — where a SOL-04 training iteration's and an apply
+                  step's time goes, with the conv kernels and with cuDNN
 
-Then the per-kernel summary line, the card's `nvidia-smi` name and power
-limit, and as the last line {"ok": true, "device": {...}}. Any failed check
-raises, so the script exits non-zero without that line; without CUDA, or
-outside a checkout, it exits 1 at once.
+The kernels phase also checks the conv kernels (forward, input gradient and
+weight gradient) at the Burgers and karman shapes and times them beside
+cuDNN. Then the per-kernel summary line, the card's `nvidia-smi` name and
+power limit, and as the last line {"ok": true, "device": {...}}. Any failed
+check raises, so the script exits non-zero without that line; without CUDA,
+or outside a checkout, it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -72,6 +96,24 @@ TRAIN_REDUCED = {
                     "karman_hires_set_head_ds.npz), written as the ds_ frames --skip-ds reads",
     "seed": "0 -> 1: the port's seed-0 glorot draw overflows the unroll on this set "
             "(solver_in_the_loop_torch/parity.py TRAIN_SEED)",
+}
+
+# Burgers: the Makefile's hi-res sets (burgers-fdt-hires-set, -testset) and
+# its SOL-04 training (burgers-fdt-sol04), cut to fit the script
+BURGERS_SET = os.path.join(REPO, "build", "smoke_burgers_set")
+BURGERS_TEST = os.path.join(REPO, "build", "smoke_burgers_test")
+BURGERS_TF = os.path.join(REPO, "build", "smoke_burgers_tf")
+BURGERS_SEEDS = range(10)
+BURGERS_SET_FRAMES = 40
+BURGERS_TEST_FRAMES = 200
+BURGERS_MSTEPS = 4
+BURGERS_ITERS = 2 * (BURGERS_SET_FRAMES - BURGERS_MSTEPS)  # 10 sims / batch 5 x (frames - msteps)
+BURGERS_TRAIN_REDUCED = {
+    "simsteps": "200 -> 40 frames per sim: 72 iterations",
+    "epochs": "100 -> 1",
+    "training set": "burgers-fdt-hires-set (seeds 0-9, -t 200) -> the same command with -t 40, "
+                    "made by the port's burgers-gen in the burgers_gen phase",
+    "thumbnails": "--thumb dropped from burgers-gen (needs PIL; ROADMAP.md A7)",
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
@@ -156,6 +198,39 @@ def pcg_bound_ms(shape, iters: int):
     return _bound(byts, ops)
 
 
+def conv_bound_ms(shape, with_skip: bool):
+    """x, w, bias (and skip) read and y written once; 2*M*K*K*Cin*Cout
+    operations for the products and their sums."""
+    b, h, w, cin, cout, k = shape
+    m = b * h * w
+    byts = 4 * (m * cin + k * k * cin * cout + cout + m * cout * (2 if with_skip else 1))
+    return _bound(byts, 2 * m * k * k * cin * cout)
+
+
+def conv_wgrad_bound_ms(shape):
+    """x and dz read and dW written once; 2*M*K*K*Cin*Cout operations."""
+    b, h, w, cin, cout, k = shape
+    m = b * h * w
+    return _bound(4 * (m * cin + m * cout + k * k * cin * cout), 2 * m * k * k * cin * cout)
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper (each counts its launches), by kernel name."""
+    from solver_in_the_loop_torch.kernels import advect, cg, conv
+
+    return {"tap_sum_fwd": advect.tap_sum_fwd, "tap_sum_bwd": advect.tap_sum_bwd,
+            "pcg_solve": cg.pcg_solve, "conv_fwd": conv.conv_fwd, "conv_wgrad": conv.conv_wgrad}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def phase_env():
     import torch
 
@@ -234,6 +309,8 @@ def phase_kernels(device):
     from solver_in_the_loop_torch.kernels.cg import pcg_solve, pcg_solve_plain
     from solver_in_the_loop_torch.ops.poisson import fd_factors
     from solver_in_the_loop_torch.parity import (
+        CONV_FWD_REL_TOL,
+        CONV_WGRAD_REL_TOL,
         PARITY_RE,
         PCG_ITER_TOL,
         PCG_REL_TOL,
@@ -310,12 +387,125 @@ def phase_kernels(device):
             require(abs(case["iters"] - case["plain_iters"]) <= PCG_ITER_TOL,
                     f"pcg_solve iterations {case}")
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
-    emit({"phase": "kernels", "library_ms": "none: no single PyTorch call computes any "
-          "kernel's function", "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases,
-          "pcg_solve": pcg_cases,
+    conv_cases, wgrad_cases = conv_kernel_cases(device)
+    emit({"phase": "kernels", "library_ms": "tap-sum and PCG: none, no single PyTorch call "
+          "computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) on the same NHWC "
+          "data seen as NCHW, with the bias but not the skip or activation; conv_wgrad: "
+          "aten.convolution_backward, weight gradient only",
+          "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
+          "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
-                         "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL}})
-    return {"tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases}
+                         "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL,
+                         "conv_fwd_rel": CONV_FWD_REL_TOL, "conv_wgrad_rel": CONV_WGRAD_REL_TOL}})
+    return {"tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
+            "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases}
+
+
+# (B, H, W, Cin, Cout, K, act, skip, where): every conv of MarsMoon at the
+# Burgers training and apply shapes and the karman stems, one 3x3 conv, and
+# the activations with and without skip
+CONV_CASES = [
+    (5, 32, 32, 4, 32, 5, "leaky_relu", False, "burgers train: stem"),
+    (5, 32, 32, 32, 32, 5, "leaky_relu", False, "burgers train: block conv1"),
+    (5, 32, 32, 32, 32, 5, "leaky_relu", True, "burgers train: block conv2"),
+    (5, 32, 32, 32, 2, 5, "none", False, "burgers train: head"),
+    (1, 32, 32, 4, 32, 5, "leaky_relu", False, "burgers apply: stem"),
+    (1, 32, 32, 32, 32, 5, "leaky_relu", False, "burgers apply: block conv1"),
+    (1, 32, 32, 32, 32, 5, "leaky_relu", True, "burgers apply: block conv2"),
+    (1, 32, 32, 32, 2, 5, "none", False, "burgers apply: head"),
+    (3, 64, 32, 3, 32, 5, "leaky_relu", False, "karman train: stem"),
+    (1, 64, 32, 3, 32, 5, "leaky_relu", False, "karman apply: stem"),
+    (5, 32, 32, 32, 32, 3, "relu", True, "3x3"),
+    (5, 32, 32, 32, 32, 5, "relu", False, "relu"),
+    (5, 32, 32, 32, 32, 5, "none", True, "none with skip"),
+]
+# input gradients (conv_fwd with the flipped, channel-transposed kernel) and
+# weight gradients: (B, H, W, Cin, Cout, K) of the forward conv
+CONV_GRAD_CASES = [
+    (5, 32, 32, 4, 32, 5, "burgers train: stem"),
+    (5, 32, 32, 32, 32, 5, "burgers train: block"),
+    (5, 32, 32, 32, 2, 5, "burgers train: head"),
+    (3, 64, 32, 3, 32, 5, "karman train: stem"),
+    (3, 64, 32, 32, 32, 5, "karman train: block"),
+    (5, 32, 32, 32, 32, 3, "3x3"),
+]
+
+
+def conv_kernel_cases(device):
+    """conv_fwd and conv_wgrad against their twins, with their times, the
+    twins', cuDNN's and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from solver_in_the_loop_torch.kernels.conv import (
+        conv_fwd,
+        conv_fwd_plain,
+        conv_wgrad,
+        conv_wgrad_plain,
+    )
+    from solver_in_the_loop_torch.parity import CONV_FWD_REL_TOL, CONV_WGRAD_REL_TOL
+
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def inputs(b, h, w, cin, cout, k):
+        x = torch.randn((b, h, w, cin), generator=gen, device=device)
+        wt = 0.1 * torch.randn((cout, cin, k, k), generator=gen, device=device)
+        bias = 0.1 * torch.randn((cout,), generator=gen, device=device)
+        dz = torch.randn((b, h, w, cout), generator=gen, device=device)
+        return x, wt, bias, dz
+
+    fwd_cases = []
+    for *shape, act, with_skip, where in CONV_CASES:
+        x, wt, bias, skip = inputs(*shape)
+        skip = skip if with_skip else None
+        w = wt.permute(2, 3, 1, 0)
+        r = shape[5] // 2
+        got = conv_fwd(x, w, bias, skip, act, 0.3)
+        want = conv_fwd_plain(x, w, bias, skip, act, 0.3)
+        torch.cuda.synchronize()
+        case = {"shape": shape, "act": act, "skip": with_skip, "where": where, "dgrad": False,
+                "max_abs_err": float((got - want).abs().max()), "rel_err": rel_err(got, want),
+                "ms": time_ms(lambda: conv_fwd(x, w, bias, skip, act, 0.3), 200),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10),
+                "library_ms": time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias,
+                                                       padding=r), 200)}
+        case["bound_ms"], case["bound_by"] = conv_bound_ms(shape, with_skip)
+        fwd_cases.append(case)
+        require(case["rel_err"] <= CONV_FWD_REL_TOL, f"conv_fwd {case} differs from its twin")
+
+    wgrad_cases = []
+    for *shape, where in CONV_GRAD_CASES:
+        x, wt, _, dz = inputs(*shape)
+        w = wt.permute(2, 3, 1, 0).transpose(2, 3)  # the input gradient's kernel
+        got = conv_fwd(dz, w, flip=True)
+        want = conv_fwd_plain(dz, w, flip=True)
+        b, h, wd, cin, cout, k = shape
+        case = {"shape": [b, h, wd, cout, cin, k], "act": "none", "skip": False, "where": where,
+                "dgrad": True, "max_abs_err": float((got - want).abs().max()),
+                "rel_err": rel_err(got, want),
+                "ms": time_ms(lambda: conv_fwd(dz, w, flip=True), 200),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10)}
+        case["bound_ms"], case["bound_by"] = conv_bound_ms(case["shape"], False)
+        fwd_cases.append(case)
+        require(case["rel_err"] <= CONV_FWD_REL_TOL, f"conv_fwd (dgrad) {case} differs")
+
+        got = conv_wgrad(x, dz, k)
+        want = conv_wgrad_plain(x, dz, k)
+        torch.cuda.synchronize()
+        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+        case = {"shape": shape, "where": where, "max_abs_err": float((got - want).abs().max()),
+                "rel_err": rel_err(got, want),
+                "deterministic": bool(torch.equal(got, conv_wgrad(x, dz, k))),
+                "ms": time_ms(lambda: conv_wgrad(x, dz, k), 200),
+                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10),
+                "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                    dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+                    [False, True, False]), 200)}
+        case["bound_ms"], case["bound_by"] = conv_wgrad_bound_ms(shape)
+        wgrad_cases.append(case)
+        require(case["rel_err"] <= CONV_WGRAD_REL_TOL, f"conv_wgrad {case} differs from its twin")
+        require(case["deterministic"], f"conv_wgrad {case} is not deterministic")
+    return fwd_cases, wgrad_cases
 
 
 def apply_argv(re_list, simsteps: int):
@@ -348,14 +538,10 @@ def phase_apply(re_list):
     import numpy as np
     import torch
 
-    from solver_in_the_loop_torch.kernels.advect import tap_sum_bwd, tap_sum_fwd
-    from solver_in_the_loop_torch.kernels.cg import pcg_solve
-
     run_cli(re_list, 2)
-    tap_sum_fwd.launches = tap_sum_bwd.launches = pcg_solve.launches = 0
+    reset_launches()
     frames, scenes = run_cli(re_list, STEPS)
-    launches = {"tap_sum_fwd": tap_sum_fwd.launches, "tap_sum_bwd": tap_sum_bwd.launches,
-                "pcg_solve": pcg_solve.launches}
+    launches = read_launches()
     steps = STEPS - 1
     iters = frames["cg_iters"].cpu().numpy()
     finite = all(bool(torch.isfinite(v).all()) for k, v in frames.items() if k != "rollout_seconds")
@@ -367,8 +553,10 @@ def phase_apply(re_list):
             "finite": finite, "scenes": scenes,
             "max_abs_u": float(frames["u"].abs().max()), "max_abs_v": float(frames["v"].abs().max())}
     emit(line)
-    require(launches == {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": steps},
-            f"launch counts {launches} != 3x{steps} tap-sum, no backward, {steps} pcg")
+    require(launches == {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": steps,
+                         "conv_fwd": 0, "conv_wgrad": 0},
+            f"launch counts {launches} != 3x{steps} tap-sum, no backward, {steps} pcg, "
+            "no conv kernel (--conv library)")
     require(finite, "non-finite frames in the rollout")
     require(scenes == len(re_list), f"wrote {scenes} scenes for {len(re_list)} Re")
     return launches, frames
@@ -507,7 +695,7 @@ def phase_train():
     import torch
 
     from solver_in_the_loop_torch import __main__ as cli
-    from solver_in_the_loop_torch.kernels import advect, cg
+    from solver_in_the_loop_torch.kernels import cg
 
     fixture = write_train_fixture()
     shutil.rmtree(TRAIN_OUT, ignore_errors=True)
@@ -523,14 +711,13 @@ def phase_train():
         return x, iters
 
     torch.cuda.reset_peak_memory_stats()
-    advect.tap_sum_fwd.launches = advect.tap_sum_bwd.launches = pcg_solve.launches = 0
     with mock.patch.object(cg, "pcg_solve", pcg_solve):
+        reset_launches()
         t0 = time.perf_counter()
         result = cli.main(["karman-train", *train_argv()])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = {"tap_sum_fwd": advect.tap_sum_fwd.launches,
-                "tap_sum_bwd": advect.tap_sum_bwd.launches, "pcg_solve": pcg_solve.launches}
+        launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     iters = len(result.losses)
     msteps = 32
@@ -539,7 +726,7 @@ def phase_train():
     # not reach the loss), not for step 0, whose inputs are data; one solve
     # per step forward and one adjoint per step but step 0
     per_iter = {"tap_sum_fwd": 2 * 3 * msteps, "tap_sum_bwd": 2 * (msteps - 1),
-                "pcg_solve": msteps + (msteps - 1)}
+                "pcg_solve": msteps + (msteps - 1), "conv_fwd": 0, "conv_wgrad": 0}
     solves = torch.stack(record).cpu().numpy().reshape(iters, per_iter["pcg_solve"])
     fwd_iters, adj_iters = solves[:, :msteps], solves[:, msteps:]
     frames, _ = run_cli_argv(["karman-apply", "-o", OUT_DIR, "--model",
@@ -592,17 +779,27 @@ def phase_train_parity(device):
         plain_step = par.parity_step(device)
     plain = par.parity_summary(plain_step)
     golden = par.train_golden_summary()
+    reset_launches()
+    conv_kernel = par.parity_summary(par.parity_step(device, "kernel"))
+    conv_launches = read_launches()
     line = {"phase": "train_parity", "tolerances": par.TRAIN_PARITY_TOL,
             "kernel_loss": kernel[0], "plain_loss": plain[0], "jax_loss": golden[0],
+            "conv_kernel_loss": conv_kernel[0],
             "plain_cg_iters_forward": plain_step[2].tolist(),
             "vs_plain": par.parity_errors(kernel, plain),
             "vs_jax_golden": par.parity_errors(kernel, golden),
-            "plain_vs_jax_golden": par.parity_errors(plain, golden)}
+            "plain_vs_jax_golden": par.parity_errors(plain, golden),
+            "conv_kernel_vs_jax_golden": par.parity_errors(conv_kernel, golden),
+            "conv_kernel_launches": conv_launches}
     emit(line)
-    for against in ("vs_plain", "vs_jax_golden"):
+    for against in ("vs_plain", "vs_jax_golden", "conv_kernel_vs_jax_golden"):
         for key, tol in par.TRAIN_PARITY_TOL.items():
             require(line[against][key] <= tol, f"train parity {against} {key}: "
                     f"{line[against][key]} > {tol}")
+    # 32 steps x 12 convs forward, all but the step-0 stem's input gradient
+    require(conv_launches["conv_fwd"] == 2 * 12 * par.PARITY_MSTEPS - 1
+            and conv_launches["conv_wgrad"] == 12 * par.PARITY_MSTEPS,
+            f"conv launches of the karman step {conv_launches}")
 
 
 def phase_train_profile(device, iters=2):
@@ -698,6 +895,295 @@ def phase_train_profile(device, iters=2):
     return line
 
 
+def burgers_gen_argv(out: str, seed: int, frames: int):
+    """The Makefile's burgers-gen command for one sim (without --thumb)."""
+    return ["burgers-gen", "-o", out, "-r", "128", "-l", "32", "--dt", "0.1", "-s", "30",
+            "-t", str(frames), "--seed", str(seed)]
+
+
+def phase_burgers_gen():
+    """The Burgers data path through the CLI: the training set cut to 40
+    frames and the test sim at full length; frame 0 of the test sim against
+    the JAX package's."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.io.scene import Scene, read_array
+
+    for d in (BURGERS_SET, BURGERS_TEST):
+        shutil.rmtree(d, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    for seed in BURGERS_SEEDS:
+        cli.main(burgers_gen_argv(BURGERS_SET, seed, BURGERS_SET_FRAMES))
+    set_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test = cli.main(["burgers-gen", "-o", BURGERS_TEST, *par.BURGERS_GEN_ARGV,
+                     "-t", str(BURGERS_TEST_FRAMES)])
+    test_seconds = time.perf_counter() - t0
+    launches = read_launches()
+    frame0 = read_array(test.frame_path("velo", 0))
+    with np.load(par.BURGERS_APPLY_GOLDEN) as g:
+        err = float(np.abs(frame0 - g["velo_hi"]).max() / np.abs(g["velo_hi"]).max())
+    scenes = Scene.list(BURGERS_SET)
+    last = read_array(test.frame_path("velo", BURGERS_TEST_FRAMES - 1))
+    line = {"phase": "burgers_gen", "set_sims": len(scenes), "set_frames": BURGERS_SET_FRAMES,
+            "set_seconds": set_seconds, "test_frames": len(test.frames("velo")),
+            "test_seconds": test_seconds,
+            "seconds_per_step_test": test_seconds / (BURGERS_TEST_FRAMES + 30 - 1),
+            "frame0_rel_err_vs_jax_golden": err, "tolerance": par.BURGERS_GEN_REL_TOL,
+            "launches": launches, "last_frame_finite": bool(np.isfinite(last).all()),
+            "last_frame_max_abs": float(np.abs(last).max())}
+    emit(line)
+    require(len(scenes) == len(BURGERS_SEEDS)
+            and all(sc.frames("velo") == list(range(BURGERS_SET_FRAMES)) for sc in scenes),
+            "the training set's scenes or frames are incomplete")
+    require(line["test_frames"] == BURGERS_TEST_FRAMES, "the test sim's frames are incomplete")
+    require(err <= par.BURGERS_GEN_REL_TOL, f"burgers-gen frame 0 differs from JAX's by {err}")
+    require(line["last_frame_finite"], "the test sim's last frame is not finite")
+
+
+def burgers_train_argv():
+    """The Makefile's SOL-04 command (burgers-fdt-sol04) on the cut set, with
+    the port's conv kernels."""
+    return ["burgers-train", "--train", BURGERS_SET, "--tf", BURGERS_TF, "--epochs", "1",
+            "--lr", "0.0001", "--dt", "0.1", "-t", str(BURGERS_SET_FRAMES), "-s", "4",
+            "-m", str(BURGERS_MSTEPS), "-n", "10", "-b", "5", "--seed", "0", "--conv", "kernel"]
+
+
+def phase_burgers_train():
+    """The Burgers training path: `burgers-train --conv kernel` through the CLI
+    entry point, every launch count set to 0 just before it."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+
+    shutil.rmtree(BURGERS_TF, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.main(burgers_train_argv())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    iters = len(result.losses)
+    m = BURGERS_MSTEPS
+    # per iteration under pressure+conv: two tap-sums (u, v) per step forward
+    # and again in the recompute; their backward for steps 1..m-1 (step 0
+    # advects data); 12 convs per step, their input gradients but the step-0
+    # stem's, and 12 weight gradients per step; no solve
+    per_iter = {"tap_sum_fwd": 2 * 2 * m, "tap_sum_bwd": 2 * (m - 1), "pcg_solve": 0,
+                "conv_fwd": 12 * m + 12 * m - 1, "conv_wgrad": 12 * m}
+    line = {"phase": "burgers_train", "argv": burgers_train_argv(),
+            "reduced": BURGERS_TRAIN_REDUCED, "iterations": iters, "seconds": seconds,
+            "sec_per_iter_median_after_first": float(np.median(result.iter_seconds[1:])),
+            "sec_per_iter_first": result.iter_seconds[0],
+            "first_loss": result.losses[0], "last_loss": result.losses[-1],
+            "losses": result.losses, "guard_skipped": result.notfinite,
+            "updates_applied": iters - result.notfinite, "launches": launches,
+            "launches_per_iter": {k: v / iters for k, v in launches.items()},
+            "predicted_per_iter": per_iter,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "checkpoint": sorted(os.listdir(BURGERS_TF))}
+    emit(line)
+    require(iters == BURGERS_ITERS, f"{iters} iterations, expected {BURGERS_ITERS}")
+    require(all(np.isfinite(result.losses)), "a Burgers training loss is not finite")
+    require(result.losses[-1] <= result.losses[0],
+            f"the last loss {result.losses[-1]} exceeds the first {result.losses[0]}")
+    require(launches == {k: v * iters for k, v in per_iter.items()},
+            f"launch counts {launches} != {per_iter} per iteration x {iters}")
+    for name in ("model.msgpack", "dataStats.json", "model_epoch0001.msgpack"):
+        require(os.path.isfile(os.path.join(BURGERS_TF, name)), f"{name} was not written")
+    return launches
+
+
+def burgers_apply_argv(conv: str, simsteps: int):
+    """The Makefile's burgers-fdt-sol04/run_test for sim 0 of the test set,
+    with the trained artifacts/a3_b_sol04 net."""
+    from solver_in_the_loop_torch import parity as par
+
+    sim = os.path.join(BURGERS_TEST, "sim_000000")
+    return ["burgers-apply", "-o", OUT_DIR, "--stats",
+            os.path.join(par.BURGERS_CKPT, "dataStats.json"),
+            "--model", os.path.join(par.BURGERS_CKPT, "model.msgpack"),
+            "--initvH", os.path.join(sim, "velo_000000.npz"),
+            "--loadfH", os.path.join(sim, "forc_0*.npz"), "-d", "4", "-r", "32", "-l", "32",
+            "--dt", "0.1", "-t", str(simsteps), "--conv", conv]
+
+
+def phase_burgers_apply():
+    """The Burgers serving path: a warm-up run, then the 199-step run_test
+    with every launch count set to 0 just before it (--conv kernel), and the
+    same run with cuDNN (--conv library) beside it."""
+    import torch
+
+    steps = BURGERS_TEST_FRAMES - 1
+    line = {"phase": "burgers_apply", "steps": steps, "batch": 1}
+    for conv in ("library", "kernel"):
+        run_cli_argv(burgers_apply_argv(conv, 2))
+        reset_launches()
+        frames, scenes = run_cli_argv(burgers_apply_argv(conv, BURGERS_TEST_FRAMES))
+        launches = read_launches()
+        finite = bool(torch.isfinite(frames["u"]).all() and torch.isfinite(frames["v"]).all())
+        line[conv] = {"seconds_per_step": frames["rollout_seconds"] / steps,
+                      "rollout_seconds": frames["rollout_seconds"], "launches": launches,
+                      "finite": finite, "scenes": scenes,
+                      "max_abs_u": float(frames["u"].abs().max())}
+        require(finite and scenes == 1, f"burgers-apply --conv {conv}: finite {finite}, "
+                f"{scenes} scenes")
+    emit(line)
+    want = {"tap_sum_fwd": 2 * steps, "tap_sum_bwd": 0, "pcg_solve": 0,
+            "conv_fwd": 12 * steps, "conv_wgrad": 0}
+    require(line["kernel"]["launches"] == want,
+            f"burgers-apply launch counts {line['kernel']['launches']} != {want}")
+    return line["kernel"]["launches"]
+
+
+def phase_burgers_parity():
+    """20 steps of burgers-apply on the JAX golden's inputs with the conv
+    kernels, against the JAX golden frames, the same run with cuDNN and the
+    same run on the plain path."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import parity as par
+
+    inputs = par.burgers_apply_inputs(os.path.join(REPO, "build", "smoke_burgers_golden_inputs"))
+    runs = {}
+    for name, conv in (("kernel", "kernel"), ("library", "library"), ("plain", "kernel")):
+        argv = ["burgers-apply", *par.burgers_apply_argv(OUT_DIR, inputs, conv)]
+        if name == "plain":
+            with par.plain_path():
+                runs[name], _ = run_cli_argv(argv)
+        else:
+            runs[name], _ = run_cli_argv(argv)
+    golden = np.load(par.BURGERS_APPLY_GOLDEN)
+    line = {"phase": "burgers_parity", "steps": [1, 5, par.BURGERS_GOLDEN_STEPS],
+            "tolerance": par.ROLLOUT_REL_TOL, "vs_jax_golden": {}, "vs_library": {},
+            "vs_plain": {}}
+    worst = 0.0
+    for field in ("u", "v"):
+        for step in line["steps"]:
+            got = runs["kernel"][field][step - 1, 0].cpu()
+            errs = {"vs_jax_golden": rel_err(got, torch.from_numpy(golden[field][step - 1])),
+                    "vs_library": rel_err(got, runs["library"][field][step - 1, 0].cpu()),
+                    "vs_plain": rel_err(got, runs["plain"][field][step - 1, 0].cpu())}
+            for key, e in errs.items():
+                line[key][f"{field}_{step}"] = e
+                worst = max(worst, e)
+    line["worst"] = worst
+    emit(line)
+    require(worst <= par.ROLLOUT_REL_TOL, f"Burgers rollout parity {worst} > {par.ROLLOUT_REL_TOL}")
+
+
+def phase_burgers_train_parity(device):
+    """One full-width SOL-04 train step with the conv kernels against the JAX
+    package's (golden), the plain path and cuDNN."""
+    from solver_in_the_loop_torch import parity as par
+
+    reset_launches()
+    kernel = par.parity_summary(par.burgers_parity_step(device, "kernel"))
+    launches = read_launches()
+    with par.plain_path():
+        plain = par.parity_summary(par.burgers_parity_step(device, "kernel"))
+    library = par.parity_summary(par.burgers_parity_step(device, "library"))
+    golden = par.train_golden_summary(par.BURGERS_TRAIN_GOLDEN)
+    line = {"phase": "burgers_train_parity", "tolerances": par.TRAIN_PARITY_TOL,
+            "kernel_loss": kernel[0], "jax_loss": golden[0], "launches": launches,
+            "vs_jax_golden": par.parity_errors(kernel, golden),
+            "vs_plain": par.parity_errors(kernel, plain),
+            "vs_library": par.parity_errors(kernel, library),
+            "library_vs_jax_golden": par.parity_errors(library, golden)}
+    emit(line)
+    for against in ("vs_jax_golden", "vs_plain", "vs_library"):
+        for key, tol in par.TRAIN_PARITY_TOL.items():
+            require(line[against][key] <= tol, f"Burgers train parity {against} {key}: "
+                    f"{line[against][key]} > {tol}")
+
+
+def _device_profile(run, iters: int, per: int = 1):
+    """Wall ms of `run` without and with torch.profiler, and device ms and
+    launches by kernel group, each per call of `run` divided by `per`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0) / per)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall_prof = 1e3 * (time.perf_counter() - t0) / (iters * per)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = {"tap_sum_fwd": ("tap_sum_fwd_kernel",), "tap_sum_bwd": ("tap_sum_bwd_kernel",),
+              "conv_fwd": ("::conv_fwd_kernel",), "conv_wgrad": ("::conv_wgrad_kernel",),
+              "cudnn_conv": ("xmma", "cudnn", "fprop", "dgrad", "wgrad", "nhwcToNchw",
+                             "nchwToNhwc", "implicit_gemm")}
+    by_group = {g: {"launches": 0.0, "ms": 0.0} for g in (*groups, "other")}
+    for e in events:
+        g = next((g for g, keys in groups.items() if any(k in e.name for k in keys)), "other")
+        by_group[g]["launches"] += 1 / (iters * per)
+        by_group[g]["ms"] += e.time_range.elapsed_us() / 1e3 / (iters * per)
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / (iters * per)
+    return {"wall_ms": sorted(walls)[1], "wall_ms_all": walls, "wall_ms_profiled": wall_prof,
+            "device_busy_ms": busy_ms, "device_idle_share_profiled": 1.0 - busy_ms / wall_prof,
+            "device_launches": len(events) / (iters * per), "by_group": by_group}
+
+
+def phase_burgers_profile(device, apply_steps=50):
+    """Where a SOL-04 training iteration (the parity set-up with the CLI's
+    optimizer, batch 5, msteps 4) and a batch-1 apply step go, with the conv
+    kernels and with cuDNN: wall against device busy, by kernel group."""
+    import torch
+
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.apps import burgers_apply
+    from solver_in_the_loop_torch.models.features import Normalization
+    from solver_in_the_loop_torch.physics.burgers import BurgersFlow, burgers_domain
+    from solver_in_the_loop_torch.train.trainer import (
+        SolTrainConfig,
+        make_burgers_train_step,
+        make_optimizer,
+    )
+
+    data, idx, stats = par.burgers_train_parity_inputs()
+    tdata = {k: torch.from_numpy(a).to(device) for k, a in data.items()}
+    tidx = torch.from_numpy(idx).to(device)
+    norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"], stats["std.fu"],
+                                 device)
+    flow = BurgersFlow(burgers_domain(32), advection="shift", max_shift=2)
+    line = {"phase": "burgers_profile", "train": {}, "apply": {},
+            "train_setup": "batch 5, msteps 4, 32x32, remat pressure+conv, from "
+                           "artifacts/a3_b_sol04, per iteration",
+            "apply_setup": f"run_test of the test sim, batch 1, per step over {apply_steps} steps"}
+    for conv in ("library", "kernel"):
+        model = par.parity_model(device, conv, par.BURGERS_CKPT, in_channels=4)
+        cfg = SolTrainConfig(msteps=par.BURGERS_PARITY_MSTEPS, clip_grad=True, lr=1e-5)
+        step = make_burgers_train_step(flow, model, make_optimizer(model, cfg), cfg,
+                                       dt=par.BURGERS_DT)
+        line["train"][conv] = _device_profile(lambda: float(step(tdata, norm, tidx)[0]), 2)
+
+        args = burgers_apply.build_parser().parse_args(
+            burgers_apply_argv(conv, apply_steps + 1)[1:])
+        rollout, v0, fu, fv = burgers_apply.prepare(args)
+        line["apply"][conv] = _device_profile(lambda: rollout(v0, fu, fv), 1, per=apply_steps)
+    emit(line)
+    for part in ("train", "apply"):
+        require(line[part]["kernel"]["device_busy_ms"] > 0, "the profiler saw no device time")
+        require(line[part]["kernel"]["by_group"]["conv_fwd"]["launches"] > 0
+                and line[part]["kernel"]["by_group"]["cudnn_conv"]["launches"] == 0,
+                f"the {part} profile with --conv kernel does not show the conv kernel alone")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "solver_in_the_loop_torch")):
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -722,22 +1208,41 @@ def main() -> int:
     train_launches = phase_train()
     phase_train_parity(device)
     phase_train_profile(device)
+    phase_burgers_gen()
+    burgers_train_launches = phase_burgers_train()
+    burgers_apply_launches = phase_burgers_apply()
+    phase_burgers_parity()
+    phase_burgers_train_parity(device)
+    phase_burgers_profile(device)
 
     def at(name, shape, **match):
-        return next(c for c in cases[name] if c["shape"] == list(shape) and "ms" in c
+        return next(c for c in cases[name] if list(c["shape"]) == list(shape) and "ms" in c
                     and all(c[k] == v for k, v in match.items()))
 
     rows = [("tap_sum_fwd", "advect.cu", "advect_kernel.py:128", at("tap_sum_fwd", (3, 64, 32))),
             ("tap_sum_bwd", "advect.cu", "advect_kernel.py:143", at("tap_sum_bwd", (3, 64, 32))),
-            ("pcg_solve", "pcg.cu", "cg_kernel.py:112", at("pcg_solve", (3, 64, 32), start="warm"))]
+            ("pcg_solve", "pcg.cu", "cg_kernel.py:112", at("pcg_solve", (3, 64, 32), start="warm")),
+            ("conv_fwd", "conv.cu", "conv_kernel.py:123",
+             at("conv_fwd", (5, 32, 32, 32, 32, 5), act="leaky_relu", skip=True)),
+            ("conv_wgrad", "conv.cu", "conv_kernel.py:191",
+             at("conv_wgrad", (5, 32, 32, 32, 32, 5)))]
+    # the main path of each kernel: karman training for the tap-sum and the
+    # PCG, Burgers training for the conv kernels
+    main_path = {"tap_sum_fwd": train_launches, "tap_sum_bwd": train_launches,
+                 "pcg_solve": train_launches, "conv_fwd": burgers_train_launches,
+                 "conv_wgrad": burgers_train_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"solver_in_the_loop_torch/csrc/{src}",
          "replaces": f"solver_in_the_loop_tpu/ops/pallas/{tpu}",
-         "launches": train_launches[name],
-         "launches_by_path": {"train": train_launches[name], "apply_b1": apply_launches[name]},
+         "launches": main_path[name][name],
+         "launches_by_path": {"karman_train": train_launches[name],
+                              "karman_apply_b1": apply_launches[name],
+                              "burgers_train": burgers_train_launches[name],
+                              "burgers_apply": burgers_apply_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"]}
+         "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+         "shape": row["shape"]}
         for name, src, tpu, row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,29 @@
 """solver_in_the_loop_torch — the PyTorch + CUDA port of solver_in_the_loop_tpu.
 
-The port runs the serving path `karman-apply` (a trained correction net inside
-the karman solver for a recurrent rollout) and the training path
-`karman-train` (the net trained through the unrolled solver) on an NVIDIA
-H100, with the TPU kernels of those paths rewritten by hand in CUDA C++ for
-Hopper (`csrc/`, bound in `kernels/`): the advection tap-sum forward and
-backward, and the fused FD-preconditioned CG, which is also the pressure
-solve's adjoint. It keeps the JAX package's public layouts at every
-function boundary:
+The port runs the karman serving and training paths (`karman-apply`,
+`karman-train`) and the Burgers family (`burgers-gen`, `burgers-train`,
+`burgers-apply`) on an NVIDIA H100, with the TPU kernels of those paths
+rewritten by hand in CUDA C++ for Hopper (`csrc/`, bound in `kernels/`): the
+advection tap-sum forward and backward, the fused FD-preconditioned CG (also
+the pressure solve's adjoint), and the fused convolution (forward, input
+gradient and weight gradient) that the correction nets use under
+`--conv kernel`. It keeps the JAX package's public layouts at every function
+boundary:
 
 * u (B, Y, X+1), v (B, Y+1, X), centered fields (B, Y, X);
-* network features channel-last (B, Y, X, C) with channel order [v, u, Re].
+* network features channel-last (B, Y, X, C) with channel order [v, u, Re]
+  (karman) or [v, u, fv, fu] (Burgers).
 
 Layer map:
-  core      — Domain / CenteredGrid / StaggeredGrid, downsampling
+  core      — Domain / CenteredGrid / StaggeredGrid, downsampling, random fields
   ops       — stencils, diffusion, interpolation, advection, pressure solve
   kernels   — ctypes wrappers of the CUDA kernels, each with its plain twin
-  physics   — karman geometry and solver step
+  physics   — karman geometry and solver step; Burgers step and forces
   models    — features and the correction networks (MarsMoon, Mercury)
-  train     — flax msgpack checkpoints, recurrent rollout, dataset, trainer
+  train     — flax msgpack checkpoints, recurrent rollouts, datasets, trainer
   io        — Scene npz I/O in the reference's legacy on-disk layout
   utils     — data statistics, metrics writer, logging
-  apps      — the karman-apply and karman-train CLIs
+  apps      — the karman and Burgers CLIs
 
 Library functions follow the device of their input tensors; the CLI runs on
 CUDA unless `--device cpu` is given.

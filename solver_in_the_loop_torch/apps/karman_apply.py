@@ -1,8 +1,9 @@
 """Karman test rollout CLI: recurrent steps with a per-step net correction.
 
 Port of solver_in_the_loop_tpu/apps/karman_apply.py with the same flags plus
-`--device {cuda,cpu}` (default cuda). It runs on the card unless the CPU is
-asked for, and raises if CUDA is missing instead of running on the CPU.
+`--conv {library,kernel}` (how the net's convolutions run, default library)
+and `--device {cuda,cpu}` (default cuda). It runs on the card unless the CPU
+is asked for, and raises if CUDA is missing instead of running on the CPU.
 
     python -m solver_in_the_loop_torch karman-apply -o OUT \
         --model artifacts/a3_k_sol32/model.msgpack \
@@ -23,7 +24,7 @@ from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.core.resample import downsample_centered, downsample_staggered
 from solver_in_the_loop_torch.io import scene as scene_io
 from solver_in_the_loop_torch.models.features import Normalization
-from solver_in_the_loop_torch.models.networks import build_model
+from solver_in_the_loop_torch.models.networks import CONV_IMPLS, build_model
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train import checkpoint as ckpt
 from solver_in_the_loop_torch.train.rollout import karman_rollout
@@ -52,6 +53,9 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--no-model", action="store_true", help="pure-solver rollout (source run)")
     p.add_argument("--ptol", type=float, default=1e-5, help="pressure CG tolerance")
     p.add_argument("--pmaxiter", type=int, default=1000, help="pressure CG max iterations")
+    p.add_argument("--conv", choices=CONV_IMPLS, default="library",
+                   help="the net's convolutions: cuDNN ('library') or the port's "
+                        "CUDA kernels ('kernel')")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run (default: the CUDA card)")
     return p
@@ -80,7 +84,7 @@ def load_initial(args, dom, batch, device):
     return initial_state(dom, batch, device)
 
 
-def _leaky(args, stats) -> float:
+def leaky_slope(args, stats) -> float:
     """Explicit --leaky-alpha wins, else the slope recorded at train time
     ("leaky_alpha" in the stats json); absent means 0.01."""
     if args.leaky_alpha is not None:
@@ -103,7 +107,7 @@ def prepare(args):
 
     model = None
     if not args.no_model:
-        model = build_model(args.arch, leaky_slope=_leaky(args, stats))
+        model = build_model(args.arch, leaky_slope=leaky_slope(args, stats), conv=args.conv)
         ckpt.load_model_weights(model, args.model, args.arch)
         model = model.to(device).eval()
         log.info("loaded model %s (%d params)", args.model, ckpt.param_count(model))

@@ -21,6 +21,7 @@ import dataclasses
 import enum
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +76,31 @@ class Domain:
         y = (torch.arange(self.ny, device=device, dtype=torch.float32) + 0.5) * dy
         x = (torch.arange(self.nx, device=device, dtype=torch.float32) + 0.5) * dxx
         return torch.meshgrid(y, x, indexing="ij")
+
+    def u_face_coords(self, device=None):
+        """(yy, xx) float32 physical coordinates of u-faces, each (Y, X+1)."""
+        dy, dxx = self.dx
+        y = (torch.arange(self.ny, device=device, dtype=torch.float32) + 0.5) * dy
+        x = torch.arange(self.nx + 1, device=device, dtype=torch.float32) * dxx
+        return torch.meshgrid(y, x, indexing="ij")
+
+    def v_face_coords(self, device=None):
+        """(yy, xx) float32 physical coordinates of v-faces, each (Y+1, X)."""
+        dy, dxx = self.dx
+        y = torch.arange(self.ny + 1, device=device, dtype=torch.float32) * dy
+        x = (torch.arange(self.nx, device=device, dtype=torch.float32) + 0.5) * dxx
+        return torch.meshgrid(y, x, indexing="ij")
+
+    def staggered_grid(self, u=0.0, v=0.0, batch: int = 1, device=None) -> "StaggeredGrid":
+        """A float32 MAC field from constants (filled) or arrays of the
+        component shapes."""
+        def component(val, shape):
+            if np.ndim(val) == 0:
+                return torch.full(shape, float(val), dtype=torch.float32, device=device)
+            return torch.as_tensor(val, dtype=torch.float32, device=device)
+
+        return StaggeredGrid(component(u, self.u_shape(batch)), component(v, self.v_shape(batch)),
+                             self)
 
 
 @dataclasses.dataclass

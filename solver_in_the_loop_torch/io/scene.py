@@ -1,8 +1,7 @@
 """Scene on-disk I/O in the reference's legacy PhiFlow layout (numpy only).
 
-A copy of the parts of solver_in_the_loop_tpu/io/scene.py that karman-apply
-and karman-train use, with numpy's npz reader and writer in place of the
-native ones:
+A copy of the parts of solver_in_the_loop_tpu/io/scene.py that the port's
+CLIs use, with numpy's npz reader and writer in place of the native ones:
 
   <parent>/sim_%06d/
       params.pickle, params.json   run parameters
@@ -17,6 +16,7 @@ Legacy array conventions (kept HERE, nowhere else):
 from __future__ import annotations
 
 import json
+import logging
 import os
 import pickle
 import re as _re
@@ -57,6 +57,26 @@ def read_array(path: str) -> np.ndarray:
 
 def write_array(path: str, arr: np.ndarray) -> None:
     np.savez_compressed(path, np.asarray(arr, np.float32))
+
+
+class scene_run_log:
+    """Context manager attaching a per-scene run.log file handler to the root
+    logger while a scene is generated (the reference logs each run into
+    <scene>/run.log)."""
+
+    def __init__(self, scene_path: str):
+        self._handler = logging.FileHandler(os.path.join(scene_path, "run.log"))
+        self._handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self._handler)
+        self._handler.close()
+        return False
 
 
 def _json_ok(v) -> bool:

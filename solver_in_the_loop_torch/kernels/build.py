@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, list] = {
     "advect": ["--fmad=false"],
     "pcg": [],
+    "conv": [],
 }
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,216 @@
+"""Fused KxK SAME stride-1 convolution (NHWC, float32): CUDA kernels, their
+plain twins, and the differentiable op that the correction nets call.
+
+`conv_fwd` replaces the TPU kernels
+solver_in_the_loop_tpu/ops/pallas/conv_kernel.py `_fwd_kernel` and
+`_fwd_kernel_taps` (through `_conv_rows`), and `conv_wgrad` replaces
+`_wgrad_kernel` and `_wgrad_kernel_taps` (through `_conv_wgrad`). On a CUDA
+tensor each launches its kernel in csrc/conv.cu; on a CPU tensor each runs
+its plain twin (`conv_fwd_plain`, `conv_wgrad_plain`): the same per-tap sum
+and the same epilogue, written out in PyTorch.
+
+Weights are (K, K, Cin, Cout) tensors, the JAX package's HWIO layout, and
+may be any strided view: the kernels read and write through the strides, so
+the nets hand over `weight.permute(2, 3, 1, 0)` of their PyTorch
+(Cout, Cin, K, K) parameter without a copy.
+
+`conv` (`torch.ops.silt.conv`) is the op the nets call: the convolution with
+its epilogue fused (+bias, optional +skip, ReLU or LeakyReLU), as the JAX
+package's `conv_fused`. Its backward takes the activation's derivative from
+the saved output with JAX's conventions (`_act_grad`), then computes dX with
+`conv_fwd` on the flipped, channel-transposed kernel (skipped where the input
+needs no gradient), dW with `conv_wgrad`, and db and d(skip) in plain
+PyTorch. It is a registered custom op so that a selective-checkpoint policy
+can save it (train/trainer.py), and it reaches each kernel only through the
+module-level wrapper, so replacing a wrapper here replaces the kernel
+everywhere.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from solver_in_the_loop_torch.kernels import build
+
+ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
+MAX_K = 7  # odd K up to 7, as the JAX gate admits (conv_kernel.py conv_available)
+
+
+def _activate(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
+    if act == "relu":
+        return torch.clamp_min(z, 0.0)
+    if act == "leaky_relu":
+        return torch.where(z >= 0, z, slope * z)
+    return z
+
+
+def act_grad(act: str, slope: float, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d(activation)/dz times g, from the post-activation output y: both
+    activations keep the sign, so sign(y) is sign(z). JAX's conventions at
+    z == 0: relu' = 0, leaky_relu' = 1 (conv_kernel.py `_act_grad`)."""
+    if act == "relu":
+        return torch.where(y > 0, g, 0.0)
+    if act == "leaky_relu":
+        return torch.where(y >= 0, g, slope * g)
+    return g
+
+
+def conv_fwd_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   skip: Optional[torch.Tensor] = None, act: str = "none", slope: float = 0.3,
+                   flip: bool = False) -> torch.Tensor:
+    """act(sum_taps shift(x) @ w[tap] + bias + skip): x (B, H, W, Cin), w
+    (K, K, Cin, Cout), zeros outside the image; `flip` reads w[K-1-ky, K-1-kx]."""
+    if flip:
+        w = w.flip((0, 1))
+    _, h, wd, _ = x.shape
+    k = w.shape[0]
+    r = k // 2
+    xp = F.pad(x, (0, 0, r, r, r, r))
+    acc = torch.zeros(x.shape[:3] + (w.shape[3],), dtype=x.dtype, device=x.device)
+    for ky in range(k):
+        for kx in range(k):
+            acc = acc + xp[:, ky:ky + h, kx:kx + wd, :] @ w[ky, kx]
+    if bias is not None:
+        acc = acc + bias
+    if skip is not None:
+        acc = acc + skip
+    return _activate(acc, act, slope)
+
+
+def _weight_grad_buffer(k: int, cin: int, cout: int, like: torch.Tensor) -> torch.Tensor:
+    """A (K, K, Cin, Cout) view of a contiguous (Cout, Cin, K, K) tensor."""
+    return torch.empty((cout, cin, k, k), dtype=like.dtype, device=like.device).permute(2, 3, 1, 0)
+
+
+def conv_wgrad_plain(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
+    """dW[ky, kx] = shift(x)^T @ dz summed over all B*H*W rows, per tap.
+    Returned as conv_wgrad returns it."""
+    _, h, wd, cin = x.shape
+    cout = dz.shape[-1]
+    r = k // 2
+    xp = F.pad(x, (0, 0, r, r, r, r))
+    rows = dz.reshape(-1, cout)
+    dw = _weight_grad_buffer(k, cin, cout, x)
+    for ky in range(k):
+        for kx in range(k):
+            dw[ky, kx] = xp[:, ky:ky + h, kx:kx + wd, :].reshape(-1, cin).T @ rows
+    return dw
+
+
+def _check(what: str, x: torch.Tensor, w: torch.Tensor, others: dict) -> None:
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous float32 (B, H, W, C) tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    k = w.shape[0]
+    if (w.dtype != torch.float32 or w.dim() != 4 or w.shape[1] != k or k % 2 == 0 or k > MAX_K
+            or w.shape[2] != x.shape[3] or w.device != x.device):
+        raise ValueError(f"{what}: w must be a float32 (K, K, {x.shape[3]}, Cout) tensor "
+                         f"with odd K <= {MAX_K} on {x.device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    for name, (t, shape) in others.items():
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
+                              or not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"{what}: {name} must be a contiguous float32 {shape} tensor "
+                             f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+             skip: Optional[torch.Tensor] = None, act: str = "none", slope: float = 0.3,
+             flip: bool = False) -> torch.Tensor:
+    """KxK SAME stride-1 conv with the fused epilogue: x (B, H, W, Cin) ->
+    (B, H, W, Cout); w (K, K, Cin, Cout), any strides; bias (Cout,) or None
+    (zero); skip (B, H, W, Cout) or None.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel; anything
+    else raises."""
+    if act not in ACTS:
+        raise ValueError(f"conv_fwd: unknown activation '{act}'")
+    if x.device.type == "cpu":
+        return conv_fwd_plain(x, w, bias, skip, act, slope, flip)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_fwd: unsupported device {x.device}")
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    _check("conv_fwd", x, w, {"bias": (bias, (cout,)), "skip": (skip, (b, h, wd, cout))})
+    fn = build.function("conv", "silt_conv_fwd",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_void_p])
+    y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), *w.stride(), int(flip),
+                 None if bias is None else bias.data_ptr(),
+                 None if skip is None else skip.data_ptr(), y.data_ptr(),
+                 b, h, wd, cin, cout, w.shape[0], ACTS[act], float(slope), stream)
+    build.check(err, "conv_fwd")
+    conv_fwd.launches += 1
+    return y
+
+
+conv_fwd.launches = 0
+
+
+def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
+    """dW (K, K, Cin, Cout) of the SAME conv for the output cotangent dz
+    (B, H, W, Cout), laid out as a contiguous (Cout, Cin, K, K) tensor (the
+    PyTorch conv weight's layout) seen through a permuted view.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel; anything
+    else raises."""
+    if x.device.type == "cpu":
+        return conv_wgrad_plain(x, dz, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_wgrad: unsupported device {x.device}")
+    b, h, wd, cin = x.shape
+    cout = dz.shape[-1]
+    dw = _weight_grad_buffer(k, cin, cout, x)
+    _check("conv_wgrad", x, dw, {"dz": (dz, (b, h, wd, cout))})
+    fn = build.function("conv", "silt_conv_wgrad",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), dz.data_ptr(), dw.data_ptr(), *dw.stride(), b, h, wd, cin, cout,
+                 k, stream)
+    build.check(err, "conv_wgrad")
+    conv_wgrad.launches += 1
+    return dw
+
+
+conv_wgrad.launches = 0
+
+
+@torch.library.custom_op(
+    "silt::conv", mutates_args=(),
+    schema="(Tensor x, Tensor weight, Tensor bias, Tensor? skip, str act, float slope) -> Tensor")
+def conv(x, weight, bias, skip, act, slope):
+    """act(conv(x, weight) + bias + skip): x (B, H, W, Cin) contiguous,
+    weight the PyTorch (Cout, Cin, K, K) parameter, K odd."""
+    return conv_fwd(x, weight.permute(2, 3, 1, 0), bias, skip, act, slope)
+
+
+def _conv_setup(ctx, inputs, output):
+    x, weight, _, skip, act, slope = inputs
+    ctx.save_for_backward(x, weight, output)
+    ctx.act, ctx.slope, ctx.with_skip = act, slope, skip is not None
+
+
+def _conv_backward(ctx, g):
+    x, weight, y = ctx.saved_tensors
+    dz = act_grad(ctx.act, ctx.slope, y, g).contiguous()
+    w = weight.permute(2, 3, 1, 0)
+    dx = None
+    if ctx.needs_input_grad[0]:
+        # the flipped, channel-transposed kernel, zero bias, no activation
+        dx = conv_fwd(dz, w.transpose(2, 3), flip=True)
+    dw = conv_wgrad(x, dz, w.shape[0]).permute(3, 2, 0, 1)
+    db = dz.sum((0, 1, 2))
+    return dx, dw, db, (dz if ctx.with_skip else None), None, None
+
+
+conv.register_autograd(_conv_backward, setup_context=_conv_setup)

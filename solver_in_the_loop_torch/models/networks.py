@@ -8,8 +8,19 @@ karman-apply):
   [conv5x5(F) LeakyReLU conv5x5(F) + skip, LeakyReLU], conv5x5(2) head
 
 Inputs are normalized collocated features (B, Y, X, C) and outputs
-(B, Y, X, 2) = [dv, du], as in the JAX package; inside, the convolutions run
-NCHW with `padding=2` (SAME for 5x5). The weights come from a JAX checkpoint
+(B, Y, X, 2) = [dv, du], as in the JAX package. Each model runs its
+convolutions one of two ways, chosen when it is built (`conv=`), the port's
+form of the JAX package's `SILT_PALLAS_CONV` gate (networks.py `Conv`):
+
+* "library" (the default, as the JAX package's dispatch stands without a
+  `conv_ok` marker): `nn.Conv2d` (cuDNN on the card, TF32 off) in NCHW with
+  `padding=2` (SAME for 5x5), the activations and skips as separate ops;
+* "kernel": every conv stays NHWC and goes through `silt::conv`
+  (kernels/conv.py, csrc/conv.cu on the card) with its bias, skip and
+  activation fused, as `Conv.__call__` sends it to `conv_fused`.
+
+The parameters are the same `nn.Conv2d` ones either way, so a checkpoint
+loads unchanged under both. The weights come from a JAX checkpoint
 (train/checkpoint.py) or from `init_weights`, the JAX package's init modes
 (solver_in_the_loop_tpu/models/networks.py:112-124) drawn from an explicit
 generator:
@@ -30,6 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from solver_in_the_loop_torch.kernels.conv import conv as silt_conv
+
 
 def disable_tf32() -> None:
     """The JAX apply builds its nets in float32; TF32 convolutions (cuDNN's
@@ -42,18 +55,48 @@ def _conv5(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel_size=5, padding=2)
 
 
-class Mercury(nn.Module):
+CONV_IMPLS = ("library", "kernel")
+
+
+def _apply(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool, act: str = "none",
+           slope: float = 0.0, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(conv(x) + skip): NHWC through the fused op when `nhwc` (the
+    "kernel" implementation), else NCHW through the module and separate ops."""
+    if nhwc:
+        return silt_conv(x, conv.weight, conv.bias, skip, act, slope)
+    y = conv(x)
+    if skip is not None:
+        y = y + skip
+    if act == "relu":
+        return F.relu(y)
+    if act == "leaky_relu":
+        return F.leaky_relu(y, slope)
+    return y
+
+
+class _Net(nn.Module):
+    """Runs `body` NHWC under the "kernel" conv implementation, NCHW under
+    "library", with the features and the output NHWC either way."""
+
+    conv_impl = "library"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl == "kernel":
+            return self.body(x.contiguous(), True)
+        return self.body(x.permute(0, 3, 1, 2), False).permute(0, 2, 3, 1)
+
+
+class Mercury(_Net):
     def __init__(self, in_channels: int = 3, out_channels: int = 2):
         super().__init__()
         self.conv1 = _conv5(in_channels, 32)
         self.conv2 = _conv5(32, 64)
         self.head = _conv5(64, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.conv1(x))
-        x = F.relu(self.conv2(x))
-        return self.head(x).permute(0, 2, 3, 1)
+    def body(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        x = _apply(self.conv1, x, nhwc, "relu")
+        x = _apply(self.conv2, x, nhwc, "relu")
+        return _apply(self.head, x, nhwc)
 
 
 class ResBlock(nn.Module):
@@ -65,12 +108,12 @@ class ResBlock(nn.Module):
         self.conv2 = _conv5(features, features)
         self.leaky_slope = leaky_slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.leaky_relu(self.conv1(x), self.leaky_slope)
-        return F.leaky_relu(self.conv2(y) + x, self.leaky_slope)
+    def forward(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        y = _apply(self.conv1, x, nhwc, "leaky_relu", self.leaky_slope)
+        return _apply(self.conv2, y, nhwc, "leaky_relu", self.leaky_slope, skip=x)
 
 
-class MarsMoon(nn.Module):
+class MarsMoon(_Net):
     """Default SOL/NON correction net (--arch mars_moon)."""
 
     def __init__(self, in_channels: int = 3, features: int = 32, blocks: int = 5,
@@ -81,11 +124,11 @@ class MarsMoon(nn.Module):
         self.head = _conv5(features, out_channels)
         self.leaky_slope = leaky_slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.leaky_relu(self.stem(x.permute(0, 3, 1, 2)), self.leaky_slope)
+    def body(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        x = _apply(self.stem, x, nhwc, "leaky_relu", self.leaky_slope)
         for block in self.blocks:
-            x = block(x)
-        return self.head(x).permute(0, 2, 3, 1)
+            x = block(x, nhwc)
+        return _apply(self.head, x, nhwc)
 
 
 MODELS = {"mercury": Mercury, "mars_moon": MarsMoon}
@@ -124,15 +167,20 @@ def init_weights(model: nn.Module, mode: str, generator: torch.Generator) -> nn.
 
 def build_model(name: str, in_channels: int = 3, leaky_slope: float = 0.3,
                 init: Optional[str] = None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None,
+                conv: str = "library") -> nn.Module:
     """Registry lookup; also turns TF32 off (see disable_tf32). With `init`,
     the weights are drawn by `init_weights` from `generator` (a fresh one
-    seeded 0 if none is given); without, they are left for a checkpoint."""
+    seeded 0 if none is given); without, they are left for a checkpoint.
+    `conv` picks the convolution implementation (CONV_IMPLS)."""
     if name not in MODELS:
         raise KeyError(f"unknown model '{name}'; available: {sorted(MODELS)}")
+    if conv not in CONV_IMPLS:
+        raise KeyError(f"unknown conv implementation '{conv}'; use one of {CONV_IMPLS}")
     disable_tf32()
     model = Mercury(in_channels) if name == "mercury" else MarsMoon(in_channels,
                                                                    leaky_slope=leaky_slope)
+    model.conv_impl = conv
     if init is not None:
         init_weights(model, init, generator or torch.Generator().manual_seed(0))
     return model

@@ -146,8 +146,9 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
     if periodic:
         if on_card:
             raise NotImplementedError(
-                "periodic pressure solve on CUDA: the unpreconditioned CG kernels are "
-                "not ported yet (ROADMAP.md, 'TPU kernels to port': _cg_kernel)")
+                "periodic pressure solve on CUDA: the JAX package solves periodic systems "
+                "with its XLA CG loop (ops/poisson.py cg_solve_info), which is no Pallas "
+                "kernel and is on no ported path yet")
         x, iters = cg_solve_info(masked_matvec(fluid, masks.face_u, masks.face_v, True),
                                  rhs, tol, max_iter, x0)
         return x, torch.tensor(iters, dtype=torch.int32, device=div.device)

@@ -1,10 +1,12 @@
 """What the port is held to against its plain path and the JAX package: the
-kernels' tolerances, the swap to the plain twins, and the SOL-32 train step
-and training set that chip_smoke.py and the tests share.
+kernels' tolerances, the swap to the plain twins, the karman SOL-32 train
+step and training set, and the Burgers SOL-04 apply and train-step inputs
+that chip_smoke.py and the tests share.
 
 Imports nothing of JAX. The inputs are made with numpy or read from the
-repository (artifacts/a3_k_sol32, tests/data/torch_port), so the JAX package
-computes its side from the same arrays (tests/test_torch_train_golden.py).
+repository (artifacts/a3_k_sol32, artifacts/a3_b_sol04, tests/data/torch_port),
+so the JAX package computes its side from the same arrays
+(tests/test_torch_train_golden.py, tests/test_torch_burgers_golden.py).
 """
 
 from __future__ import annotations
@@ -66,6 +68,30 @@ ROLLOUT_REL_TOL = 1e-3
 # of the JAX golden (tests/test_torch_train_golden.py); the bounds leave room
 # for the kernel's own order.
 TRAIN_PARITY_TOL = {"loss": 1e-4, "step_losses": 1e-4, "grad_norms": 1e-3, "head_grad": 1e-3}
+# The conv kernels against their twins, relative to the output's max: the
+# kernel sums each output over input-channel chunks, taps and channels with
+# fused multiply-adds, the twin per tap as a matmul, so the two differ in the
+# last bits of sums of K*K*Cin products (forward, 1e-5) and of M = B*H*W
+# products (weight gradient, 1e-4).
+CONV_FWD_REL_TOL = 1e-5
+CONV_WGRAD_REL_TOL = 1e-4
+
+# Burgers: the trained SOL-04 MarsMoon (32x5, 4 input channels) and the JAX
+# golden of its apply (frames of the Makefile's test sim seed 100) and of one
+# full-width train step (tests/test_torch_burgers_golden.py)
+BURGERS_CKPT = os.path.join(REPO, "artifacts", "a3_b_sol04")
+BURGERS_APPLY_GOLDEN = os.path.join(DATA, "burgers_apply_sol04_r32.npz")
+BURGERS_TRAIN_GOLDEN = os.path.join(DATA, "burgers_train_step_sol04.npz")
+# the Makefile's test-set command (burgers-fdt-hires-testset) for seed 100
+BURGERS_GEN_ARGV = ["-r", "128", "-l", "32", "--dt", "0.1", "-s", "30", "--seed", "100"]
+BURGERS_GOLDEN_STEPS = 20  # frames of the apply golden, and forces it replays
+# a Burgers hi-res frame against the JAX package's: 229 steps of the same
+# float32 formulas, whose sin and sums differ in the last bits
+BURGERS_GEN_REL_TOL = 1e-4
+# train parity: one SOL-04 step (batch 5, msteps 4, 32x32) from numpy inputs
+BURGERS_PARITY_ROWS = 5
+BURGERS_PARITY_MSTEPS = 4
+BURGERS_DT = 0.1
 
 
 @contextlib.contextmanager
@@ -73,11 +99,13 @@ def plain_path():
     """Swap every kernel's wrapper for its plain PyTorch twin at its one
     dispatch point (the module-level wrapper that the differentiable ops
     call, forward and backward), so the same code runs without a kernel."""
-    from solver_in_the_loop_torch.kernels import advect, cg
+    from solver_in_the_loop_torch.kernels import advect, cg, conv
 
     with mock.patch.object(advect, "tap_sum_fwd", advect.tap_sum_fwd_plain), \
             mock.patch.object(advect, "tap_sum_bwd", advect.tap_sum_bwd_plain), \
-            mock.patch.object(cg, "pcg_solve", cg.pcg_solve_plain):
+            mock.patch.object(cg, "pcg_solve", cg.pcg_solve_plain), \
+            mock.patch.object(conv, "conv_fwd", conv.conv_fwd_plain), \
+            mock.patch.object(conv, "conv_wgrad", conv.conv_wgrad_plain):
         yield
 
 
@@ -114,19 +142,27 @@ def train_parity_inputs():
     return data, idx, stats
 
 
-def parity_model(device):
-    """The trained SOL-32 MarsMoon (artifacts/a3_k_sol32) on `device`."""
+def parity_model(device, conv: str = "library", ckpt_dir: str = CKPT, in_channels: int = 3):
+    """A trained MarsMoon (default the SOL-32 karman one, artifacts/a3_k_sol32)
+    on `device`, its convolutions run as `conv` says."""
     from solver_in_the_loop_torch.models.networks import build_model
     from solver_in_the_loop_torch.train import checkpoint as ckpt
 
-    with open(os.path.join(CKPT, "dataStats.json")) as f:
+    with open(os.path.join(ckpt_dir, "dataStats.json")) as f:
         slope = json.load(f)["leaky_alpha"]
-    model = build_model("mars_moon", leaky_slope=slope)
-    ckpt.load_model_weights(model, os.path.join(CKPT, "model.msgpack"), "mars_moon")
+    model = build_model("mars_moon", in_channels=in_channels, leaky_slope=slope, conv=conv)
+    ckpt.load_model_weights(model, os.path.join(ckpt_dir, "model.msgpack"), "mars_moon")
     return model.to(device)
 
 
-def parity_step(device):
+def _loss_and_grads(model, loss_fn):
+    loss, step_losses, *rest = loss_fn()
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return (loss.item(), step_losses.detach().cpu(), *(r.cpu() for r in rest), grads)
+
+
+def parity_step(device, conv: str = "library"):
     """One SOL-32 train step's loss and gradients on `device` (no update):
     (loss, step_losses (32,), forward CG iterations, {param name: grad})."""
     from solver_in_the_loop_torch.models.features import Normalization
@@ -134,31 +170,114 @@ def parity_step(device):
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, karman_loss
 
     data, idx, stats = train_parity_inputs()
-    model = parity_model(device)
+    model = parity_model(device, conv)
     flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, device=device)
     norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
     cfg = SolTrainConfig(msteps=PARITY_MSTEPS, clip_grad=True)
     tdata = {k: torch.from_numpy(a).to(device) for k, a in data.items()}
-    loss, step_losses, iters = karman_loss(flow, model, norm, tdata,
-                                           torch.from_numpy(idx).to(device), cfg)
-    loss.backward()
-    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-    return loss.item(), step_losses.detach().cpu(), iters.cpu(), grads
+    return _loss_and_grads(model, lambda: karman_loss(flow, model, norm, tdata,
+                                                      torch.from_numpy(idx).to(device), cfg))
+
+
+def burgers_train_parity_inputs():
+    """The inputs of the Burgers train-parity step: BURGERS_PARITY_ROWS rows
+    that start from numpy's randfreq initial velocity (RandomState(
+    PARITY_SEED), the generator's scale), with ground-truth frames 1..4 that
+    are that velocity plus noise, and per-frame forces of 20 random sine
+    forces advanced by BURGERS_DT per frame; and the trained SOL-04
+    checkpoint's statistics. Made on the CPU, so every device gets the same
+    arrays. Returns (data {u, v, fu, fv} of numpy arrays (rows, msteps+1,
+    ...), idx (rows, 2), stats)."""
+    from solver_in_the_loop_torch.core.random_fields import randfreq_staggered
+    from solver_in_the_loop_torch.physics.burgers import (
+        burgers_domain,
+        random_forces,
+        sample_force_sum,
+    )
+
+    dom = burgers_domain(32)
+    rows, frames = BURGERS_PARITY_ROWS, BURGERS_PARITY_MSTEPS + 1
+    rng = np.random.RandomState(PARITY_SEED)
+    forces = random_forces(rng, batch=rows)
+    v0 = randfreq_staggered(rng, dom, batch=rows)
+    data = {}
+    for key, field in (("u", v0.u), ("v", v0.v)):
+        x = np.repeat(field.numpy()[:, None], frames, axis=1)
+        noise = PARITY_NOISE * rng.randn(*x.shape)
+        noise[:, 0] = 0.0
+        data[key] = (x + noise).astype(np.float32)
+    sampled = [sample_force_sum([f.advance(BURGERS_DT * t) for f in forces], dom, rows)
+               for t in range(frames)]
+    data["fu"] = np.stack([s.u.numpy() for s in sampled], axis=1)
+    data["fv"] = np.stack([s.v.numpy() for s in sampled], axis=1)
+    idx = np.stack([np.arange(rows), np.zeros(rows, np.int64)], axis=1)
+    with open(os.path.join(BURGERS_CKPT, "dataStats.json")) as f:
+        stats = json.load(f)
+    return data, idx, stats
+
+
+def burgers_parity_step(device, conv: str = "library", remat_policy: str = "pressure+conv"):
+    """One SOL-04 train step's loss and gradients on `device` (no update), from
+    the trained artifacts/a3_b_sol04 net: (loss, step_losses (4,), {param
+    name: grad})."""
+    from solver_in_the_loop_torch.models.features import Normalization
+    from solver_in_the_loop_torch.physics.burgers import BurgersFlow, burgers_domain
+    from solver_in_the_loop_torch.train.trainer import SolTrainConfig, burgers_loss
+
+    data, idx, stats = burgers_train_parity_inputs()
+    model = parity_model(device, conv, BURGERS_CKPT, in_channels=4)
+    flow = BurgersFlow(burgers_domain(32), advection="shift", max_shift=2)
+    norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
+                                 stats["std.fu"], device)
+    cfg = SolTrainConfig(msteps=BURGERS_PARITY_MSTEPS, clip_grad=True, remat_policy=remat_policy)
+    tdata = {k: torch.from_numpy(a).to(device) for k, a in data.items()}
+    return _loss_and_grads(model, lambda: burgers_loss(flow, model, norm, tdata,
+                                                       torch.from_numpy(idx).to(device), cfg,
+                                                       BURGERS_DT))
+
+
+def burgers_apply_inputs(dirpath: str) -> dict:
+    """The Burgers apply golden's inputs written as a scene the CLI reads at
+    `-d 1 -r 32`: the test sim's hi-res frame 0, downsampled 4x on the CPU,
+    as velo_000000.npz, and its first BURGERS_GOLDEN_STEPS downsampled forces
+    as forc_%06d.npz. Returns the CLI's --initvH and --loadfH arguments."""
+    from solver_in_the_loop_torch.core.resample import downsample_staggered
+    from solver_in_the_loop_torch.io import scene as scene_io
+
+    with np.load(BURGERS_APPLY_GOLDEN) as g:
+        u_hi, v_hi = scene_io.legacy_to_staggered(g["velo_hi"])
+        forces = g["forc_ds"]
+    u, v = downsample_staggered(torch.from_numpy(u_hi), torch.from_numpy(v_hi), 4)
+    sc = scene_io.Scene(dirpath)
+    sc.write_staggered("velo", 0, u.numpy(), v.numpy())
+    for t, legacy in enumerate(forces):
+        scene_io.write_array(sc.frame_path("forc", t), legacy)
+    return {"initvH": sc.frame_path("velo", 0), "loadfH": os.path.join(dirpath, "forc_0*.npz")}
+
+
+def burgers_apply_argv(out: str, inputs: dict, conv: str = "library") -> list:
+    """burgers-apply's arguments for BURGERS_GOLDEN_STEPS steps of the SOL-04
+    rollout from burgers_apply_inputs (already at 32x32, so -d 1)."""
+    return ["-o", out, "--model", os.path.join(BURGERS_CKPT, "model.msgpack"),
+            "--stats", os.path.join(BURGERS_CKPT, "dataStats.json"),
+            "--initvH", inputs["initvH"], "--loadfH", inputs["loadfH"], "-d", "1", "-r", "32",
+            "-l", "32", "--dt", str(BURGERS_DT), "-t", str(BURGERS_GOLDEN_STEPS + 1),
+            "--conv", conv]
 
 
 def parity_summary(step):
     """What is compared of a step (as parity_step returns it): (loss, step
     losses, {param name: gradient norm}, head conv gradient). The JAX golden
     file holds the same four."""
-    loss, steps, _, grads = step
+    loss, steps, grads = step[0], step[1], step[-1]
     return (loss, steps.numpy(), {n: float(g.norm()) for n, g in grads.items()},
             grads["head.weight"].numpy())
 
 
-def train_golden_summary():
-    """The JAX package's parity step (TRAIN_GOLDEN), laid out as
-    parity_summary lays out the port's."""
-    with np.load(TRAIN_GOLDEN) as g:
+def train_golden_summary(path: str = TRAIN_GOLDEN):
+    """A JAX package's parity step (default the karman TRAIN_GOLDEN), laid out
+    as parity_summary lays out the port's."""
+    with np.load(path) as g:
         return (float(g["loss"]), g["step_losses"],
                 dict(zip(g["grad_names"].tolist(), g["grad_norms"].tolist())),
                 g["head_weight_grad"])

@@ -1,7 +1,7 @@
-"""Karman training data: scene frames, the 4x downsampling cache, statistics,
-and the reference's epoch shuffle schedule.
+"""Karman and Burgers training data: scene frames, the 4x downsampling cache,
+statistics, and the reference's epoch shuffle schedule.
 
-Port of the karman half of solver_in_the_loop_tpu/train/dataset.py. The
+Port of solver_in_the_loop_tpu/train/dataset.py. The
 dataset is loaded into host numpy arrays; the trainer moves it to the device
 once and gathers each iteration's window there. `EpochSchedule` keeps the
 JAX package's `random.Random(seed)` shuffle, so both packages visit the same
@@ -123,6 +123,75 @@ def load_karman_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] =
         "ext.std": float(np.std(np.abs(data.re))),
     }
     log.info("karman dataset: %s sims x %s frames @ %s; stats=%s",
+             data.num_sims, data.num_frames, data.resolution, data.stats)
+    return data
+
+
+@dataclasses.dataclass
+class BurgersDataset:
+    """Preloaded Burgers training data (host numpy): velocity u (S, F, Y, X+1),
+    v (S, F, Y+1, X) and force fu, fv of the same shapes. stats keys:
+    'std.v', 'std.u', 'std.fv', 'std.fu'."""
+
+    u: np.ndarray
+    v: np.ndarray
+    fu: np.ndarray
+    fv: np.ndarray
+    stats: Dict[str, float]
+
+    @property
+    def num_sims(self) -> int:
+        return self.u.shape[0]
+
+    @property
+    def num_frames(self) -> int:
+        return self.u.shape[1]
+
+    @property
+    def resolution(self):
+        return (self.v.shape[2] - 1, self.u.shape[3] - 1)
+
+    def to_device(self, device) -> Dict[str, torch.Tensor]:
+        """The arrays as float32 tensors on `device`, keyed as the trainer reads them."""
+        return {k: torch.from_numpy(np.asarray(getattr(self, k), np.float32)).to(device)
+                for k in ("u", "v", "fu", "fv")}
+
+
+def load_burgers_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] = None,
+                         scale: int = 4, skip_preprocessing: bool = False) -> BurgersDataset:
+    """Read the first `num_frames` velocity and force frames of the first
+    `num_sims` scenes, through the `ds_` cache as load_karman_dataset does."""
+    scenes = Scene.list(dirpath)[: num_sims or None]
+    if not scenes:
+        raise ValueError(f"no sim_* scenes under {dirpath}")
+
+    if not skip_preprocessing:
+        for sc in scenes:
+            for name in ("velo", "forc"):
+                for frame in sc.frames(name)[:num_frames]:
+                    src = sc.frame_path(name, frame)
+                    if not os.path.isfile(_ds_path(src)):
+                        _downsample_staggered_file(src, _ds_path(src), scale)
+
+    fields = {k: [] for k in ("u", "v", "fu", "fv")}
+    for sc in scenes:
+        for name, (ku, kv) in (("ds_velo", ("u", "v")), ("ds_forc", ("fu", "fv"))):
+            frames = sc.frames(name)[:num_frames]
+            if len(frames) < num_frames:
+                raise ValueError(f"{sc.path}: need {num_frames} cached frames, found "
+                                 f"{len(frames)} {name}")
+            uv = [sc.read_staggered(name, f) for f in frames]
+            fields[ku].append(np.stack([x[0][0] for x in uv]))
+            fields[kv].append(np.stack([x[1][0] for x in uv]))
+
+    data = BurgersDataset(**{k: np.stack(v) for k, v in fields.items()}, stats={})
+    data.stats = {
+        "std.v": abs_std(data.v),
+        "std.u": abs_std(data.u),
+        "std.fv": abs_std(data.fv),
+        "std.fu": abs_std(data.fu),
+    }
+    log.info("burgers dataset: %s sims x %s frames @ %s; stats=%s",
              data.num_sims, data.num_frames, data.resolution, data.stats)
     return data
 

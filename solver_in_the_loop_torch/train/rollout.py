@@ -1,12 +1,14 @@
-"""Recurrent karman rollout (test-time application of a trained correction net).
+"""Recurrent rollouts: test-time application of a trained correction net,
+and the Burgers data generation.
 
-Port of `karman_rollout` in solver_in_the_loop_tpu/train/rollout.py: a Python
-loop over solver steps in place of the jitted `lax.scan`, forward only.
+Port of `karman_rollout` and `burgers_rollout` in
+solver_in_the_loop_tpu/train/rollout.py: Python loops over solver steps in
+place of the jitted `lax.scan`s, forward only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -14,9 +16,11 @@ from torch import nn
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.models.features import (
     Normalization,
+    burgers_features,
     correction_to_staggered,
     karman_features,
 )
+from solver_in_the_loop_torch.physics.burgers import BurgersFlow, SinPotentialForce
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
 
 
@@ -55,3 +59,58 @@ def karman_rollout(flow: KarmanFlow, d0: CenteredGrid, v0: StaggeredGrid, re, st
         for key, val in zip(out, (d.values, v.u, v.v, cu, cv, iters)):
             out[key].append(val)
     return {key: torch.stack(vals) for key, vals in out.items()}
+
+
+def burgers_rollout(flow: BurgersFlow, steps: int, model: Optional[nn.Module] = None,
+                    norm: Optional[Normalization] = None, dt: float = 0.1,
+                    use_force_features: bool = True) -> Tuple[Callable, Callable]:
+    """(rollout_analytic, rollout_replay) for `steps` forced Burgers steps,
+    each adding the model's correction after the solver step (pure solver
+    rollout when model is None).
+
+    * rollout_analytic(v0, forces): forces a list of SinPotentialForce, their
+      phases advanced in closed form (phase + dt * omega * t) for step t
+      (data generation). Returns (T, B, ...) tensors "u", "v" and "fu", "fv",
+      the force of the step after each frame.
+    * rollout_replay(v0, fu, fv): per-step force components fu (T, B, Y, X+1),
+      fv (T, B, Y+1, X) replayed from disk (test rollouts). Returns "u", "v".
+    """
+    dom = flow.domain
+
+    def advance(v: StaggeredGrid, force: StaggeredGrid) -> StaggeredGrid:
+        v = flow.step_with_f(v, force, dt=dt)
+        if model is not None:
+            feat = burgers_features(v, force if use_force_features else None, norm)
+            v = v + correction_to_staggered(model(feat), norm, dom)
+        return v
+
+    @torch.inference_mode()
+    def rollout_analytic(v0: StaggeredGrid, forces: Sequence[SinPotentialForce]):
+        batch = v0.u.shape[0]
+
+        def sample_sum(t: int) -> StaggeredGrid:
+            sampled = [SinPotentialForce(f.k, f.amplitude, f.phase + dt * f.omega * t,
+                                         f.omega).sample(dom, batch) for f in forces]
+            return StaggeredGrid(torch.stack([s.u for s in sampled]).sum(0),
+                                 torch.stack([s.v for s in sampled]).sum(0), dom)
+
+        v = v0
+        out = {k: [] for k in ("u", "v", "fu", "fv")}
+        for t in range(steps):
+            v = advance(v, sample_sum(t))
+            nxt = sample_sum(t + 1)
+            for key, val in zip(out, (v.u, v.v, nxt.u, nxt.v)):
+                out[key].append(val)
+        return {key: torch.stack(vals) for key, vals in out.items()}
+
+    @torch.inference_mode()
+    def rollout_replay(v0: StaggeredGrid, fu: torch.Tensor, fv: torch.Tensor):
+        v = v0
+        us, vs = [], []
+        for t in range(fu.shape[0]):
+            v = advance(v, StaggeredGrid(fu[t], fv[t], dom))
+            us.append(v.u)
+            vs.append(v.v)
+        return {"u": torch.stack(us), "v": torch.stack(vs)}
+
+    return rollout_analytic, rollout_replay

@@ -1,11 +1,12 @@
-"""Unrolled "solver-in-the-loop" training of the karman correction net.
+"""Unrolled "solver-in-the-loop" training of the karman and Burgers
+correction nets.
 
-Port of the karman half of solver_in_the_loop_tpu/train/trainer.py. Per
-iteration: gather a window of msteps+1 frames per batch row, unroll msteps of
-[solver step -> features -> net -> staggered correction] with an L2 loss
-against the ground truth after every step, backpropagate through the whole
-unroll, then clip each gradient tensor and take an Adam step, unless a
-gradient is not finite.
+Port of solver_in_the_loop_tpu/train/trainer.py. Per iteration: gather a
+window of msteps+1 frames per batch row (and, for Burgers, the msteps forces
+applied during the steps), unroll msteps of [solver step -> features -> net
+-> staggered correction] with an L2 loss against the ground truth after every
+step, backpropagate through the whole unroll, then clip each gradient tensor
+and take an Adam step, unless a gradient is not finite.
 
 What differs from the JAX package, and why:
 
@@ -13,7 +14,8 @@ What differs from the JAX package, and why:
   `lax.scan`), each wrapped in `torch.utils.checkpoint` with a selective
   policy in place of `jax.checkpoint` with a names policy. The policy sees
   the pressure solve and the tap-sum as the custom ops `silt::pcg_solve` and
-  `silt::tap_sum`, and the convolutions as `aten.convolution`.
+  `silt::tap_sum`, and the convolutions as `aten.convolution` (the "library"
+  nets) or `silt::conv` (the "kernel" nets).
 * The optimizer is `torch.optim.Adam` (optax's b1, b2, eps) behind
   `GuardedAdam`, which reproduces the chain `clip_by_leaf_norm -> adam`
   under `optax.apply_if_finite`; the learning rate is set per epoch as
@@ -36,11 +38,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+from solver_in_the_loop_torch.kernels import conv as _conv  # noqa: F401 (registers silt::conv)
 from solver_in_the_loop_torch.models.features import (
     Normalization,
+    burgers_features,
     correction_to_staggered,
     karman_features,
 )
+from solver_in_the_loop_torch.physics.burgers import BurgersFlow
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
 from solver_in_the_loop_torch.train.dataset import EpochSchedule
 
@@ -150,10 +155,21 @@ def remat_policy_ops(policy: str) -> list:
     "none", a plain jax.checkpoint, would; the CLI maps it to "pressure")."""
     if policy not in REMAT_SAVES:
         raise KeyError(f"unknown remat policy '{policy}'; use one of {sorted(REMAT_SAVES)}")
-    ops = {"pcg": torch.ops.silt.pcg_solve.default,
-           "conv": torch.ops.aten.convolution.default,
-           "advect": torch.ops.silt.tap_sum.default}
-    return [ops[k] for k in REMAT_SAVES[policy]]
+    ops = {"pcg": [torch.ops.silt.pcg_solve.default],
+           "conv": [torch.ops.aten.convolution.default, torch.ops.silt.conv.default],
+           "advect": [torch.ops.silt.tap_sum.default]}
+    return [op for key in REMAT_SAVES[policy] for op in ops[key]]
+
+
+def _checkpointed(step: Callable, cfg: SolTrainConfig) -> Callable:
+    """`step` under the per-step selective checkpoint of cfg's remat policy
+    (or as it is without remat)."""
+    if not cfg.remat:
+        return step
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   remat_policy_ops(cfg.remat_policy))
+    return functools.partial(checkpoint, step, use_reentrant=False, preserve_rng_state=False,
+                             context_fn=context_fn)
 
 
 def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
@@ -182,13 +198,7 @@ def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
         vel = vel + correction_to_staggered(model(karman_features(vel, re, norm)), norm, dom)
         return d.values, vel.u, vel.v, p, iters
 
-    if cfg.remat:
-        context_fn = functools.partial(create_selective_checkpoint_contexts,
-                                       remat_policy_ops(cfg.remat_policy))
-        run_step = functools.partial(checkpoint, step, use_reentrant=False,
-                                     preserve_rng_state=False, context_fn=context_fn)
-    else:
-        run_step = step
+    run_step = _checkpointed(step, cfg)
 
     p1 = p2 = p3 = torch.zeros_like(dens)
     step_losses, cg_iters = [], []
@@ -226,6 +236,67 @@ def make_karman_train_step(flow: KarmanFlow, model: nn.Module, optimizer: Guarde
     return train_step
 
 
+def burgers_loss(flow: BurgersFlow, model: nn.Module, norm: Normalization,
+                 data: Dict[str, torch.Tensor], idx: torch.Tensor, cfg: SolTrainConfig,
+                 dt: float = 0.1, use_force: bool = True, wgt: Optional[torch.Tensor] = None):
+    """The unrolled loss of one Burgers batch (the `loss_fn` of
+    make_burgers_train_step).
+
+    data: {u (S,F,Y,X+1), v, fu, fv} on the device; idx (B, 2) int64 (sim,
+    frame0) pairs. Step k applies the force stored with frame frame0+k;
+    without `use_force` the solver runs unforced and the features drop the
+    force channels. Returns (loss, step_losses (msteps,)); loss is
+    differentiable in the model's parameters."""
+    dom = flow.domain
+    msteps = cfg.msteps
+    sim, frame0 = idx[:, 0], idx[:, 1]
+    u, v = data["u"][sim, frame0], data["v"][sim, frame0]
+    steps = torch.arange(msteps, device=idx.device)[:, None]
+    gt_u = data["u"][sim[None, :], frame0[None, :] + 1 + steps]  # (msteps, B, Y, X+1)
+    gt_v = data["v"][sim[None, :], frame0[None, :] + 1 + steps]
+    f_u = data["fu"][sim[None, :], frame0[None, :] + steps]
+    f_v = data["fv"][sim[None, :], frame0[None, :] + steps]
+    w = torch.ones(idx.shape[0], device=u.device) if wgt is None else wgt
+    std_v, std_u = norm.out_scales[0], norm.out_scales[1]
+
+    def step(u, v, fu, fv):
+        vel = StaggeredGrid(u, v, dom)
+        force = StaggeredGrid(fu, fv, dom)
+        if use_force:
+            vel = flow.step_with_f(vel, force, dt=dt)
+        else:
+            vel = flow.step(vel, dt=dt)
+        feat = burgers_features(vel, force if use_force else None, norm)
+        vel = vel + correction_to_staggered(model(feat), norm, dom)
+        return vel.u, vel.v
+
+    run_step = _checkpointed(step, cfg)
+    step_losses = []
+    for k in range(msteps):
+        u, v = run_step(u, v, f_u[k], f_v[k])
+        step_losses.append(torch.sum(w * (l2_loss_rows((gt_v[k] - v) / std_v)
+                                          + l2_loss_rows((gt_u[k] - u) / std_u))))
+    step_losses = torch.stack(step_losses)
+    return torch.sum(step_losses) / msteps, step_losses
+
+
+def make_burgers_train_step(flow: BurgersFlow, model: nn.Module, optimizer: GuardedAdam,
+                            cfg: SolTrainConfig, dt: float = 0.1,
+                            use_force: bool = True) -> Callable:
+    """(data, norm, idx) -> (loss, step_losses, None, applied): one
+    forward-backward through the Burgers unroll and one guarded optimizer
+    step (None where the karman step returns its CG iterations)."""
+
+    def train_step(data, norm, idx, wgt=None):
+        optimizer.zero_grad()
+        loss, step_losses = burgers_loss(flow, model, norm, data, idx, cfg, dt, use_force, wgt)
+        loss.backward()
+        applied = optimizer.step()
+        return loss.detach(), step_losses.detach(), None, applied
+
+    return train_step
+
+
 @dataclasses.dataclass
 class TrainResult:
     losses: list
@@ -233,7 +304,7 @@ class TrainResult:
     sec_per_iter_median: float = 0.0   # median of per-epoch averages after the first
     iter_seconds: list = dataclasses.field(default_factory=list)  # every iteration, in order
     notfinite: int = 0                 # gradients the guard found not finite
-    cg_iters: list = dataclasses.field(default_factory=list)  # forward CG iterations per step
+    cg_iters: list = dataclasses.field(default_factory=list)  # forward CG iterations per step (karman)
 
 
 def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tensor],
@@ -263,7 +334,8 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
             iter_seconds.append(now - t_prev)
             t_prev = now
             losses.append(loss_f)
-            cg_iters.append(iters)
+            if iters is not None:
+                cg_iters.append(iters)
             if it % LOG_EVERY == 0:
                 log.info("epoch %03d/%03d it %04d/%04d loss=%.6f lr=%.2e",
                          epoch + 1, cfg.epochs, it + 1, idx_epoch.shape[0], loss_f, eff_lr)

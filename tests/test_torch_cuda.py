@@ -10,8 +10,9 @@ machine does not have; this file imports nothing of JAX). Tolerances are
 those of solver_in_the_loop_torch/parity.py, which chip_smoke.py holds the
 card to: the tap-sum forward and backward bit for bit on the
 offsets the solver passes, the PCG within one iteration and 1e-4 of the
-solution's max, a 10-step rollout within 1e-3, one SOL-32 train step's
-losses within 1e-4 and gradients within 1e-3.
+solution's max, the conv forward within 1e-5 and its weight gradient within
+1e-4 of the output's max, a 10-step rollout within 1e-3, one SOL-32 and one
+SOL-04 train step's losses within 1e-4 and gradients within 1e-3.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from solver_in_the_loop_torch import parity
 from solver_in_the_loop_torch.kernels import advect, cg
+from solver_in_the_loop_torch.kernels import conv as kconv
 from solver_in_the_loop_torch.kernels.advect import (
     tap_sum_bwd,
     tap_sum_bwd_plain,
@@ -145,6 +147,75 @@ def test_train_step_with_kernels_matches_plain(device):
     kernel = parity.parity_summary(parity.parity_step(device))
     with parity.plain_path():
         plain = parity.parity_summary(parity.parity_step(device))
+    errors = parity.parity_errors(kernel, plain)
+    for key, tol in parity.TRAIN_PARITY_TOL.items():
+        assert errors[key] <= tol, (key, errors)
+
+
+CONV_SHAPES = [  # (B, H, W, Cin, Cout, K): MarsMoon at the Burgers and karman shapes
+    (5, 32, 32, 4, 32, 5), (5, 32, 32, 32, 32, 5), (5, 32, 32, 32, 2, 5), (1, 32, 32, 32, 32, 5),
+    (3, 64, 32, 3, 32, 5), (1, 64, 32, 32, 2, 5), (5, 32, 32, 32, 32, 3),
+    (2, 16, 16, 64, 64, 7),  # two output tiles, above 48 KB of shared memory
+]
+
+
+def _conv_inputs(device, shape, seed=0):
+    b, h, w, cin, cout, k = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, h, w, cin), generator=gen, device=device)
+    wt = 0.1 * torch.randn((cout, cin, k, k), generator=gen, device=device)
+    bias = 0.1 * torch.randn((cout,), generator=gen, device=device)
+    skip = torch.randn((b, h, w, cout), generator=gen, device=device)
+    return x, wt, bias, skip
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("act,with_skip", [("none", False), ("relu", True), ("leaky_relu", False),
+                                           ("leaky_relu", True)])
+def test_conv_fwd_kernel_matches_plain(device, shape, act, with_skip):
+    x, wt, bias, skip = _conv_inputs(device, shape)
+    w = wt.permute(2, 3, 1, 0)
+    skip = skip if with_skip else None
+    launches = kconv.conv_fwd.launches
+    got = kconv.conv_fwd(x, w, bias, skip, act, 0.3)
+    assert kconv.conv_fwd.launches == launches + 1
+    assert _rel(got, kconv.conv_fwd_plain(x, w, bias, skip, act, 0.3)) <= parity.CONV_FWD_REL_TOL
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_dgrad_and_wgrad_kernels_match_plain(device, shape):
+    x, wt, _, dz = _conv_inputs(device, shape, seed=1)
+    w = wt.permute(2, 3, 1, 0)
+    got = kconv.conv_fwd(dz, w.transpose(2, 3), flip=True)
+    assert _rel(got, kconv.conv_fwd_plain(dz, w.transpose(2, 3), flip=True)) \
+        <= parity.CONV_FWD_REL_TOL
+    launches = kconv.conv_wgrad.launches
+    dw = kconv.conv_wgrad(x, dz, shape[5])
+    assert kconv.conv_wgrad.launches == launches + 1
+    assert dw.permute(3, 2, 0, 1).is_contiguous()
+    assert _rel(dw, kconv.conv_wgrad_plain(x, dz, shape[5])) <= parity.CONV_WGRAD_REL_TOL
+    assert torch.equal(dw, kconv.conv_wgrad(x, dz, shape[5]))  # no atomics: the same bits
+
+
+def test_conv_rejects_bad_input(device):
+    x, wt, bias, _ = _conv_inputs(device, (1, 8, 8, 4, 4, 3))
+    w = wt.permute(2, 3, 1, 0)
+    with pytest.raises(ValueError):
+        kconv.conv_fwd(x.permute(0, 2, 1, 3), w, bias)
+    with pytest.raises(ValueError):
+        kconv.conv_fwd(x, w[:2, :2], bias)
+    with pytest.raises(ValueError):
+        kconv.conv_fwd(x, w, bias.double())
+
+
+def test_burgers_train_step_with_kernels_matches_plain(device):
+    launches = (kconv.conv_fwd.launches, kconv.conv_wgrad.launches)
+    kernel = parity.parity_summary(parity.burgers_parity_step(device, "kernel"))
+    # 4 steps x 12 convs forward, 47 input gradients (not the step-0 stem), 48 weight gradients
+    assert (kconv.conv_fwd.launches, kconv.conv_wgrad.launches) == (launches[0] + 95,
+                                                                     launches[1] + 48)
+    with parity.plain_path():
+        plain = parity.parity_summary(parity.burgers_parity_step(device, "kernel"))
     errors = parity.parity_errors(kernel, plain)
     for key, tol in parity.TRAIN_PARITY_TOL.items():
         assert errors[key] <= tol, (key, errors)

@@ -208,8 +208,10 @@ def test_remat_policies_are_bit_equal_and_never_rerun_the_solve(monkeypatch):
 
 
 def test_remat_policy_names():
+    # "conv" names both conv implementations: cuDNN's and the fused silt::conv
     assert trainer.remat_policy_ops("pressure+conv") == [torch.ops.silt.pcg_solve.default,
-                                                         torch.ops.aten.convolution.default]
+                                                         torch.ops.aten.convolution.default,
+                                                         torch.ops.silt.conv.default]
     for unknown in ("everything", "none"):  # the CLI maps "none" to "pressure"
         with pytest.raises(KeyError):
             trainer.remat_policy_ops(unknown)

@@ -10,10 +10,10 @@ each printing one JSON line:
 1. env          — card, power limit, torch and CUDA versions
 2. build        — compiles every kernel of solver_in_the_loop_torch/csrc with
                   nvcc, one process per source, all started together
-3. kernels      — each kernel (tap-sum forward and backward, PCG) against its
-                  plain PyTorch twin on the card, at the shapes of the karman
-                  apply and training paths, with its time, the twin's and its
-                  bound
+3. kernels      — each kernel (tap-sum forward and backward, PCG, CG without
+                  preconditioner) against its plain PyTorch twin on the card,
+                  at the shapes of the karman apply, training and generation
+                  paths, with its time, the twin's and its bound
 4. apply        — `karman-apply` through the CLI entry point at the full width
                   of the SOL-32 MarsMoon checkpoint (artifacts/a3_k_sol32), 500
                   steps at batch 1 and at batch 5, each after a one-step
@@ -54,14 +54,29 @@ each printing one JSON line:
                   (tests/data/torch_port/burgers_train_step_sol04.npz)
 15. burgers_profile — where a SOL-04 training iteration's and an apply
                   step's time goes, with the conv kernels and with cuDNN
+16. karman_gen  — `karman-gen` through the CLI: the Makefile's hi-res training
+                  set (256x128, the 6 Re batched, multigrid pressure solve)
+                  cut to KARMAN_GEN_FRAMES frames from step 0
+                  (KARMAN_GEN_REDUCED); steps 1, 5 and 20 of sims 0 and 5
+                  against the JAX package's
+                  (tests/data/torch_port/karman_gen_hires_r128.npz), and a
+                  profile of its steps
+17. karman_gen_lores — the Makefile's lo-res source run for Re 160000 (64x32,
+                  499 steps) from the last frame of sim 0 of that set, with
+                  the FD-preconditioned kernel and with the plain CG kernel
+                  (`--pressure-precon none`), held to each other
+18. apply_cg    — `karman-apply --pressure-precon none` at batch 1 and 5, 500
+                  steps, the CG kernel's launch counts, and the batch-1 run's
+                  steps 1, 5 and 20 against the JAX golden of the apply phase
+19. train_parity_cg — the SOL-32 train step with `--pressure-precon none`
+                  against the plain path and the JAX package's step
 
-The kernels phase also checks the conv kernels (forward, input gradient and
-weight gradient) at the Burgers and karman shapes and times them beside
-cuDNN. Then the per-kernel summary line, the card's `nvidia-smi` name and
-power limit, and as the last line {"ok": true, "device": {...}}. Any failed
-check raises, so the script exits non-zero without that line; without CUDA,
-or outside a checkout, it exits 1 at once.
-"""
+The kernels phase also checks the CG kernel's adjoint and the conv kernels
+(forward, input gradient and weight gradient) at the Burgers and karman shapes
+and times them beside cuDNN. Then a line of each phase's wall seconds, the
+per-kernel summary line, the card's `nvidia-smi` name and power limit, and as
+the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits non-zero without that
+line; without CUDA, or outside a checkout, it exits 1 at once. """
 
 from __future__ import annotations
 
@@ -78,6 +93,7 @@ GOLDEN = os.path.join(REPO, "tests", "data", "torch_port", "karman_apply_sol32_r
 OUT_DIR = os.path.join(REPO, "build", "smoke_out")
 RE_B1 = [240000.0]
 RE_B5 = [240000.0, 480000.0, 960000.0, 1920000.0, 3840000.0]
+RE_B8 = RE_B5 + [160000.0, 320000.0, 640000.0]  # a full cluster of the CG kernels
 STEPS = 500
 APPLY_SHAPES = [(1, 64, 32), (1, 64, 33), (1, 65, 32), (5, 64, 32), (5, 64, 33), (5, 65, 32)]
 TRAIN_SHAPES = [(3, 64, 32), (3, 64, 33), (3, 65, 32)]
@@ -116,6 +132,22 @@ BURGERS_TRAIN_REDUCED = {
     "thumbnails": "--thumb dropped from burgers-gen (needs PIL; ROADMAP.md A7)",
 }
 
+# karman: the Makefile's hi-res set (karman-fdt-hires-set) and its lo-res
+# source runs (karman-fdt-lores-set), cut to fit the script
+KARMAN_SET = os.path.join(REPO, "build", "smoke_karman_set")
+KARMAN_LORES = os.path.join(REPO, "build", "smoke_karman_lores")
+KARMAN_GEN_FRAMES = 21  # up to step 20, the last the golden holds
+KARMAN_GEN_REDUCED = {
+    "simsteps": "1500 -> 21 frames, all kept (-s 999 -> -s 0): 20 steps from the initial "
+                "state, where the Makefile keeps frames 1000..1499 of 1,500",
+    "thumbnails": "--thumb dropped (needs PIL; ROADMAP.md A7)",
+}
+KARMAN_LORES_REDUCED = {
+    "initial frame": "sim_000000 frame 1000 of the full hi-res set -> its frame "
+                     f"{KARMAN_GEN_FRAMES - 1}, the last of the cut set",
+    "Re": "the 6 runs of the Makefile's loop -> the first (Re 160000)",
+    "thumbnails": "--thumb dropped (needs PIL; ROADMAP.md A7)",
+}
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -198,6 +230,15 @@ def pcg_bound_ms(shape, iters: int):
     return _bound(byts, ops)
 
 
+def cg_bound_ms(shape, iters: int):
+    """Inputs (b, x0, fluid, face masks) read and x written once; per element
+    and iteration (plus the set-up pass) about 26 operations per cell: the
+    operator 16, the two dot products 4, the three vector updates 6."""
+    b, h, w = shape
+    byts = 4 * (3 * b * h * w + h * w + h * (w + 1) + (h + 1) * w)
+    return _bound(byts, b * (iters + 1) * 26 * h * w)
+
+
 def conv_bound_ms(shape, with_skip: bool):
     """x, w, bias (and skip) read and y written once; 2*M*K*K*Cin*Cout
     operations for the products and their sums."""
@@ -219,7 +260,8 @@ def kernel_wrappers():
     from solver_in_the_loop_torch.kernels import advect, cg, conv
 
     return {"tap_sum_fwd": advect.tap_sum_fwd, "tap_sum_bwd": advect.tap_sum_bwd,
-            "pcg_solve": cg.pcg_solve, "conv_fwd": conv.conv_fwd, "conv_wgrad": conv.conv_wgrad}
+            "pcg_solve": cg.pcg_solve, "cg_solve": cg.cg_solve, "conv_fwd": conv.conv_fwd,
+            "conv_wgrad": conv.conv_wgrad}
 
 
 def reset_launches() -> None:
@@ -309,6 +351,8 @@ def phase_kernels(device):
     from solver_in_the_loop_torch.kernels.cg import pcg_solve, pcg_solve_plain
     from solver_in_the_loop_torch.ops.poisson import fd_factors
     from solver_in_the_loop_torch.parity import (
+        CG_ITER_TOL,
+        CG_REL_TOL,
         CONV_FWD_REL_TOL,
         CONV_WGRAD_REL_TOL,
         PARITY_RE,
@@ -387,18 +431,75 @@ def phase_kernels(device):
             require(abs(case["iters"] - case["plain_iters"]) <= PCG_ITER_TOL,
                     f"pcg_solve iterations {case}")
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
+    cg_cases = cg_kernel_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
-    emit({"phase": "kernels", "library_ms": "tap-sum and PCG: none, no single PyTorch call "
+    emit({"phase": "kernels", "library_ms": "tap-sum, PCG and CG: none, no single PyTorch call "
           "computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) on the same NHWC "
           "data seen as NCHW, with the bias but not the skip or activation; conv_wgrad: "
           "aten.convolution_backward, weight gradient only",
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
-          "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+          "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
                          "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL,
+                         "cg_rel": CG_REL_TOL, "cg_iters": CG_ITER_TOL,
                          "conv_fwd_rel": CONV_FWD_REL_TOL, "conv_wgrad_rel": CONV_WGRAD_REL_TOL}})
     return {"tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
-            "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases}
+            "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases}
+
+
+def cg_kernel_cases(device):
+    """The CG kernel against its twin on real karman right-hand sides at
+    batch 1, 3 (training), 5 and 8 (a full cluster), cold and warm: the
+    solution within CG_REL_TOL of its max, the iterations within CG_ITER_TOL,
+    the same bits from a second launch; its adjoint through autograd against
+    the plain path's; times, the twin's and the bound."""
+    import torch
+
+    from solver_in_the_loop_torch.kernels import cg
+    from solver_in_the_loop_torch.parity import CG_ITER_TOL, CG_REL_TOL, PARITY_RE, plain_path
+
+    cases = []
+    tol, max_iter = 1e-5, 1000
+    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B8):
+        rhs, warm, masks = karman_rhs(batch_re, device)
+        for start in ("cold", "warm"):
+            x0 = warm if start == "warm" else torch.zeros_like(rhs)
+            args = (rhs, x0, masks.fluid, masks.face_u, masks.face_v, tol, max_iter)
+            x_k, it_k = cg.cg_solve(*args)
+            x_p, it_p = cg.cg_solve_plain(*args)
+            x_again, it_again = cg.cg_solve(*args)
+            torch.cuda.synchronize()
+            case = {"shape": list(rhs.shape), "start": start, "iters": int(it_k),
+                    "plain_iters": int(it_p), "rel_err": rel_err(x_k, x_p),
+                    "max_abs_err": float((x_k - x_p).abs().max()),
+                    "deterministic": bool(torch.equal(x_k, x_again)) and int(it_again) == int(it_k),
+                    "ms": time_ms(lambda: cg.cg_solve(*args), 50),
+                    "plain_ms": time_ms(lambda: cg.cg_solve_plain(*args), 3)}
+            case["bound_ms"], case["bound_by"] = cg_bound_ms(rhs.shape, case["iters"])
+            cases.append(case)
+            require(abs(case["iters"] - case["plain_iters"]) <= CG_ITER_TOL,
+                    f"cg_solve iterations {case}")
+            require(case["rel_err"] <= CG_REL_TOL, f"cg_solve solution {case}")
+            require(case["deterministic"], f"cg_solve is not deterministic {case}")
+
+    # the adjoint: the gradient through silt::cg_solve is a cold solve by the kernel
+    rhs, warm, masks = karman_rhs(PARITY_RE, device)
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(7),
+                      device=device)
+
+    def grad():
+        b = rhs.clone().requires_grad_()
+        x, _ = cg.cg_solve_op(b, warm, masks.fluid, masks.face_u, masks.face_v, tol, max_iter)
+        return torch.autograd.grad(x, b, cot)[0]
+
+    got = grad()
+    with plain_path():
+        want = grad()
+    case = {"shape": list(rhs.shape), "start": "adjoint", "rel_err": rel_err(got, want),
+            "max_abs_err": float((got - want).abs().max())}
+    cases.append(case)
+    require(case["rel_err"] <= CG_REL_TOL, f"cg_solve adjoint {case}")
+    return cases
 
 
 # (B, H, W, Cin, Cout, K, act, skip, where): every conv of MarsMoon at the
@@ -554,7 +655,7 @@ def phase_apply(re_list):
             "max_abs_u": float(frames["u"].abs().max()), "max_abs_v": float(frames["v"].abs().max())}
     emit(line)
     require(launches == {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": steps,
-                         "conv_fwd": 0, "conv_wgrad": 0},
+                         "cg_solve": 0, "conv_fwd": 0, "conv_wgrad": 0},
             f"launch counts {launches} != 3x{steps} tap-sum, no backward, {steps} pcg, "
             "no conv kernel (--conv library)")
     require(finite, "non-finite frames in the rollout")
@@ -726,7 +827,8 @@ def phase_train():
     # not reach the loss), not for step 0, whose inputs are data; one solve
     # per step forward and one adjoint per step but step 0
     per_iter = {"tap_sum_fwd": 2 * 3 * msteps, "tap_sum_bwd": 2 * (msteps - 1),
-                "pcg_solve": msteps + (msteps - 1), "conv_fwd": 0, "conv_wgrad": 0}
+                "pcg_solve": msteps + (msteps - 1), "cg_solve": 0, "conv_fwd": 0,
+                "conv_wgrad": 0}
     solves = torch.stack(record).cpu().numpy().reshape(iters, per_iter["pcg_solve"])
     fwd_iters, adj_iters = solves[:, :msteps], solves[:, msteps:]
     frames, _ = run_cli_argv(["karman-apply", "-o", OUT_DIR, "--model",
@@ -975,7 +1077,7 @@ def phase_burgers_train():
     # advects data); 12 convs per step, their input gradients but the step-0
     # stem's, and 12 weight gradients per step; no solve
     per_iter = {"tap_sum_fwd": 2 * 2 * m, "tap_sum_bwd": 2 * (m - 1), "pcg_solve": 0,
-                "conv_fwd": 12 * m + 12 * m - 1, "conv_wgrad": 12 * m}
+                "cg_solve": 0, "conv_fwd": 12 * m + 12 * m - 1, "conv_wgrad": 12 * m}
     line = {"phase": "burgers_train", "argv": burgers_train_argv(),
             "reduced": BURGERS_TRAIN_REDUCED, "iterations": iters, "seconds": seconds,
             "sec_per_iter_median_after_first": float(np.median(result.iter_seconds[1:])),
@@ -1034,7 +1136,7 @@ def phase_burgers_apply():
         require(finite and scenes == 1, f"burgers-apply --conv {conv}: finite {finite}, "
                 f"{scenes} scenes")
     emit(line)
-    want = {"tap_sum_fwd": 2 * steps, "tap_sum_bwd": 0, "pcg_solve": 0,
+    want = {"tap_sum_fwd": 2 * steps, "tap_sum_bwd": 0, "pcg_solve": 0, "cg_solve": 0,
             "conv_fwd": 12 * steps, "conv_wgrad": 0}
     require(line["kernel"]["launches"] == want,
             f"burgers-apply launch counts {line['kernel']['launches']} != {want}")
@@ -1184,6 +1286,212 @@ def phase_burgers_profile(device, apply_steps=50):
                 f"the {part} profile with --conv kernel does not show the conv kernel alone")
 
 
+def _frames_errors(got, want_of, fields=("dens", "u", "v"), steps=(1, 5, 20)):
+    """Relative errors of frames `got` (dict of (T, B, ...) tensors) at
+    `steps` against want_of(field, step) (numpy or tensor), per field_step,
+    and the worst."""
+    import torch
+
+    errs = {}
+    for field in fields:
+        for step in steps:
+            want = want_of(field, step)
+            want = torch.as_tensor(want) if not isinstance(want, torch.Tensor) else want.cpu()
+            errs[f"{field}_{step}"] = rel_err(got[field][step - 1].cpu(), want)
+    return errs, max(errs.values())
+
+
+def phase_karman_gen(device):
+    """The Makefile's hi-res training-set command (karman-fdt-hires-set)
+    through the CLI at full width, cut as KARMAN_GEN_REDUCED says, every launch
+    count set to 0 just before it: the route (multigrid), no kernel launch,
+    multigrid iterations and seconds per step, finite frames, and steps 1, 5
+    and 20 of sims 0 and 5 against the JAX golden; then where a step's time
+    goes (torch.profiler, 2 steps from the last frame)."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+    from solver_in_the_loop_torch.io.scene import Scene
+    from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
+    from solver_in_the_loop_torch.train.rollout import karman_rollout
+
+    shutil.rmtree(KARMAN_SET, ignore_errors=True)
+    argv = ["karman-gen", "-o", KARMAN_SET, *par.KARMAN_HIRES_ARGV,
+            "-t", str(KARMAN_GEN_FRAMES), "-s", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    frames = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = KARMAN_GEN_FRAMES - 1
+    iters = frames["cg_iters"].cpu().numpy()
+    finite = all(bool(torch.isfinite(frames[k]).all()) for k in ("dens", "u", "v"))
+    golden = np.load(par.KARMAN_GEN_GOLDEN)
+    vs_golden, worst = {}, 0.0
+    for i, sim in enumerate(par.KARMAN_GEN_SIMS):
+        per_sim = {k: v[:, sim] for k, v in frames.items() if k in ("dens", "u", "v")}
+        errs, w = _frames_errors(per_sim, lambda f, t: golden[f][i, par.KARMAN_GEN_STEPS.index(t)],
+                                 steps=par.KARMAN_GEN_STEPS)
+        vs_golden[f"sim_{sim}"] = errs
+        worst = max(worst, w)
+    scenes = Scene.list(KARMAN_SET)
+
+    # where a step's time goes: 2 steps from the last frame, warm-started cold
+    dom = karman_domain(128, 100.0)
+    flow = KarmanFlow(dom, advection="gather", max_shift=4, device=device)
+    re = torch.tensor(par.KARMAN_HIRES_RE, device=device)
+    d = CenteredGrid(frames["dens"][-1].contiguous(), dom)
+    v = StaggeredGrid(frames["u"][-1].contiguous(), frames["v"][-1].contiguous(), dom)
+    prof = _device_profile(lambda: karman_rollout(flow, d, v, re, 2), 1, per=2)
+    line = {"phase": "karman_gen", "argv": argv, "reduced": KARMAN_GEN_REDUCED,
+            "route": frames["route"], "batch": len(par.KARMAN_HIRES_RE),
+            "shape": list(frames["dens"].shape[1:]), "steps": steps,
+            "seconds": seconds, "rollout_seconds": frames["rollout_seconds"],
+            "seconds_per_step": frames["rollout_seconds"] / steps,
+            "write_seconds": frames["write_seconds"], "launches": launches,
+            "mg_iters_per_step": _percentiles(iters), "mg_iters_first_steps": iters[:8].tolist(),
+            "finite": finite, "scenes": len(scenes),
+            "frames_per_scene": len(scenes[0].frames("dens")) if scenes else 0,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "tolerance": par.ROLLOUT_REL_TOL, "vs_jax_golden": vs_golden, "worst": worst,
+            "profile_2_steps": prof}
+    emit(line)
+    require(frames["route"] == "multigrid", f"karman-gen hi-res took {frames['route']}")
+    require(all(n == 0 for n in launches.values()), f"kernel launches in karman-gen: {launches}")
+    require(finite, "non-finite frames in the hi-res karman-gen")
+    require(len(scenes) == 6 and line["frames_per_scene"] == KARMAN_GEN_FRAMES,
+            f"{len(scenes)} scenes of {line['frames_per_scene']} frames")
+    require(worst <= par.ROLLOUT_REL_TOL, f"hi-res karman-gen vs the JAX golden: {worst}")
+    return launches
+
+
+def lores_argv(precon: str):
+    """The Makefile's karman-fdt-lores-set command for Re 160000 (without
+    --thumb), from the last frame of sim 0 of the cut hi-res set."""
+    sim = os.path.join(KARMAN_SET, "sim_000000")
+    last = KARMAN_GEN_FRAMES - 1
+    return ["karman-gen", "-o", os.path.join(KARMAN_LORES, precon), "-r", "32", "-l", "100",
+            "--re", "160000", "--seed", "0", "--skipsteps", "0", "-t", "500", "-d", "4",
+            "--initdH", os.path.join(sim, f"dens_{last:06d}.npz"),
+            "--initvH", os.path.join(sim, f"velo_{last:06d}.npz"), "--pressure-precon", precon]
+
+
+def phase_karman_gen_lores():
+    """The lo-res source run with the FD-preconditioned kernel and with the
+    plain CG kernel, every launch count set to 0 just before each: 499 solves
+    each, and the two runs' frames 1, 5 and 20 within ROLLOUT_REL_TOL."""
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch.parity import ROLLOUT_REL_TOL
+
+    shutil.rmtree(KARMAN_LORES, ignore_errors=True)
+    runs, line = {}, {"phase": "karman_gen_lores", "argv": lores_argv("none"),
+                      "reduced": KARMAN_LORES_REDUCED}
+    for precon in ("fd", "none"):
+        reset_launches()
+        frames = cli.main(lores_argv(precon))
+        launches = read_launches()
+        iters = frames["cg_iters"].cpu().numpy()
+        runs[precon] = frames
+        line[precon] = {"route": frames["route"], "launches": launches,
+                        "seconds_per_step": frames["rollout_seconds"] / 499,
+                        "rollout_seconds": frames["rollout_seconds"],
+                        "write_seconds": frames["write_seconds"],
+                        "cg_iters": _percentiles(iters),
+                        "finite": all(bool(torch.isfinite(frames[k]).all())
+                                      for k in ("dens", "u", "v"))}
+        kernel = "pcg_solve" if precon == "fd" else "cg_solve"
+        want = {k: (499 if k == kernel else 0) for k in launches}
+        require(launches == want, f"lo-res karman-gen --pressure-precon {precon}: {launches}")
+        require(line[precon]["finite"], f"non-finite frames with --pressure-precon {precon}")
+    errs, worst = _frames_errors(runs["none"], lambda f, t: runs["fd"][f][t - 1])
+    line.update(none_vs_fd=errs, worst=worst, tolerance=ROLLOUT_REL_TOL)
+    emit(line)
+    require(worst <= ROLLOUT_REL_TOL, f"lo-res CG vs PCG frames differ by {worst}")
+    return line["fd"]["launches"], line["none"]["launches"]
+
+
+def phase_apply_cg():
+    """karman-apply with --pressure-precon none at batch 1 and 5: a one-step
+    warm-up, then the 500-step run with every launch count set to 0 just
+    before it; the batch-1 run's steps 1, 5 and 20 against the JAX golden."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch.parity import ROLLOUT_REL_TOL
+
+    line = {"phase": "apply_cg", "steps": STEPS - 1}
+    steps = STEPS - 1
+    golden = np.load(GOLDEN)
+    for re_list in (RE_B1, RE_B5):
+        run_cli_argv(["karman-apply", *apply_argv(re_list, 2), "--pressure-precon", "none"])
+        reset_launches()
+        frames, scenes = run_cli_argv(["karman-apply", *apply_argv(re_list, STEPS),
+                                       "--pressure-precon", "none"])
+        launches = read_launches()
+        iters = frames["cg_iters"].cpu().numpy()
+        finite = all(bool(torch.isfinite(v).all()) for k, v in frames.items()
+                     if k != "rollout_seconds")
+        entry = {"seconds_per_step": frames["rollout_seconds"] / steps,
+                 "rollout_seconds": frames["rollout_seconds"], "launches": launches,
+                 "cg_iters": _percentiles(iters), "finite": finite, "scenes": scenes}
+        want = {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": 0, "cg_solve": steps,
+                "conv_fwd": 0, "conv_wgrad": 0}
+        require(launches == want, f"apply_cg at batch {len(re_list)}: {launches} != {want}")
+        require(finite and scenes == len(re_list), f"apply_cg at batch {len(re_list)}: "
+                f"finite {finite}, {scenes} scenes")
+        if re_list == RE_B1:
+            entry["vs_jax_golden"], entry["worst"] = _frames_errors(
+                frames, lambda f, t: golden[f"{f}_{t}"])
+            require(entry["worst"] <= ROLLOUT_REL_TOL,
+                    f"apply_cg vs the JAX golden: {entry['worst']}")
+            b1_launches = launches
+        line[f"b{len(re_list)}"] = entry
+    line["tolerance"] = ROLLOUT_REL_TOL
+    emit(line)
+    return b1_launches
+
+
+def phase_train_parity_cg(device):
+    """One SOL-32 train step with --pressure-precon none (every solve, forward
+    and adjoint, by the CG kernel), every launch count set to 0 just before
+    it, against the same step on the plain path and the JAX package's step
+    (made with its FD-PCG; both sides solve to the same tolerance)."""
+    from solver_in_the_loop_torch import parity as par
+
+    reset_launches()
+    step = par.parity_step(device, precon="none")
+    launches = read_launches()
+    kernel = par.parity_summary(step)
+    with par.plain_path():
+        plain_step = par.parity_step(device, precon="none")
+    plain = par.parity_summary(plain_step)
+    golden = par.train_golden_summary()
+    msteps = par.PARITY_MSTEPS
+    want = {"tap_sum_fwd": 2 * 3 * msteps, "tap_sum_bwd": 2 * (msteps - 1), "pcg_solve": 0,
+            "cg_solve": msteps + (msteps - 1), "conv_fwd": 0, "conv_wgrad": 0}
+    line = {"phase": "train_parity_cg", "tolerances": par.TRAIN_PARITY_TOL,
+            "kernel_loss": kernel[0], "plain_loss": plain[0], "jax_loss": golden[0],
+            "launches": launches, "predicted": want,
+            "cg_iters_forward": step[2].tolist(),
+            "plain_cg_iters_forward": plain_step[2].tolist(),
+            "vs_plain": par.parity_errors(kernel, plain),
+            "vs_jax_golden": par.parity_errors(kernel, golden),
+            "plain_vs_jax_golden": par.parity_errors(plain, golden)}
+    emit(line)
+    require(launches == want, f"train_parity_cg launches {launches} != {want}")
+    for against in ("vs_plain", "vs_jax_golden"):
+        for key, tol in par.TRAIN_PARITY_TOL.items():
+            require(line[against][key] <= tol, f"train parity (CG) {against} {key}: "
+                    f"{line[against][key]} > {tol}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "solver_in_the_loop_torch")):
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -1198,22 +1506,35 @@ def main() -> int:
 
     disable_tf32()
     device = torch.device("cuda", 0)
-    smi = phase_env()
-    phase_build()
-    cases = phase_kernels(device)
-    apply_launches, frames_b1 = phase_apply(RE_B1)
-    phase_apply(RE_B5)
-    phase_parity(frames_b1)
-    phase_profile()
-    train_launches = phase_train()
-    phase_train_parity(device)
-    phase_train_profile(device)
-    phase_burgers_gen()
-    burgers_train_launches = phase_burgers_train()
-    burgers_apply_launches = phase_burgers_apply()
-    phase_burgers_parity()
-    phase_burgers_train_parity(device)
-    phase_burgers_profile(device)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("env", phase_env)
+    timed("build", phase_build)
+    cases = timed("kernels", phase_kernels, device)
+    apply_launches, frames_b1 = timed("apply_b1", phase_apply, RE_B1)
+    timed("apply_b5", phase_apply, RE_B5)
+    timed("parity", phase_parity, frames_b1)
+    timed("profile", phase_profile)
+    train_launches = timed("train", phase_train)
+    timed("train_parity", phase_train_parity, device)
+    timed("train_profile", phase_train_profile, device)
+    timed("burgers_gen", phase_burgers_gen)
+    burgers_train_launches = timed("burgers_train", phase_burgers_train)
+    burgers_apply_launches = timed("burgers_apply", phase_burgers_apply)
+    timed("burgers_parity", phase_burgers_parity)
+    timed("burgers_train_parity", phase_burgers_train_parity, device)
+    timed("burgers_profile", phase_burgers_profile, device)
+    gen_launches = timed("karman_gen", phase_karman_gen, device)
+    lores_fd_launches, lores_cg_launches = timed("karman_gen_lores", phase_karman_gen_lores)
+    apply_cg_launches = timed("apply_cg", phase_apply_cg)
+    train_cg_launches = timed("train_parity_cg", phase_train_parity_cg, device)
+    emit({"phase": "seconds", **seconds})
 
     def at(name, shape, **match):
         return next(c for c in cases[name] if list(c["shape"]) == list(shape) and "ms" in c
@@ -1222,23 +1543,34 @@ def main() -> int:
     rows = [("tap_sum_fwd", "advect.cu", "advect_kernel.py:128", at("tap_sum_fwd", (3, 64, 32))),
             ("tap_sum_bwd", "advect.cu", "advect_kernel.py:143", at("tap_sum_bwd", (3, 64, 32))),
             ("pcg_solve", "pcg.cu", "cg_kernel.py:112", at("pcg_solve", (3, 64, 32), start="warm")),
+            ("cg_solve", "cg.cu", "cg_kernel.py:39", at("cg_solve", (1, 64, 32), start="warm")),
             ("conv_fwd", "conv.cu", "conv_kernel.py:123",
              at("conv_fwd", (5, 32, 32, 32, 32, 5), act="leaky_relu", skip=True)),
             ("conv_wgrad", "conv.cu", "conv_kernel.py:191",
              at("conv_wgrad", (5, 32, 32, 32, 32, 5)))]
+    # the per-element TPU kernels that the same CUDA kernel replaces at batch 1
+    per_element = {"pcg_solve": "cg_kernel.py:180", "cg_solve": "cg_kernel.py:235"}
     # the main path of each kernel: karman training for the tap-sum and the
-    # PCG, Burgers training for the conv kernels
+    # PCG, Burgers training for the conv kernels, the lo-res karman-gen with
+    # the preconditioner off for the CG
     main_path = {"tap_sum_fwd": train_launches, "tap_sum_bwd": train_launches,
-                 "pcg_solve": train_launches, "conv_fwd": burgers_train_launches,
-                 "conv_wgrad": burgers_train_launches}
+                 "pcg_solve": train_launches, "cg_solve": lores_cg_launches,
+                 "conv_fwd": burgers_train_launches, "conv_wgrad": burgers_train_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"solver_in_the_loop_torch/csrc/{src}",
          "replaces": f"solver_in_the_loop_tpu/ops/pallas/{tpu}",
+         **({"also_replaces": f"solver_in_the_loop_tpu/ops/pallas/{per_element[name]}"}
+            if name in per_element else {}),
          "launches": main_path[name][name],
          "launches_by_path": {"karman_train": train_launches[name],
                               "karman_apply_b1": apply_launches[name],
                               "burgers_train": burgers_train_launches[name],
-                              "burgers_apply": burgers_apply_launches[name]},
+                              "burgers_apply": burgers_apply_launches[name],
+                              "karman_gen_hires": gen_launches[name],
+                              "karman_gen_lores_fd": lores_fd_launches[name],
+                              "karman_gen_lores_none": lores_cg_launches[name],
+                              "karman_apply_b1_cg": apply_cg_launches[name],
+                              "karman_train_step_cg": train_cg_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -2,9 +2,9 @@
 
     python -m solver_in_the_loop_torch <command> [args...]
 
-The port covers the karman and Burgers serving and training paths and the
-Burgers data generation so far; the other commands of
-`python -m solver_in_the_loop_tpu` follow as their slices are ported.
+The port covers the karman and Burgers data generation, training and serving
+paths so far; the other commands of `python -m solver_in_the_loop_tpu` (PRE,
+evaluation) follow as their slices are ported.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import importlib
 import sys
 
 COMMANDS = {
+    "karman-gen": ("solver_in_the_loop_torch.apps.karman_gen", "karman data generation"),
     "karman-apply": ("solver_in_the_loop_torch.apps.karman_apply", "karman test rollout"),
     "karman-train": ("solver_in_the_loop_torch.apps.karman_train", "karman SOL/NON training"),
     "burgers-gen": ("solver_in_the_loop_torch.apps.burgers_gen", "burgers data generation"),
@@ -23,8 +24,9 @@ COMMANDS = {
 
 def main(argv=None):
     """Run one command; returns what the command's main returns (the apply
-    commands: their frames; the train commands: their TrainResult;
-    burgers-gen: its Scene), 0 for --help and 2 for an unknown command."""
+    commands and karman-gen: their frames; the train commands: their
+    TrainResult; burgers-gen: its Scene), 0 for --help and 2 for an unknown
+    command."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

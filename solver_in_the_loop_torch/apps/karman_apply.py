@@ -1,9 +1,12 @@
 """Karman test rollout CLI: recurrent steps with a per-step net correction.
 
 Port of solver_in_the_loop_tpu/apps/karman_apply.py with the same flags plus
-`--conv {library,kernel}` (how the net's convolutions run, default library)
-and `--device {cuda,cpu}` (default cuda). It runs on the card unless the CPU
-is asked for, and raises if CUDA is missing instead of running on the CPU.
+`--conv {library,kernel}` (how the net's convolutions run, default library),
+`--pressure-precon {fd,none}` (the pressure solve with the FD preconditioner,
+default, or plain CG: the port's form of the JAX package's
+SILT_PALLAS_FDPCG=0) and `--device {cuda,cpu}` (default cuda). It runs on the
+card unless the CPU is asked for, and raises if CUDA is missing instead of
+running on the CPU.
 
     python -m solver_in_the_loop_torch karman-apply -o OUT \
         --model artifacts/a3_k_sol32/model.msgpack \
@@ -25,6 +28,7 @@ from solver_in_the_loop_torch.core.resample import downsample_centered, downsamp
 from solver_in_the_loop_torch.io import scene as scene_io
 from solver_in_the_loop_torch.models.features import Normalization
 from solver_in_the_loop_torch.models.networks import CONV_IMPLS, build_model
+from solver_in_the_loop_torch.ops.poisson import PRECONS
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train import checkpoint as ckpt
 from solver_in_the_loop_torch.train.rollout import karman_rollout
@@ -56,9 +60,17 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--conv", choices=CONV_IMPLS, default="library",
                    help="the net's convolutions: cuDNN ('library') or the port's "
                         "CUDA kernels ('kernel')")
+    add_pressure_precon(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to run (default: the CUDA card)")
     return p
+
+
+def add_pressure_precon(p: argparse.ArgumentParser) -> None:
+    """--pressure-precon, shared by the karman CLIs."""
+    p.add_argument("--pressure-precon", choices=list(PRECONS), default="fd",
+                   help="the pressure CG's preconditioner: fast diagonalization ('fd', "
+                        "default) or none (plain CG, the JAX package's SILT_PALLAS_FDPCG=0)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -98,7 +110,8 @@ def prepare(args):
     device = resolve_device(args.device)
     dom = karman_domain(args.res, args.len)
     flow = KarmanFlow(dom, advection=args.advect, max_shift=args.max_shift,
-                      pressure_tol=args.ptol, pressure_max_iter=args.pmaxiter, device=device)
+                      pressure_tol=args.ptol, pressure_max_iter=args.pmaxiter,
+                      pressure_precon=args.pressure_precon, device=device)
     d0, v0 = load_initial(args, dom, len(args.re), device)
 
     with open(args.stats) as f:
@@ -144,7 +157,11 @@ def run(args):
         sc.write_staggered("corTf", 0, np.zeros_like(u0_np[b:b + 1]), np.zeros_like(v0_np[b:b + 1]))
         sc.write_centered_batch("denTf", frame_ids, host["dens"][:, b])
         sc.write_staggered_batch("velTf", frame_ids, host["u"][:, b], host["v"][:, b])
-        sc.write_staggered_batch("corTf", frame_ids, host["corr_u"][:, b], host["corr_v"][:, b])
+        if "corr_u" in host:  # a pure-solver rollout (--no-model) corrects nothing
+            cu, cv = host["corr_u"][:, b], host["corr_v"][:, b]
+        else:
+            cu, cv = np.zeros_like(host["u"][:, b]), np.zeros_like(host["v"][:, b])
+        sc.write_staggered_batch("corTf", frame_ids, cu, cv)
     frames["rollout_seconds"] = seconds
     return frames
 

@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, list] = {
     "advect": ["--fmad=false"],
     "pcg": [],
+    "cg": [],
     "conv": [],
 }
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,8 +59,8 @@ def _lib_path(name: str) -> Path:
 
 def _compile(names) -> Dict[str, dict]:
     """Run one nvcc per source, all started together; returns, per source, the
-    seconds until its library was in place and the register/shared-memory
-    report of ptxas."""
+    seconds until its library was in place and the register, shared-memory
+    and spill report of ptxas."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     started = {}
@@ -77,7 +78,8 @@ def _compile(names) -> Dict[str, dict]:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0,
-                        "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]}
+                        "ptxas": [ln.strip() for ln in log.splitlines()
+                                  if "ptxas info" in ln or "spill" in ln]}
     return report
 
 

@@ -1,23 +1,26 @@
-"""Fused FD-preconditioned CG for the masked Poisson system: CUDA kernel and
-its plain twin.
+"""Fused CG for the masked Poisson system, with and without the FD
+preconditioner: CUDA kernels and their plain twins.
 
 `pcg_solve` replaces the TPU kernels
 solver_in_the_loop_tpu/ops/pallas/cg_kernel.py `_pcg_kernel` and
-`_pcg_kernel_folded` (dispatched by ops/pallas/cg.py). On a CUDA tensor it
-launches csrc/pcg.cu, which runs the whole loop in one launch; on a CPU
-tensor it runs `pcg_solve_plain`, the XLA reference's loop
-(`pcg_solve_info`, solver_in_the_loop_tpu/ops/poisson.py:191-228) with
-`.item()` stop checks.
+`_pcg_kernel_folded`, `cg_solve` the unpreconditioned `_cg_kernel` and
+`_cg_kernel_folded` (all dispatched by ops/pallas/cg.py). On a CUDA tensor
+each launches its kernel (csrc/pcg.cu, csrc/cg.cu), which runs the whole loop
+in one launch; on a CPU tensor each runs its plain twin, the XLA reference's
+loop (`pcg_solve_info` and `cg_solve_info`,
+solver_in_the_loop_tpu/ops/poisson.py:92-135, 191-228) with `.item()` stop
+checks.
 
-`pcg_solve_op` (`torch.ops.silt.pcg_solve`) is the differentiable solve the
-pressure projection calls: its forward is `pcg_solve` from the given start,
-and its backward solves the same SPD system cold for the cotangent, through
-`pcg_solve` again (the implicit-function adjoint of `lax.custom_linear_solve`
-with `transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). It is
-a registered custom op so that a selective-checkpoint policy can save its
-output (train/trainer.py), and it reaches the kernel only through the
-module-level `pcg_solve`, so replacing that wrapper replaces the kernel in
-both directions.
+`pcg_solve_op` (`torch.ops.silt.pcg_solve`) and `cg_solve_op`
+(`torch.ops.silt.cg_solve`) are the differentiable solves the pressure
+projection calls: the forward solves from the given start, and the backward
+solves the same SPD system cold for the cotangent with the same solver (the
+implicit-function adjoint of `lax.custom_linear_solve` with
+`transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). They are
+registered custom ops so that a selective-checkpoint policy can save their
+output (train/trainer.py), and each reaches its kernel only through the
+module-level wrapper (`pcg_solve`, `cg_solve`), so replacing that wrapper
+replaces the kernel in both directions.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ MAX_BATCH = 8  # one thread-block cluster, one block per batch element
 # 227 KB of dynamic shared memory per block on Hopper, less room for the
 # kernel's static reduction scratch
 SMEM_LIMIT_BYTES = 232448 - 1024
+# csrc/cg.cu keeps each thread's cells of x, r, p and A p in registers: at
+# most 8 cells for each of its 1,024 threads
+CG_MAX_CELLS = 1024 * 8
 
 
 def pcg_smem_bytes(h: int, w: int) -> int:
@@ -51,9 +57,54 @@ def pcg_kernel_fits(shape) -> bool:
     return 1 <= b <= MAX_BATCH and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES
 
 
+def cg_smem_bytes(h: int, w: int) -> int:
+    """Dynamic shared memory csrc/cg.cu needs per block: p and fluid (h, w)
+    and both face masks. The one source of this size: the gate reads it and
+    the launch passes it."""
+    return 4 * (2 * h * w + h * (w + 1) + (h + 1) * w)
+
+
+def cg_kernel_fits(shape) -> bool:
+    """Whether the unpreconditioned kernel takes a (B, H, W) problem: the
+    batch fits one cluster and an element's cells the block's registers
+    (then its shared memory, cg_smem_bytes, is at most 164 KB)."""
+    b, h, w = shape
+    return 1 <= b <= MAX_BATCH and h * w <= CG_MAX_CELLS
+
+
 def batch_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-batch inner product over spatial axes: (B, Y, X) x 2 -> (B, 1, 1)."""
     return torch.sum(a * b, dim=(1, 2), keepdim=True)
+
+
+def cg_solve_info(matvec: Callable, b: torch.Tensor, tol: float, max_iter: int,
+                  x0: Optional[torch.Tensor] = None):
+    """Batched matrix-free CG (no preconditioner); same stopping rule as
+    pcg_solve_info, the threshold from ||b|| also when warm-started. Returns
+    (x, iterations)."""
+    b_norm_sq = batch_dot(b, b)
+    thresh = (tol * tol) * torch.clamp_min(b_norm_sq, 1e-30)
+    if x0 is None:
+        x, r, rs = torch.zeros_like(b), b, b_norm_sq
+    else:
+        x = x0
+        r = b - matvec(x0)
+        rs = batch_dot(r, r)
+    p = r
+    i = 0
+    while i < max_iter and bool((rs > thresh).any().item()):
+        ap = matvec(p)
+        p_ap = batch_dot(p, ap)
+        alpha = rs / torch.where(p_ap == 0, 1.0, p_ap)
+        alpha = torch.where(p_ap == 0, 0.0, alpha)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = batch_dot(r, r)
+        beta = rs_new / torch.where(rs == 0, 1.0, rs)
+        p = r + beta * p
+        rs = rs_new
+        i += 1
+    return x, i
 
 
 def pcg_solve_info(matvec: Callable, minv: Callable, b: torch.Tensor, tol: float,
@@ -195,3 +246,84 @@ def _pcg_backward(ctx, grad_x, _grad_iters):
 
 
 pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)
+
+
+def cg_solve_plain(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
+    """The unpreconditioned kernel's function in plain PyTorch: returns (x,
+    iterations as a 0-d int32 tensor on b's device)."""
+    x, iters = cg_solve_info(masked_matvec(fluid, face_u, face_v), b, tol, max_iter, x0)
+    return x, torch.tensor(iters, dtype=torch.int32, device=b.device)
+
+
+def _check_cg(b, x0, fluid, face_u, face_v):
+    if b.dim() != 3:
+        raise ValueError(f"cg_solve: b must be (B, H, W), got {tuple(b.shape)}")
+    bsz, h, w = b.shape
+    want = {"b": (bsz, h, w), "x0": (bsz, h, w), "fluid": (1, h, w),
+            "face_u": (1, h, w + 1), "face_v": (1, h + 1, w)}
+    for name, t in zip(want, (b, x0, fluid, face_u, face_v)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != want[name]
+                or not t.is_contiguous() or t.device != b.device):
+            raise ValueError(f"cg_solve: {name} must be a contiguous float32 {want[name]} "
+                             f"tensor on {b.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not cg_kernel_fits(b.shape):
+        raise ValueError(f"cg_solve: {tuple(b.shape)} does not fit the kernel "
+                         f"(batch <= {MAX_BATCH}, at most {CG_MAX_CELLS} cells per element)")
+
+
+def cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
+    """Solve A x = b per element with unpreconditioned CG, warm-started at x0.
+
+    b, x0 (B, H, W); fluid (1, H, W); face_u (1, H, W+1); face_v (1, H+1, W).
+    The whole batch stops together. Returns (x, iterations as a 0-d int32
+    tensor). CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    if b.device.type == "cpu":
+        return cg_solve_plain(b, x0, fluid, face_u, face_v, tol, max_iter)
+    if b.device.type != "cuda":
+        raise ValueError(f"cg_solve: unsupported device {b.device}")
+    _check_cg(b, x0, fluid, face_u, face_v)
+    fn = build.function("cg", "silt_cg_solve", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    bsz, h, w = b.shape
+    x = torch.empty_like(b)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, x, iters)),
+                 bsz, h, w, tol * tol, max_iter, cg_smem_bytes(h, w), stream)
+    build.check(err, "cg_solve")
+    cg_solve.launches += 1
+    return x, iters
+
+
+cg_solve.launches = 0
+
+
+@torch.library.custom_op(
+    "silt::cg_solve", mutates_args=(),
+    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, float tol, "
+           "int max_iter) -> (Tensor, Tensor)")
+def cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
+    """`cg_solve` as a differentiable op in b (x0 and the operator are
+    constants). Returns (x, iterations)."""
+    x, iters = cg_solve(b, x0, fluid, face_u, face_v, tol, max_iter)
+    # the plain loop hands back x0 itself when it is already converged
+    return (x.clone() if x is x0 else x), iters
+
+
+def _cg_setup(ctx, inputs, output):
+    _, _, fluid, face_u, face_v, tol, max_iter = inputs
+    ctx.save_for_backward(fluid, face_u, face_v)
+    ctx.tol, ctx.max_iter = tol, max_iter
+
+
+def _cg_backward(ctx, grad_x, _grad_iters):
+    """The cotangent of b is A^-1 grad_x: a cold solve, as `_pcg_backward`."""
+    grad_b = None
+    if ctx.needs_input_grad[0]:
+        g = grad_x.contiguous()
+        grad_b, _ = cg_solve(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol, ctx.max_iter)
+    return (grad_b,) + (None,) * 6
+
+
+cg_solve_op.register_autograd(_cg_backward, setup_context=_cg_setup)

@@ -1,13 +1,17 @@
 """Masked Poisson solve and pressure projection (make_incompressible).
 
 Port of solver_in_the_loop_tpu/ops/poisson.py: matrix-free CG on the masked
-5-point Poisson operator with the fast-diagonalization preconditioner. On
-CUDA, `solve_pressure` dispatches to the fused kernel of kernels/cg.py
-wherever it fits; on the CPU it runs the plain loops, as the JAX package does
-off the TPU. The plain preconditioned loop, `pcg_solve_info`, lives beside the
-kernel in kernels/cg.py. The OPEN-boundary solve is differentiable in its
-right-hand side: the backward is a cold solve of the same system
-(kernels/cg.py `pcg_solve_op`).
+5-point Poisson operator, with the fast-diagonalization (FD) preconditioner,
+without it, or with a multigrid V-cycle. `solve_pressure` dispatches as the
+JAX package does (`pressure_route`): on CUDA to the fused kernel of
+kernels/cg.py that the preconditioner option names (csrc/pcg.cu or
+csrc/cg.cu) wherever its gate takes the shape, else to multigrid
+(ops/multigrid.py); on the CPU to multigrid where the JAX package takes it
+off the TPU, else to the kernel's plain twin. The plain loops,
+`pcg_solve_info` and `cg_solve_info`, live beside the kernels in
+kernels/cg.py. The OPEN-boundary solve is differentiable in its right-hand
+side on every route: the backward is a cold solve of the same system by the
+same solver (`pcg_solve_op`, `cg_solve_op`, `mg_solve_op`).
 """
 
 from __future__ import annotations
@@ -22,13 +26,19 @@ import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import Domain, StaggeredGrid
 from solver_in_the_loop_torch.kernels.cg import (
-    batch_dot,
+    cg_kernel_fits,
+    cg_solve_info,
+    cg_solve_op,
     fd_apply,
     masked_matvec,
     pcg_kernel_fits,
     pcg_solve_op,
 )
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
+
+# the fused kernel's FD preconditioner on ("fd", JAX's `fd_pcg_ok` marker) or
+# off ("none", JAX's SILT_PALLAS_FDPCG=0)
+PRECONS = ("fd", "none")
 
 
 @dataclasses.dataclass
@@ -66,35 +76,6 @@ def _mg_applicable(shape) -> bool:
     return min(ny, nx) >= 64 and ny % 4 == 0 and nx % 4 == 0
 
 
-def cg_solve_info(matvec, b: torch.Tensor, tol: float, max_iter: int,
-                  x0: Optional[torch.Tensor] = None):
-    """Batched matrix-free CG (no preconditioner); same stopping rule as
-    pcg_solve_info. Returns (x, iterations)."""
-    b_norm_sq = batch_dot(b, b)
-    thresh = (tol * tol) * torch.clamp_min(b_norm_sq, 1e-30)
-    if x0 is None:
-        x, r, rs = torch.zeros_like(b), b, b_norm_sq
-    else:
-        x = x0
-        r = b - matvec(x0)
-        rs = batch_dot(r, r)
-    p = r
-    i = 0
-    while i < max_iter and bool((rs > thresh).any().item()):
-        ap = matvec(p)
-        p_ap = batch_dot(p, ap)
-        alpha = rs / torch.where(p_ap == 0, 1.0, p_ap)
-        alpha = torch.where(p_ap == 0, 0.0, alpha)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = batch_dot(r, r)
-        beta = rs_new / torch.where(rs == 0, 1.0, rs)
-        p = r + beta * p
-        rs = rs_new
-        i += 1
-    return x, i
-
-
 @functools.lru_cache(maxsize=8)
 def _fd_precon_np(ny: int, nx: int):
     """Eigenvectors and inverse eigenvalue sums of the 1-D Dirichlet
@@ -126,53 +107,81 @@ def fd_minv(ny: int, nx: int, device=None):
     return fd_apply(*fd_factors(ny, nx, torch.device(device or "cpu")))
 
 
-def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = False,
-                   tol: float = 1e-5, max_iter: int = 1000, x0: Optional[torch.Tensor] = None):
-    """Solve div(mask*grad(p)) = div on fluid cells (p = 0 in obstacles).
+def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") -> str:
+    """The solver `solve_pressure` runs for a (B, H, W) problem on `device`:
+    "pcg" or "cg" (the fused kernel with the FD preconditioner or without it
+    on CUDA, its plain twin on the CPU), "multigrid", or "periodic_cg" (the
+    plain CG loop, CPU only).
 
-    x0 warm-starts the forward solve only: it is masked to the fluid cells
-    and detached (JAX's stop_gradient), since the solution does not depend on
-    it beyond the CG tolerance. The gradient w.r.t. div is a cold solve of
-    the same system. Returns (p, iterations as a 0-d int32 tensor on div's
-    device). On CUDA the fused kernel runs; where it does not fit, or for
-    PERIODIC domains, this raises NotImplementedError rather than run the
-    plain loop on the card.
-    """
-    fluid = masks.fluid
-    rhs = torch.where(fluid > 0, -div, 0.0)
-    x0 = (torch.zeros_like(rhs) if x0 is None
-          else torch.where(fluid > 0, x0.detach(), 0.0))
-    on_card = div.device.type == "cuda"
+    On CUDA it takes the kernel where its gate takes the shape and else
+    multigrid where the JAX package would (`_mg_applicable`); on the CPU
+    multigrid where the JAX package takes it off the TPU and else the
+    kernel's twin. Raises NotImplementedError for what no route of the port
+    solves on the card."""
+    if precon not in PRECONS:
+        raise ValueError(f"precon must be one of {PRECONS}, got {precon!r}")
+    on_card = torch.device(device).type == "cuda"
     if periodic:
         if on_card:
             raise NotImplementedError(
                 "periodic pressure solve on CUDA: the JAX package solves periodic systems "
                 "with its XLA CG loop (ops/poisson.py cg_solve_info), which is no Pallas "
                 "kernel and is on no ported path yet")
+        return "periodic_cg"
+    kernel = "pcg" if precon == "fd" else "cg"
+    fits = pcg_kernel_fits if precon == "fd" else cg_kernel_fits
+    if on_card and fits(shape):
+        return kernel
+    if _mg_applicable(shape):
+        return "multigrid"
+    if on_card:
+        raise NotImplementedError(
+            f"pressure solve at {tuple(shape)} on CUDA: the fused {kernel.upper()} kernel does "
+            "not take it (batch <= 8 and one element in a block) and the JAX package would "
+            "not take multigrid there (ops/poisson.py _mg_applicable)")
+    return kernel
+
+
+def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = False,
+                   tol: float = 1e-5, max_iter: int = 1000, x0: Optional[torch.Tensor] = None,
+                   precon: str = "fd"):
+    """Solve div(mask*grad(p)) = div on fluid cells (p = 0 in obstacles), by
+    the solver `pressure_route` names for the shape, device and precon.
+
+    The RHS and x0 are zeroed on solid cells before any route. x0 warm-starts
+    the forward solve only: it is detached (JAX's stop_gradient), since the
+    solution does not depend on it beyond the CG tolerance. The gradient
+    w.r.t. div is a cold solve of the same system by the same solver.
+    Returns (p, iterations as a 0-d int32 tensor on div's device).
+    """
+    fluid = masks.fluid
+    rhs = torch.where(fluid > 0, -div, 0.0).contiguous()
+    x0 = (torch.zeros_like(rhs) if x0 is None
+          else torch.where(fluid > 0, x0.detach(), 0.0)).contiguous()
+    route = pressure_route(rhs.shape, div.device, periodic, precon)
+    if route == "periodic_cg":
         x, iters = cg_solve_info(masked_matvec(fluid, masks.face_u, masks.face_v, True),
                                  rhs, tol, max_iter, x0)
         return x, torch.tensor(iters, dtype=torch.int32, device=div.device)
-    if on_card and not pcg_kernel_fits(rhs.shape):
-        raise NotImplementedError(
-            f"pressure solve at {tuple(rhs.shape)} does not fit the fused PCG kernel; the "
-            "JAX package takes multigrid or the XLA PCG there, which are not ported yet "
-            "(ROADMAP.md, 'Modules to port': multigrid)")
-    if not on_card and _mg_applicable(rhs.shape):
-        raise NotImplementedError(
-            f"pressure solve at {tuple(rhs.shape)}: the JAX package solves this size with "
-            "multigrid, which is not ported yet (ROADMAP.md, 'Modules to port': multigrid)")
+    if route == "multigrid":
+        from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
+
+        return mg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
+    if route == "cg":
+        return cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
     _, ny, nx = rhs.shape
     vy, vx, invd = fd_factors(ny, nx, div.device)
-    return pcg_solve_op(rhs.contiguous(), x0.contiguous(), fluid, masks.face_u,
-                        masks.face_v, vy, vx, invd, tol, max_iter)
+    return pcg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd, tol, max_iter)
 
 
 def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: float = 1e-5,
-                        max_iter: int = 1000, p0: Optional[torch.Tensor] = None):
+                        max_iter: int = 1000, p0: Optional[torch.Tensor] = None,
+                        precon: str = "fd"):
     """Project a MAC velocity to a divergence-free field.
 
     1. zero velocity on inaccessible faces
-    2. solve the masked Poisson system for pressure (warm-started from p0)
+    2. solve the masked Poisson system for pressure (warm-started from p0;
+       the solver as `solve_pressure` picks it)
     3. subtract the masked pressure gradient
 
     Returns (velocity, pressure, CG iterations as a 0-d int32 tensor).
@@ -183,7 +192,7 @@ def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: fl
     v = velocity.v * masks.face_v
     div = divergence(u, v)
     p, iters = solve_pressure(div, masks, periodic=periodic, tol=tol, max_iter=max_iter,
-                              x0=p0)
+                              x0=p0, precon=precon)
     gu, gv = pressure_gradient(p, periodic=periodic)
     u = u - gu * masks.face_u
     v = v - gv * masks.face_v

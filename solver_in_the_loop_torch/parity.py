@@ -1,7 +1,8 @@
 """What the port is held to against its plain path and the JAX package: the
 kernels' tolerances, the swap to the plain twins, the karman SOL-32 train
-step and training set, and the Burgers SOL-04 apply and train-step inputs
-that chip_smoke.py and the tests share.
+step and training set, the karman-gen hi-res command and golden, and the
+Burgers SOL-04 apply and train-step inputs that chip_smoke.py and the tests
+share.
 
 Imports nothing of JAX. The inputs are made with numpy or read from the
 repository (artifacts/a3_k_sol32, artifacts/a3_b_sol04, tests/data/torch_port),
@@ -58,6 +59,11 @@ TAP_SUM_TOL = 0.0
 TAP_SUM_BWD_DV_REL_TOL = 1e-6
 PCG_REL_TOL = 1e-4
 PCG_ITER_TOL = 1
+# The unpreconditioned CG kernel against its twin: it has no matrix products,
+# so its iterates part from the twin's only through the order of the dot
+# products' sums; it is held to one iteration and 5e-6 of the solution's max.
+CG_REL_TOL = 5e-6
+CG_ITER_TOL = 1
 ROLLOUT_REL_TOL = 1e-3
 # One SOL-32 train step against another: the forward and the adjoint of each
 # of the 32 steps are CG solves to tol 1e-5, whose iterates differ in the last
@@ -93,6 +99,17 @@ BURGERS_PARITY_ROWS = 5
 BURGERS_PARITY_MSTEPS = 4
 BURGERS_DT = 0.1
 
+# karman-gen: the Makefile's hi-res training-set command (karman-fdt-hires-set,
+# without --thumb), 6 Re batched at 256x128, solved with multigrid; the JAX
+# golden holds its frames KARMAN_GEN_STEPS of sims KARMAN_GEN_SIMS
+# (tests/test_torch_karman_gen_golden.py), held within ROLLOUT_REL_TOL
+KARMAN_GEN_GOLDEN = os.path.join(DATA, "karman_gen_hires_r128.npz")
+KARMAN_HIRES_RE = [160000.0, 320000.0, 640000.0, 1280000.0, 2560000.0, 5120000.0]
+KARMAN_HIRES_ARGV = ["-r", "128", "-l", "100", "--seed", "0",
+                     "--re", *[str(int(r)) for r in KARMAN_HIRES_RE]]
+KARMAN_GEN_STEPS = (1, 5, 20)
+KARMAN_GEN_SIMS = (0, 5)
+
 
 @contextlib.contextmanager
 def plain_path():
@@ -104,6 +121,7 @@ def plain_path():
     with mock.patch.object(advect, "tap_sum_fwd", advect.tap_sum_fwd_plain), \
             mock.patch.object(advect, "tap_sum_bwd", advect.tap_sum_bwd_plain), \
             mock.patch.object(cg, "pcg_solve", cg.pcg_solve_plain), \
+            mock.patch.object(cg, "cg_solve", cg.cg_solve_plain), \
             mock.patch.object(conv, "conv_fwd", conv.conv_fwd_plain), \
             mock.patch.object(conv, "conv_wgrad", conv.conv_wgrad_plain):
         yield
@@ -162,16 +180,18 @@ def _loss_and_grads(model, loss_fn):
     return (loss.item(), step_losses.detach().cpu(), *(r.cpu() for r in rest), grads)
 
 
-def parity_step(device, conv: str = "library"):
-    """One SOL-32 train step's loss and gradients on `device` (no update):
-    (loss, step_losses (32,), forward CG iterations, {param name: grad})."""
+def parity_step(device, conv: str = "library", precon: str = "fd"):
+    """One SOL-32 train step's loss and gradients on `device` (no update),
+    its pressure solves preconditioned as `precon` says: (loss, step_losses
+    (32,), forward CG iterations, {param name: grad})."""
     from solver_in_the_loop_torch.models.features import Normalization
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, karman_loss
 
     data, idx, stats = train_parity_inputs()
     model = parity_model(device, conv)
-    flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, device=device)
+    flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, pressure_precon=precon,
+                      device=device)
     norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
     cfg = SolTrainConfig(msteps=PARITY_MSTEPS, clip_grad=True)
     tdata = {k: torch.from_numpy(a).to(device) for k, a in data.items()}

@@ -16,7 +16,11 @@ import torch
 from solver_in_the_loop_torch.core.grids import Boundary, CenteredGrid, Domain, StaggeredGrid
 from solver_in_the_loop_torch.ops.advection import semi_lagrangian
 from solver_in_the_loop_torch.ops.diffusion import diffuse_explicit
-from solver_in_the_loop_torch.ops.poisson import make_incompressible, masks_from_fluid_cells
+from solver_in_the_loop_torch.ops.poisson import (
+    make_incompressible,
+    masks_from_fluid_cells,
+    pressure_route,
+)
 from solver_in_the_loop_torch.physics.geometry import box_mask, sphere_fluid_mask
 
 OBSTACLE_CENTER = (50.0, 50.0)
@@ -41,16 +45,20 @@ def freestream_bc(domain: Domain, device=None):
 
 
 class KarmanFlow:
-    """Static per-domain setup (masks on `device`) and the solver step."""
+    """Static per-domain setup (masks on `device`) and the solver step.
+
+    pressure_precon ("fd" | "none") picks the pressure solver with the
+    shape and device (ops/poisson.py `pressure_route`)."""
 
     def __init__(self, domain: Domain, advection: str = "gather", max_shift: int = 2,
                  pressure_tol: float = 1e-5, pressure_max_iter: int = 1000,
-                 device=None):
+                 pressure_precon: str = "fd", device=None):
         self.domain = domain
         self.advection = advection
         self.max_shift = max_shift
         self.pressure_tol = pressure_tol
         self.pressure_max_iter = pressure_max_iter
+        self.pressure_precon = pressure_precon
         fluid = sphere_fluid_mask(domain, OBSTACLE_CENTER, OBSTACLE_RADIUS, device)
         self.masks = masks_from_fluid_cells(fluid, domain)
         self.inflow = box_mask(domain, INFLOW_Y, INFLOW_X, device)
@@ -65,8 +73,14 @@ class KarmanFlow:
         density, velocity = self.pre_projection(density, velocity, re, dt)
         velocity, pressure, iters = make_incompressible(
             velocity, self.masks, tol=self.pressure_tol, max_iter=self.pressure_max_iter,
-            p0=p0)
+            p0=p0, precon=self.pressure_precon)
         return density, velocity, pressure, iters
+
+    def pressure_route(self, batch: int) -> str:
+        """The pressure solver `step` runs at this batch size on the masks'
+        device (ops/poisson.py `pressure_route`)."""
+        return pressure_route((batch,) + self.domain.resolution, self.masks.fluid.device,
+                              self.domain.periodic, self.pressure_precon)
 
     def pre_projection(self, density: CenteredGrid, velocity: StaggeredGrid, re,
                        dt: float = 1.0):

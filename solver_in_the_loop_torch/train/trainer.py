@@ -13,8 +13,9 @@ What differs from the JAX package, and why:
 * The unroll is a Python loop over eagerly executed steps (JAX: a jitted
   `lax.scan`), each wrapped in `torch.utils.checkpoint` with a selective
   policy in place of `jax.checkpoint` with a names policy. The policy sees
-  the pressure solve and the tap-sum as the custom ops `silt::pcg_solve` and
-  `silt::tap_sum`, and the convolutions as `aten.convolution` (the "library"
+  the pressure solve as the custom op of its route (`silt::pcg_solve`,
+  `silt::cg_solve` or `silt::mg_solve`), the tap-sum as `silt::tap_sum`, and
+  the convolutions as `aten.convolution` (the "library"
   nets) or `silt::conv` (the "kernel" nets).
 * The optimizer is `torch.optim.Adam` (optax's b1, b2, eps) behind
   `GuardedAdam`, which reproduces the chain `clip_by_leaf_norm -> adam`
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.kernels import conv as _conv  # noqa: F401 (registers silt::conv)
+from solver_in_the_loop_torch.ops import multigrid as _mg  # noqa: F401 (registers silt::mg_solve)
 from solver_in_the_loop_torch.models.features import (
     Normalization,
     burgers_features,
@@ -151,11 +153,13 @@ REMAT_SAVES = {
 def remat_policy_ops(policy: str) -> list:
     """The ops whose outputs a remat policy saves; everything else in an
     unrolled step is recomputed in the backward pass. Every policy saves the
-    pressure solve, so no policy re-runs a CG solve (JAX's fourth policy,
-    "none", a plain jax.checkpoint, would; the CLI maps it to "pressure")."""
+    pressure solve, whichever solver runs it, so no policy re-runs a CG solve
+    (JAX's fourth policy, "none", a plain jax.checkpoint, would; the CLI maps
+    it to "pressure")."""
     if policy not in REMAT_SAVES:
         raise KeyError(f"unknown remat policy '{policy}'; use one of {sorted(REMAT_SAVES)}")
-    ops = {"pcg": [torch.ops.silt.pcg_solve.default],
+    ops = {"pcg": [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
+                   torch.ops.silt.mg_solve.default],
            "conv": [torch.ops.aten.convolution.default, torch.ops.silt.conv.default],
            "advect": [torch.ops.silt.tap_sum.default]}
     return [op for key in REMAT_SAVES[policy] for op in ops[key]]

@@ -1,0 +1,197 @@
+"""The unpreconditioned CG of the PyTorch port against the JAX package (CPU).
+
+* `cg_solve_plain` (kernels/cg.py, the CPU twin of csrc/cg.cu) against the
+  Pallas CG kernels in interpret mode with precon=False, as
+  tests/test_pallas_cg.py runs them: `_cg_kernel_folded` (batched=True at
+  batch 3 and 5) and `_cg_kernel` (batched=False at batch 1), truncated at a
+  few iterations and converged, cold and warm;
+* its iteration counts against the JAX XLA loop `cg_solve_info`;
+* the stopping threshold taken from b, also when warm-started;
+* the `silt::cg_solve` gradient against `jax.vjp` of the JAX solve;
+* the wrapper's CPU dispatch, the gate, and the route `solve_pressure` takes
+  with the preconditioner off.
+
+Tolerances. Truncated iterates are the same float32 arithmetic summed in
+another order (the Pallas kernel's folded segment sums, XLA's reductions, and
+PyTorch's), 1e-5 of the solution's max. Converged solves stop at the CG
+tolerance 1e-5 of ||b|| and the two sides may stop an iteration apart: 1e-4
+of the solution's max. The gradient compares at CG tolerance 1e-7, where the
+two sides' solves agree to float32 rounding (1e-5), as the train-step test
+does: at 1e-5 the JAX side's FD-PCG and the port's plain CG stop at iterates
+that differ by the tolerance itself.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from solver_in_the_loop_tpu.ops import poisson as jp
+from solver_in_the_loop_tpu.ops.pallas.cg_kernel import fused_cg_solve
+from solver_in_the_loop_tpu.physics import karman as jk
+
+from solver_in_the_loop_torch.kernels import cg as tcg
+from solver_in_the_loop_torch.ops import poisson as tp
+from solver_in_the_loop_torch.physics import karman as tk
+
+torch.set_num_threads(1)
+
+
+def _rel_close(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= rtol, f"relative error {err} > {rtol}"
+
+
+def _problem(batch, res=8, seed=0):
+    """Karman masks (sphere obstacle), a random RHS and warm start on the
+    fluid cells."""
+    jdom, tdom = jk.karman_domain(res), tk.karman_domain(res)
+    jm, tm = jk.KarmanFlow(jdom).masks, tk.KarmanFlow(tdom).masks
+    rng = np.random.RandomState(seed)
+    fluid = np.asarray(jm.fluid)
+    rhs = (rng.randn(batch, jdom.ny, jdom.nx) * fluid).astype(np.float32)
+    x0 = (0.1 * rng.randn(batch, jdom.ny, jdom.nx) * fluid).astype(np.float32)
+    return jm, tm, rhs, x0
+
+
+def _plain(tm, rhs, x0, tol, max_iter):
+    x, iters = tcg.cg_solve_plain(torch.from_numpy(rhs), torch.from_numpy(x0), tm.fluid,
+                                  tm.face_u, tm.face_v, tol, max_iter)
+    return x.numpy(), int(iters)
+
+
+def _pallas(jm, rhs, x0, tol, max_iter, batched):
+    return np.asarray(fused_cg_solve(jnp.asarray(rhs), jm.fluid, jm.face_u, jm.face_v, tol=tol,
+                                     max_iter=max_iter, interpret=True, x0=jnp.asarray(x0),
+                                     batched=batched, precon=False))
+
+
+# _cg_kernel_folded at batch 3 and 5, _cg_kernel at batch 1
+KERNELS = [(3, True), (5, True), (1, False)]
+
+
+@pytest.mark.parametrize("batch,batched", KERNELS)
+@pytest.mark.parametrize("warm", [False, True])
+def test_plain_cg_matches_pallas_cg_kernels_truncated(batch, batched, warm):
+    jm, tm, rhs, x0 = _problem(batch, seed=batch + 10 * warm)
+    if not warm:
+        x0 = np.zeros_like(x0)
+    got, iters = _plain(tm, rhs, x0, 1e-12, 6)
+    assert iters == 6
+    _rel_close(got, _pallas(jm, rhs, x0, 1e-12, 6, batched), 1e-5)
+
+
+@pytest.mark.parametrize("batch,batched", KERNELS)
+def test_plain_cg_matches_pallas_cg_kernels_converged(batch, batched):
+    jm, tm, rhs, x0 = _problem(batch, seed=20 + batch)
+    got, iters = _plain(tm, rhs, x0, 1e-5, 1000)
+    assert 6 < iters < 1000
+    _rel_close(got, _pallas(jm, rhs, x0, 1e-5, 1000, batched), 1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_plain_cg_matches_jax_cg_solve_info(batch):
+    jm, tm, rhs, x0 = _problem(batch, seed=30 + batch)
+
+    def matvec(p):
+        return jnp.where(jm.fluid > 0, -jp.masked_laplacian(p, jm.face_u, jm.face_v), p)
+
+    for max_iter, tol in ((5, 1e-12), (1000, 1e-5)):
+        want, want_it = jp.cg_solve_info(matvec, jnp.asarray(rhs), tol, max_iter, jnp.asarray(x0))
+        got, got_it = _plain(tm, rhs, x0, tol, max_iter)
+        assert abs(got_it - int(want_it)) <= 1
+        _rel_close(got, want, 1e-5 if max_iter == 5 else 1e-4)
+
+
+@pytest.mark.parametrize("batch,batched", [(3, True), (1, False)])
+def test_threshold_from_b_when_warm_started(batch, batched):
+    """Started at a solution whose residual is below tol * ||b||, both sides
+    stop at once and hand back the start: the threshold is tol * ||b||, not
+    tol * ||r0||, which this start's residual is far above."""
+    jm, tm, rhs, _ = _problem(batch, seed=40 + batch)
+    near, _ = _plain(tm, rhs, np.zeros_like(rhs), 1e-6, 1000)
+    got, iters = _plain(tm, rhs, near, 1e-5, 1000)
+    assert iters == 0
+    np.testing.assert_array_equal(got, near)
+    np.testing.assert_array_equal(_pallas(jm, rhs, near, 1e-5, 1000, batched), near)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_cg_route_gradient_matches_jax_vjp(warm, monkeypatch):
+    """solve_pressure with the preconditioner off (silt::cg_solve, whose
+    backward is a cold plain-CG solve) against jax.vjp of the JAX solve."""
+    jdom, tdom = jk.karman_domain(8), tk.karman_domain(8)
+    jm, tm = jk.KarmanFlow(jdom).masks, tk.KarmanFlow(tdom).masks
+    rng = np.random.RandomState(50 + warm)
+    fluid = np.asarray(jm.fluid)
+    div = (rng.randn(2, jdom.ny, jdom.nx) * fluid).astype(np.float32)
+    p0 = (0.1 * rng.randn(2, jdom.ny, jdom.nx)).astype(np.float32)
+    cot = rng.randn(2, jdom.ny, jdom.nx).astype(np.float32)  # nonzero on solids too
+    x0 = (jnp.asarray(p0), torch.from_numpy(p0)) if warm else (None, None)
+    p_j, vjp = jax.vjp(lambda d: jp.solve_pressure(d, jm, tol=1e-7, x0=x0[0]), jnp.asarray(div))
+    (want,) = vjp(jnp.asarray(cot))
+    div_t = torch.from_numpy(div).requires_grad_()
+    calls = []
+    real = tcg.cg_solve
+
+    def counted(*args):
+        calls.append(args[1].abs().max().item())  # x0 of each solve
+        return real(*args)
+
+    monkeypatch.setattr(tcg, "cg_solve", counted)
+    p_t, _ = tp.solve_pressure(div_t, tm, tol=1e-7, x0=x0[1], precon="none")
+    (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
+    assert len(calls) == 2 and calls[1] == 0.0  # the forward, then a cold adjoint
+    _rel_close(p_t.detach().numpy(), p_j, 1e-5)
+    _rel_close(got.numpy(), want, 1e-5)
+
+
+def test_cg_solve_wrapper_takes_plain_twin_on_cpu():
+    _, tm, rhs, x0 = _problem(2, seed=60)
+    args = (torch.from_numpy(rhs), torch.from_numpy(x0), tm.fluid, tm.face_u, tm.face_v,
+            1e-5, 1000)
+    launches = tcg.cg_solve.launches
+    x, iters = tcg.cg_solve(*args)
+    x_p, iters_p = tcg.cg_solve_plain(*args)
+    assert tcg.cg_solve.launches == launches
+    assert torch.equal(x, x_p) and int(iters) == int(iters_p)
+    assert iters.dtype == torch.int32 and iters.dim() == 0
+
+
+def test_cg_kernel_gate():
+    for batch in (1, 5, 8):
+        assert tcg.cg_kernel_fits((batch, 64, 32))
+    assert tcg.cg_kernel_fits((8, 128, 64))  # 8 cells per thread
+    assert not tcg.cg_kernel_fits((9, 64, 32))  # more than one cluster
+    assert not tcg.cg_kernel_fits((1, 256, 128))  # hi-res: multigrid
+    assert not tcg.cg_kernel_fits((0, 64, 32))
+    assert tcg.cg_smem_bytes(64, 32) == 4 * (2 * 2048 + 64 * 33 + 65 * 32)
+
+
+@pytest.mark.parametrize("shape,device,precon,route", [
+    ((3, 64, 32), "cuda", "none", "cg"), ((1, 64, 32), "cuda", "fd", "pcg"),
+    ((6, 256, 128), "cuda", "none", "multigrid"), ((6, 256, 128), "cuda", "fd", "multigrid"),
+    ((2, 128, 64), "cuda", "none", "cg"), ((2, 128, 64), "cuda", "fd", "multigrid"),
+    ((3, 64, 32), "cpu", "none", "cg"), ((3, 64, 32), "cpu", "fd", "pcg"),
+    ((2, 128, 64), "cpu", "none", "multigrid"), ((6, 256, 128), "cpu", "fd", "multigrid"),
+])
+def test_pressure_route(shape, device, precon, route):
+    """The JAX package's dispatch at the Makefile's shapes: the fused kernel
+    where its gate takes the shape, multigrid on large open grids; the CPU
+    takes multigrid where the JAX package does off the TPU."""
+    assert tp.pressure_route(shape, device, precon=precon) == route
+
+
+def test_pressure_route_refusals():
+    with pytest.raises(NotImplementedError, match="periodic"):
+        tp.pressure_route((1, 32, 32), "cuda", periodic=True)
+    assert tp.pressure_route((1, 32, 32), "cpu", periodic=True) == "periodic_cg"
+    with pytest.raises(NotImplementedError, match="CG kernel"):
+        tp.pressure_route((9, 64, 32), "cuda", precon="none")
+    with pytest.raises(ValueError):
+        tp.pressure_route((1, 64, 32), "cpu", precon="jacobi")

@@ -10,7 +10,8 @@ machine does not have; this file imports nothing of JAX). Tolerances are
 those of solver_in_the_loop_torch/parity.py, which chip_smoke.py holds the
 card to: the tap-sum forward and backward bit for bit on the
 offsets the solver passes, the PCG within one iteration and 1e-4 of the
-solution's max, the conv forward within 1e-5 and its weight gradient within
+solution's max, the unpreconditioned CG within one iteration and 5e-6 and
+bit-equal across launches, the conv forward within 1e-5 and its weight gradient within
 1e-4 of the output's max, a 10-step rollout within 1e-3, one SOL-32 and one
 SOL-04 train step's losses within 1e-4 and gradients within 1e-3.
 """
@@ -29,10 +30,10 @@ from solver_in_the_loop_torch.kernels.advect import (
     tap_sum_fwd,
     tap_sum_fwd_plain,
 )
-from solver_in_the_loop_torch.kernels.cg import pcg_solve, pcg_solve_plain
+from solver_in_the_loop_torch.kernels.cg import cg_solve, cg_solve_plain, pcg_solve, pcg_solve_plain
 from solver_in_the_loop_torch.models.networks import disable_tf32
 from solver_in_the_loop_torch.ops import interp
-from solver_in_the_loop_torch.ops.poisson import fd_factors
+from solver_in_the_loop_torch.ops.poisson import fd_factors, pressure_route, solve_pressure
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train.rollout import karman_rollout
 
@@ -216,6 +217,115 @@ def test_burgers_train_step_with_kernels_matches_plain(device):
                                                                      launches[1] + 48)
     with parity.plain_path():
         plain = parity.parity_summary(parity.burgers_parity_step(device, "kernel"))
+    errors = parity.parity_errors(kernel, plain)
+    for key, tol in parity.TRAIN_PARITY_TOL.items():
+        assert errors[key] <= tol, (key, errors)
+
+
+def _cg_problem(device, batch, dom=None, seed=0):
+    dom = dom or karman_domain(32)
+    flow = KarmanFlow(dom, advection="shift", device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rhs = (torch.randn((batch, dom.ny, dom.nx), generator=gen, device=device)
+           * flow.masks.fluid).contiguous()
+    return rhs, flow.masks
+
+
+@pytest.mark.parametrize("batch", [1, 3, 5, 8])
+def test_cg_kernel_matches_plain(device, batch):
+    rhs, masks = _cg_problem(device, batch, seed=batch)
+    for x0 in (torch.zeros_like(rhs), (0.1 * rhs).contiguous()):
+        args = (rhs, x0, masks.fluid, masks.face_u, masks.face_v, 1e-5, 1000)
+        launches = cg_solve.launches
+        x_k, it_k = cg_solve(*args)
+        assert cg_solve.launches == launches + 1
+        x_p, it_p = cg_solve_plain(*args)
+        assert abs(int(it_k) - int(it_p)) <= parity.CG_ITER_TOL
+        assert _rel(x_k, x_p) <= parity.CG_REL_TOL
+        x_again, it_again = cg_solve(*args)  # fixed-order sums: the same bits
+        assert torch.equal(x_k, x_again) and int(it_k) == int(it_again)
+
+
+def test_cg_kernel_at_eight_cells_per_thread(device):
+    rhs, masks = _cg_problem(device, 2, karman_domain(64), seed=3)
+    args = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v, 1e-5, 2000)
+    x_k, it_k = cg_solve(*args)
+    x_p, it_p = cg_solve_plain(*args)
+    assert abs(int(it_k) - int(it_p)) <= parity.CG_ITER_TOL
+    assert _rel(x_k, x_p) <= parity.CG_REL_TOL
+
+
+def test_cg_kernel_rejects_what_it_does_not_take(device):
+    rhs, masks = _cg_problem(device, 9)
+    with pytest.raises(ValueError, match="does not fit"):
+        cg_solve(rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v, 1e-5, 10)
+    rhs = rhs[:2]
+    with pytest.raises(ValueError, match="contiguous float32"):
+        cg_solve(rhs.double(), torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v,
+                 1e-5, 10)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        cg_solve(rhs, torch.zeros_like(rhs), masks.fluid,
+                 masks.face_u.transpose(1, 2).contiguous().transpose(1, 2), masks.face_v,
+                 1e-5, 10)
+
+
+def test_cg_adjoint_matches_plain(device):
+    """The gradient through silt::cg_solve is a cold solve by the kernel."""
+    rhs, masks = _cg_problem(device, 3, seed=4)
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(5),
+                      device=device)
+
+    def grad():
+        b = rhs.clone().requires_grad_()
+        x, _ = cg.cg_solve_op(b, torch.zeros_like(rhs), masks.fluid, masks.face_u,
+                              masks.face_v, 1e-5, 1000)
+        return torch.autograd.grad(x, b, cot)[0]
+
+    launches = cg_solve.launches
+    with_kernel = grad()
+    assert cg_solve.launches == launches + 2  # forward and adjoint
+    with parity.plain_path():
+        plain = grad()
+    assert _rel(with_kernel, plain) <= parity.CG_REL_TOL
+
+
+def test_rollout_without_preconditioner_matches_plain(device):
+    dom = karman_domain(32)
+    re = torch.tensor([240000.0, 960000.0], device=device)
+    flow = KarmanFlow(dom, advection="shift", pressure_precon="none", device=device)
+    d0, v0 = initial_state(dom, 2, device)
+    launches = (cg_solve.launches, pcg_solve.launches)
+    with_kernels = karman_rollout(flow, d0, v0, re, 10)
+    assert (cg_solve.launches, pcg_solve.launches) == (launches[0] + 10, launches[1])
+    with parity.plain_path():
+        plain = karman_rollout(flow, d0, v0, re, 10)
+    for key in ("dens", "u", "v"):
+        assert _rel(with_kernels[key], plain[key]) <= parity.ROLLOUT_REL_TOL
+
+
+def test_multigrid_route_on_the_card_matches_cpu(device):
+    """At 128x64 the PCG kernel does not fit: the card takes multigrid (no
+    kernel launch), with the CPU's result and a gradient."""
+    rhs, masks = _cg_problem(device, 2, karman_domain(64), seed=6)
+    assert pressure_route(rhs.shape, device) == "multigrid"
+    launches = (cg_solve.launches, pcg_solve.launches)
+    div = (-rhs).requires_grad_()
+    p, iters = solve_pressure(div, masks)
+    p.sum().backward()
+    assert (cg_solve.launches, pcg_solve.launches) == launches
+    cpu_masks = KarmanFlow(karman_domain(64), advection="shift").masks
+    p_cpu, _ = solve_pressure(-rhs.cpu(), cpu_masks)
+    assert 0 < int(iters) < 200 and torch.isfinite(div.grad).all()
+    assert _rel(p.detach().cpu(), p_cpu) <= parity.PCG_REL_TOL
+
+
+def test_train_step_without_preconditioner_matches_plain(device):
+    launches = (cg_solve.launches, pcg_solve.launches)
+    kernel = parity.parity_summary(parity.parity_step(device, precon="none"))
+    # 32 forward solves and 31 adjoints (none for step 0, whose input is data)
+    assert (cg_solve.launches, pcg_solve.launches) == (launches[0] + 63, launches[1])
+    with parity.plain_path():
+        plain = parity.parity_summary(parity.parity_step(device, precon="none"))
     errors = parity.parity_errors(kernel, plain)
     for key, tol in parity.TRAIN_PARITY_TOL.items():
         assert errors[key] <= tol, (key, errors)

@@ -7,7 +7,8 @@
   tests/test_pallas_cg.py runs them: truncated at a small iteration count,
   where CG is a fixed sequence of float32 operations;
 * `solve_pressure` with a warm start and `make_incompressible`;
-* the CUDA dispatch gate.
+* the CUDA dispatch gate, and the multigrid route at the size where the JAX
+  package takes it.
 
 Tolerances: truncated iterates are the same arithmetic in another summation
 order (XLA/Pallas reductions and matmuls vs PyTorch's), 1e-5 relative.
@@ -159,9 +160,12 @@ def test_kernel_gate():
 
 
 def test_multigrid_sizes_raise_on_cpu():
-    """Where the JAX package solves with multigrid (not ported), the port
-    raises instead of taking another solver."""
-    dom = tk.karman_domain(64)
-    flow = tk.KarmanFlow(dom)
-    with pytest.raises(NotImplementedError, match="multigrid"):
-        tp.solve_pressure(torch.zeros(1, dom.ny, dom.nx), flow.masks)
+    """Where the JAX package solves with multigrid (128x64 and up), the port
+    once raised; it now takes its own multigrid there, on the CPU as the JAX
+    package does off the TPU, and agrees with the JAX solve."""
+    jm, tm, div, p0 = _problem(2, res=64, seed=7)
+    assert tp.pressure_route(div.shape, "cpu") == "multigrid"
+    want = jp.solve_pressure(jnp.asarray(div), jm, x0=jnp.asarray(p0))
+    got, iters = tp.solve_pressure(torch.from_numpy(div), tm, x0=torch.from_numpy(p0))
+    _rel_close(got.numpy(), want, 1e-4)
+    assert 0 < int(iters) < 200

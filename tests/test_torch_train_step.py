@@ -103,9 +103,10 @@ def port_model(jax_params):
     return model
 
 
-def port_loss(model, data, idx, stats, msteps, **cfg_kw):
+def port_loss(model, data, idx, stats, msteps, precon="fd", **cfg_kw):
     dom = tk.karman_domain(RES)
-    flow = tk.KarmanFlow(dom, advection="shift", max_shift=2, pressure_tol=PTOL)
+    flow = tk.KarmanFlow(dom, advection="shift", max_shift=2, pressure_tol=PTOL,
+                         pressure_precon=precon)
     cfg = trainer.SolTrainConfig(msteps=msteps, lr=LR, clip_grad=True, **cfg_kw)
     norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"])
     tdata = {k: torch.from_numpy(a) for k, a in data.items()}
@@ -122,12 +123,11 @@ def _as_port(model, jax_tree):
                            model)
 
 
-@pytest.mark.parametrize("msteps,batch", [(2, 2), (4, 3)])
-def test_train_step_matches_jax(msteps, batch):
+def _check_against_jax(msteps, batch, precon="fd"):
     data, idx, stats = make_data(batch, msteps, seed=msteps)
     jparams, jloss, jstep, jgrads = jax_step(data, idx, stats, msteps)
     model = port_model(jparams)
-    loss, step_losses, iters, *_ = port_loss(model, data, idx, stats, msteps)
+    loss, step_losses, iters, *_ = port_loss(model, data, idx, stats, msteps, precon)
     assert iters.shape == (msteps,) and int(iters.min()) > 0
     np.testing.assert_allclose(float(loss), jloss, rtol=1e-5)
     np.testing.assert_allclose(step_losses.numpy(), jstep, rtol=1e-5)
@@ -139,6 +139,23 @@ def test_train_step_matches_jax(msteps, batch):
         assert scale > 0, name
         err = float((got[name] - w).abs().max()) / scale
         assert err <= 1e-4, f"{name}: {err}"
+    return iters, jparams
+
+
+@pytest.mark.parametrize("msteps,batch", [(2, 2), (4, 3)])
+def test_train_step_matches_jax(msteps, batch):
+    _check_against_jax(msteps, batch)
+
+
+def test_train_step_without_preconditioner_matches_jax():
+    """--pressure-precon none: every solve, forward and adjoint, is plain CG
+    (silt::cg_solve), against the JAX step's FD-PCG; at PTOL both converge
+    to the same pressures, so the same tolerances hold. Plain CG takes more
+    iterations for the same tolerance."""
+    iters, jparams = _check_against_jax(4, 3, precon="none")
+    data, idx, stats = make_data(3, 4, seed=4)
+    fd_iters = port_loss(port_model(jparams), data, idx, stats, 4)[2]
+    assert int(iters.sum()) > int(fd_iters.sum())
 
 
 def test_params_after_one_update_match_jax():
@@ -207,11 +224,45 @@ def test_remat_policies_are_bit_equal_and_never_rerun_the_solve(monkeypatch):
         assert count["fwd"] == 3 * msteps + recomputed, (key, count)
 
 
+def test_remat_never_reruns_the_unpreconditioned_solve(monkeypatch):
+    """With --pressure-precon none the solve is silt::cg_solve, which every
+    policy saves as it saves silt::pcg_solve: one forward solve per step and
+    one adjoint per step but step 0, no PCG."""
+    msteps, batch = 3, 2
+    data, idx, stats = make_data(batch, msteps, seed=5)
+    jparams = jax_build_model("mars_moon", init="reference").init(
+        jax.random.PRNGKey(1), jnp.zeros((batch, 16, 8, 3)))
+    calls = {"cg": 0, "pcg": 0}
+    real = (cg.cg_solve, cg.pcg_solve)
+
+    def counted(key, fn):
+        def wrapper(*args):
+            calls[key] += 1
+            return fn(*args)
+        return wrapper
+
+    monkeypatch.setattr(cg, "cg_solve", counted("cg", real[0]))
+    monkeypatch.setattr(cg, "pcg_solve", counted("pcg", real[1]))
+    results = []
+    for policy, remat in POLICIES:
+        calls.update(cg=0, pcg=0)
+        model = port_model(jparams)
+        loss, *_ = port_loss(model, data, idx, stats, msteps, "none", remat=remat,
+                             remat_policy=policy)
+        results.append((loss, [p.grad.clone() for p in model.parameters()]))
+        assert calls == {"cg": msteps + (msteps - 1), "pcg": 0}, (policy, remat, calls)
+    for loss, grads in results[1:]:
+        assert torch.equal(loss, results[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, results[0][1]))
+
+
 def test_remat_policy_names():
-    # "conv" names both conv implementations: cuDNN's and the fused silt::conv
-    assert trainer.remat_policy_ops("pressure+conv") == [torch.ops.silt.pcg_solve.default,
-                                                         torch.ops.aten.convolution.default,
-                                                         torch.ops.silt.conv.default]
+    # every solver's op is saved; "conv" names both conv implementations:
+    # cuDNN's and the fused silt::conv
+    solves = [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
+              torch.ops.silt.mg_solve.default]
+    assert trainer.remat_policy_ops("pressure+conv") == solves + [
+        torch.ops.aten.convolution.default, torch.ops.silt.conv.default]
     for unknown in ("everything", "none"):  # the CLI maps "none" to "pressure"
         with pytest.raises(KeyError):
             trainer.remat_policy_ops(unknown)

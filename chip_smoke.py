@@ -149,8 +149,10 @@ KARMAN_LORES_REDUCED = {
     "thumbnails": "--thumb dropped (needs PIL; ROADMAP.md A7)",
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
+# outside the tensor cores, TF32 FLOP/s on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 def emit(obj) -> None:
@@ -194,9 +196,10 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _bound(nbytes: float, ops: float):
-    """(least time in ms at the card's peak rates, "bytes" or "operations")."""
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_FLOPS
+def _bound(nbytes: float, ops: float, flops: float = FP32_FLOPS):
+    """(least time in ms at the card's peak rates, "bytes" or "operations"):
+    the bytes at the HBM rate against the operations at `flops`."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / flops
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -240,19 +243,22 @@ def cg_bound_ms(shape, iters: int):
 
 
 def conv_bound_ms(shape, with_skip: bool):
-    """x, w, bias (and skip) read and y written once; 2*M*K*K*Cin*Cout
-    operations for the products and their sums."""
+    """x, w, bias (and skip) read and y written once; the 2*M*K*K*Cin*Cout
+    operations of the products and their sums at fp32 accuracy, which on the
+    tensor cores is three TF32 products each (3xTF32) at the TF32 rate."""
     b, h, w, cin, cout, k = shape
     m = b * h * w
     byts = 4 * (m * cin + k * k * cin * cout + cout + m * cout * (2 if with_skip else 1))
-    return _bound(byts, 2 * m * k * k * cin * cout)
+    return _bound(byts, 3 * 2 * m * k * k * cin * cout, TF32_FLOPS)
 
 
 def conv_wgrad_bound_ms(shape):
-    """x and dz read and dW written once; 2*M*K*K*Cin*Cout operations."""
+    """x and dz read and dW written once; 3 x 2*M*K*K*Cin*Cout operations at
+    the TF32 rate, as conv_bound_ms."""
     b, h, w, cin, cout, k = shape
     m = b * h * w
-    return _bound(4 * (m * cin + m * cout + k * k * cin * cout), 2 * m * k * k * cin * cout)
+    return _bound(4 * (m * cin + m * cout + k * k * cin * cout), 3 * 2 * m * k * k * cin * cout,
+                  TF32_FLOPS)
 
 
 def kernel_wrappers():
@@ -290,6 +296,9 @@ def phase_build():
     t0 = time.perf_counter()
     report = build.build_all(force=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": report})
+    spills = [ln for ln in report["conv"]["ptxas"]
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    require(not spills, f"the conv kernels spill registers: {spills}")
 
 
 def karman_rhs(batch_re, device, steps=30):
@@ -339,6 +348,39 @@ def _offsets(shape, kind, gen, device):
     return dy, dx
 
 
+def _sample_grid(dy, dx):
+    """The grid of F.grid_sample (align_corners=True) that samples each cell
+    (j, i) at (j + dy, i + dx)."""
+    import torch
+
+    _, h, w = dy.shape
+    jj = torch.arange(h, device=dy.device, dtype=dy.dtype)[None, :, None]
+    ii = torch.arange(w, device=dy.device, dtype=dy.dtype)[None, None, :]
+    return torch.stack([2.0 * (ii + dx) / (w - 1) - 1.0, 2.0 * (jj + dy) / (h - 1) - 1.0], -1)
+
+
+def grid_sample_yardstick(vals, dy, dx, m, gen):
+    """The OPEN tap-sum's library call: bilinear F.grid_sample with the edge
+    value repeated outside the field (padding_mode "border"), timed on the
+    tap-sum's own inputs; and its difference from the tap-sum's twin on
+    offsets clamped as the solver clamps them, where the two compute the same
+    function. A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    from solver_in_the_loop_torch.kernels.advect import tap_sum_fwd_plain
+
+    def sample(dy, dx, grid):
+        return F.grid_sample(vals[:, None], grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)[:, 0]
+
+    grid = _sample_grid(dy, dx)
+    cy, cx = _offsets(tuple(vals.shape), "clamped", gen, vals.device)
+    err = float((sample(cy, cx, _sample_grid(cy, cx)) - tap_sum_fwd_plain(vals, cy, cx, m, False))
+                .abs().max())
+    return {"library_ms": time_ms(lambda: sample(dy, dx, grid), 200),
+            "library_max_abs_err_clamped": err}
+
+
 def phase_kernels(device):
     import torch
 
@@ -381,6 +423,7 @@ def phase_kernels(device):
                     case["plain_ms"] = time_ms(
                         lambda: tap_sum_fwd_plain(vals, dy, dx, m, periodic), 20)
                     case["bound_ms"], case["bound_by"] = tap_sum_bound_ms(shape, m)
+                    case.update(grid_sample_yardstick(vals, dy, dx, m, gen))
                 tap_cases.append(case)
                 require(err <= TAP_SUM_TOL, f"tap_sum_fwd {case} differs from its plain twin")
 
@@ -405,6 +448,9 @@ def phase_kernels(device):
                     case["plain_ms"] = time_ms(
                         lambda: tap_sum_bwd_plain(vals, dy, dx, g, m, periodic), 10)
                     case["bound_ms"], case["bound_by"] = tap_sum_bwd_bound_ms(shape, m)
+                    grid = _sample_grid(dy, dx)
+                    case["library_ms"] = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        g[:, None], vals[:, None], grid, 0, 1, True, [True, True]), 200)
                 bwd_cases.append(case)
                 dv_tol = 0.0 if offsets == "clamped" else TAP_SUM_BWD_DV_REL_TOL
                 require(errs[1] <= TAP_SUM_TOL and errs[2] <= TAP_SUM_TOL and dv_rel <= dv_tol,
@@ -433,10 +479,14 @@ def phase_kernels(device):
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
     cg_cases = cg_kernel_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
-    emit({"phase": "kernels", "library_ms": "tap-sum, PCG and CG: none, no single PyTorch call "
-          "computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) on the same NHWC "
-          "data seen as NCHW, with the bias but not the skip or activation; conv_wgrad: "
-          "aten.convolution_backward, weight gradient only",
+    emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed): "
+          "F.grid_sample (bilinear, border padding, align_corners) forward and "
+          "aten.grid_sampler_2d_backward, the same function on the offsets the solver clamps "
+          "(library_max_abs_err_clamped); tap-sum on PERIODIC domains, PCG and CG: none, no "
+          "single PyTorch call computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) "
+          "on the same NHWC data seen as NCHW, with the bias but not the skip or activation; "
+          "conv_fwd as the input gradient: aten.convolution_backward, input gradient only; "
+          "conv_wgrad: aten.convolution_backward, weight gradient only",
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
           "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
@@ -519,6 +569,9 @@ CONV_CASES = [
     (5, 32, 32, 32, 32, 3, "relu", True, "3x3"),
     (5, 32, 32, 32, 32, 5, "relu", False, "relu"),
     (5, 32, 32, 32, 32, 5, "none", True, "none with skip"),
+    (1, 64, 32, 3, 32, 5, "relu", False, "mercury karman apply: conv1"),
+    (1, 64, 32, 32, 64, 5, "relu", False, "mercury karman apply: conv2"),
+    (1, 64, 32, 64, 2, 5, "none", False, "mercury karman apply: head"),
 ]
 # input gradients (conv_fwd with the flipped, channel-transposed kernel) and
 # weight gradients: (B, H, W, Cin, Cout, K) of the forward conv
@@ -529,12 +582,15 @@ CONV_GRAD_CASES = [
     (3, 64, 32, 3, 32, 5, "karman train: stem"),
     (3, 64, 32, 32, 32, 5, "karman train: block"),
     (5, 32, 32, 32, 32, 3, "3x3"),
+    (1, 64, 32, 3, 32, 5, "mercury karman apply: conv1"),
+    (1, 64, 32, 32, 64, 5, "mercury karman apply: conv2"),
+    (1, 64, 32, 64, 2, 5, "mercury karman apply: head"),
 ]
 
 
 def conv_kernel_cases(device):
-    """conv_fwd and conv_wgrad against their twins, with their times, the
-    twins', cuDNN's and their bounds."""
+    """conv_fwd (also as the input gradient) and conv_wgrad against their
+    twins, with their times, the twins', cuDNN's and their bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -581,11 +637,15 @@ def conv_kernel_cases(device):
         got = conv_fwd(dz, w, flip=True)
         want = conv_fwd_plain(dz, w, flip=True)
         b, h, wd, cin, cout, k = shape
+        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
         case = {"shape": [b, h, wd, cout, cin, k], "act": "none", "skip": False, "where": where,
                 "dgrad": True, "max_abs_err": float((got - want).abs().max()),
                 "rel_err": rel_err(got, want),
                 "ms": time_ms(lambda: conv_fwd(dz, w, flip=True), 200),
-                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10)}
+                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10),
+                "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                    dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+                    [True, False, False]), 200)}
         case["bound_ms"], case["bound_by"] = conv_bound_ms(case["shape"], False)
         fwd_cases.append(case)
         require(case["rel_err"] <= CONV_FWD_REL_TOL, f"conv_fwd (dgrad) {case} differs")
@@ -593,7 +653,6 @@ def conv_kernel_cases(device):
         got = conv_wgrad(x, dz, k)
         want = conv_wgrad_plain(x, dz, k)
         torch.cuda.synchronize()
-        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
         case = {"shape": shape, "where": where, "max_abs_err": float((got - want).abs().max()),
                 "rel_err": rel_err(got, want),
                 "deterministic": bool(torch.equal(got, conv_wgrad(x, dz, k))),
@@ -1207,7 +1266,8 @@ def phase_burgers_train_parity(device):
 
 def _device_profile(run, iters: int, per: int = 1):
     """Wall ms of `run` without and with torch.profiler, and device ms and
-    launches by kernel group, each per call of `run` divided by `per`."""
+    launches by kernel group, each per call of `run` divided by `per`; and
+    the kernel wrappers' launch counts over the same profiled calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1219,12 +1279,14 @@ def _device_profile(run, iters: int, per: int = 1):
         run()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0) / per)
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
         wall_prof = 1e3 * (time.perf_counter() - t0) / (iters * per)
+    wrapper_launches = {k: v / (iters * per) for k, v in read_launches().items()}
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     groups = {"tap_sum_fwd": ("tap_sum_fwd_kernel",), "tap_sum_bwd": ("tap_sum_bwd_kernel",),
               "conv_fwd": ("::conv_fwd_kernel",), "conv_wgrad": ("::conv_wgrad_kernel",),
@@ -1238,7 +1300,8 @@ def _device_profile(run, iters: int, per: int = 1):
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / (iters * per)
     return {"wall_ms": sorted(walls)[1], "wall_ms_all": walls, "wall_ms_profiled": wall_prof,
             "device_busy_ms": busy_ms, "device_idle_share_profiled": 1.0 - busy_ms / wall_prof,
-            "device_launches": len(events) / (iters * per), "by_group": by_group}
+            "device_launches": len(events) / (iters * per), "by_group": by_group,
+            "wrapper_launches": wrapper_launches}
 
 
 def phase_burgers_profile(device, apply_steps=50):
@@ -1279,11 +1342,19 @@ def phase_burgers_profile(device, apply_steps=50):
         rollout, v0, fu, fv = burgers_apply.prepare(args)
         line["apply"][conv] = _device_profile(lambda: rollout(v0, fu, fv), 1, per=apply_steps)
     emit(line)
+    # one device launch per wrapper call: 95 conv_fwd and 48 conv_wgrad per
+    # SOL-04 iteration (as burgers_train counts them), 12 conv_fwd per apply step
+    want = {"train": {"conv_fwd": 95, "conv_wgrad": 48}, "apply": {"conv_fwd": 12, "conv_wgrad": 0}}
     for part in ("train", "apply"):
-        require(line[part]["kernel"]["device_busy_ms"] > 0, "the profiler saw no device time")
-        require(line[part]["kernel"]["by_group"]["conv_fwd"]["launches"] > 0
-                and line[part]["kernel"]["by_group"]["cudnn_conv"]["launches"] == 0,
-                f"the {part} profile with --conv kernel does not show the conv kernel alone")
+        prof = line[part]["kernel"]
+        require(prof["device_busy_ms"] > 0, "the profiler saw no device time")
+        require(prof["by_group"]["cudnn_conv"]["launches"] == 0,
+                f"the {part} profile with --conv kernel shows cuDNN kernels")
+        for name, n in want[part].items():
+            device, wrapper = prof["by_group"][name]["launches"], prof["wrapper_launches"][name]
+            require(abs(device - n) < 1e-6 and abs(wrapper - n) < 1e-6,
+                    f"the {part} profile: {device} {name} device launches and {wrapper} wrapper "
+                    f"calls per {'iteration' if part == 'train' else 'step'}, expected {n} each")
 
 
 def _frames_errors(got, want_of, fields=("dens", "u", "v"), steps=(1, 5, 20)):

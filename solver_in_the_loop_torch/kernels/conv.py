@@ -14,6 +14,18 @@ may be any strided view: the kernels read and write through the strides, so
 the nets hand over `weight.permute(2, 3, 1, 0)` of their PyTorch
 (Cout, Cin, K, K) parameter without a copy.
 
+Both kernels multiply on the tensor cores in 3xTF32 (each operand split into
+a TF32 part and a TF32 remainder, three products summed in fp32), which
+keeps fp32's accuracy where one TF32 product would not. `conv_fwd` is an
+implicit GEMM over tiles of 2x16 pixels and 16 output channels (64 blocks
+for a 32->32 conv at 32x32 and batch 1), the whole input patch staged at
+once and the weight one tap row at a time, double-buffered. `conv_wgrad`
+splits the B*H*W rows over a cluster of up to 8 blocks, each owning one tap
+row, 16 input and 16 output channels, and adds the blocks' partial sums in
+rank order through distributed shared memory: one launch, no atomics, the
+same bits on every launch. Each wrapper call is one CUDA launch. What bounds
+them is in csrc/conv.cu.
+
 `conv` (`torch.ops.silt.conv`) is the op the nets call: the convolution with
 its epilogue fused (+bias, optional +skip, ReLU or LeakyReLU), as the JAX
 package's `conv_fused`. Its backward takes the activation's derivative from

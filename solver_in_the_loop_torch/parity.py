@@ -75,10 +75,11 @@ ROLLOUT_REL_TOL = 1e-3
 # for the kernel's own order.
 TRAIN_PARITY_TOL = {"loss": 1e-4, "step_losses": 1e-4, "grad_norms": 1e-3, "head_grad": 1e-3}
 # The conv kernels against their twins, relative to the output's max: the
-# kernel sums each output over input-channel chunks, taps and channels with
-# fused multiply-adds, the twin per tap as a matmul, so the two differ in the
+# kernel sums each output on the tensor cores in 3xTF32 (fp32's accuracy,
+# in another order), the twin per tap as a matmul, so the two differ in the
 # last bits of sums of K*K*Cin products (forward, 1e-5) and of M = B*H*W
-# products (weight gradient, 1e-4).
+# products (weight gradient, 1e-4). One TF32 product per term would not
+# meet either (tests/test_torch_conv.py).
 CONV_FWD_REL_TOL = 1e-5
 CONV_WGRAD_REL_TOL = 1e-4
 

@@ -18,6 +18,7 @@ from solver_in_the_loop_tpu.ops.pallas import conv_kernel as ck
 
 from solver_in_the_loop_torch.kernels import conv as kconv
 from solver_in_the_loop_torch.models.networks import build_model
+from solver_in_the_loop_torch.parity import CONV_FWD_REL_TOL, CONV_WGRAD_REL_TOL
 
 torch.set_num_threads(2)
 
@@ -157,3 +158,54 @@ def test_nets_agree_under_both_conv_implementations(arch):
         torch.testing.assert_close(outs[1][1][name], g, rtol=1e-4, atol=1e-4, msg=name)
     with pytest.raises(KeyError, match="conv implementation"):
         build_model(arch, conv="cudnn")
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, on the bits: as csrc/conv.cu `split_tf32` rounds."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b with TF32 operands and fp32 sums: one product (terms=1), or
+    3xTF32 (terms=3), big*big + (big*small + small*big) with
+    a = big + small, as the conv kernels accumulate on the tensor cores."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if terms == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_big @ b_big + (a_big @ b_small + a_small @ b_big)
+
+
+@pytest.mark.parametrize("what", ["forward", "weight_gradient"])
+def test_three_tf32_products_meet_the_conv_tolerances_and_one_does_not(what):
+    """Why the conv kernels pay for three tensor-core products: at the
+    Burgers block shape (5, 32, 32, 32 -> 32, K=5), per-tap products in
+    3xTF32 stay within the kernels' tolerances of a float64 reference, and
+    in one TF32 product they do not."""
+    b, h, w, cin, cout, k = 5, 32, 32, 32, 32, 5
+    x, wt, _, _, dz = _inputs(b, h, w, cin, cout, k, False, seed=3)
+    xp = np.pad(x, ((0, 0), (k // 2, k // 2), (k // 2, k // 2), (0, 0)))
+    taps = [np.ascontiguousarray(xp[:, ky:ky + h, kx:kx + w, :].reshape(-1, cin))
+            for ky in range(k) for kx in range(k)]
+    rows = dz.reshape(-1, cout)
+    if what == "forward":
+        ref = sum(t.astype(np.float64) @ wt[i // k, i % k].astype(np.float64)
+                  for i, t in enumerate(taps))
+        tol = CONV_FWD_REL_TOL
+
+        def emulate(terms):
+            return sum(_tf32_product(torch.tensor(t), torch.tensor(wt[i // k, i % k]), terms)
+                       for i, t in enumerate(taps)).numpy()
+    else:
+        ref = np.stack([t.T.astype(np.float64) @ rows.astype(np.float64) for t in taps])
+        tol = CONV_WGRAD_REL_TOL
+
+        def emulate(terms):
+            return np.stack([_tf32_product(torch.tensor(t.T.copy()), torch.tensor(rows), terms)
+                             .numpy() for t in taps])
+
+    errors = {terms: float(np.abs(emulate(terms) - ref).max() / np.abs(ref).max())
+              for terms in (3, 1)}
+    assert errors[3] <= tol, errors
+    assert errors[1] > tol, errors

@@ -156,7 +156,11 @@ def test_train_step_with_kernels_matches_plain(device):
 CONV_SHAPES = [  # (B, H, W, Cin, Cout, K): MarsMoon at the Burgers and karman shapes
     (5, 32, 32, 4, 32, 5), (5, 32, 32, 32, 32, 5), (5, 32, 32, 32, 2, 5), (1, 32, 32, 32, 32, 5),
     (3, 64, 32, 3, 32, 5), (1, 64, 32, 32, 2, 5), (5, 32, 32, 32, 32, 3),
-    (2, 16, 16, 64, 64, 7),  # two output tiles, above 48 KB of shared memory
+    (2, 16, 16, 64, 64, 7),  # four output tiles, two channel chunks, above 48 KB of shared memory
+    (1, 64, 32, 32, 64, 5), (1, 64, 32, 64, 2, 5),  # Mercury's conv2 and head at the karman shape
+    (2, 33, 17, 5, 3, 5),  # ragged rows, columns and channels
+    (8, 32, 32, 32, 32, 5),  # the largest batch
+    (1, 64, 32, 3, 32, 3), (1, 64, 32, 3, 32, 7),  # K = 3 and 7 at Cin = 3
 ]
 
 
@@ -196,6 +200,15 @@ def test_conv_dgrad_and_wgrad_kernels_match_plain(device, shape):
     assert dw.permute(3, 2, 0, 1).is_contiguous()
     assert _rel(dw, kconv.conv_wgrad_plain(x, dz, shape[5])) <= parity.CONV_WGRAD_REL_TOL
     assert torch.equal(dw, kconv.conv_wgrad(x, dz, shape[5]))  # no atomics: the same bits
+
+
+def test_conv_wgrad_is_bit_equal_over_launches(device):
+    """The cluster's partial sums are added in rank order: five launches at
+    the Burgers block shape give the same bits."""
+    x, _, _, dz = _conv_inputs(device, (5, 32, 32, 32, 32, 5), seed=2)
+    first = kconv.conv_wgrad(x, dz, 5)
+    for _ in range(4):
+        assert torch.equal(kconv.conv_wgrad(x, dz, 5), first)
 
 
 def test_conv_rejects_bad_input(device):

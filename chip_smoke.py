@@ -13,7 +13,9 @@ each printing one JSON line:
 3. kernels      — each kernel (tap-sum forward and backward, PCG, CG without
                   preconditioner) against its plain PyTorch twin on the card,
                   at the shapes of the karman apply, training and generation
-                  paths, with its time, the twin's and its bound
+                  paths (the tap-sums also at the Burgers fields and at
+                  max_shift 1 and 3, with each launch's grid and block), with
+                  its time, the twin's and its bound
 4. apply        — `karman-apply` through the CLI entry point at the full width
                   of the SOL-32 MarsMoon checkpoint (artifacts/a3_k_sol32), 500
                   steps at batch 1 and at batch 5, each after a one-step
@@ -70,6 +72,10 @@ each printing one JSON line:
                   steps 1, 5 and 20 against the JAX golden of the apply phase
 19. train_parity_cg — the SOL-32 train step with `--pressure-precon none`
                   against the plain path and the JAX package's step
+20. apply_b9    — `karman-apply` at batch 9, one more than a thread-block
+                  cluster, where the CG kernels run as a cooperative grid, with
+                  each `--pressure-precon`: launch counts, and frames against
+                  the plain path and the JAX golden
 
 The kernels phase also checks the CG kernel's adjoint and the conv kernels
 (forward, input gradient and weight gradient) at the Burgers and karman shapes
@@ -94,6 +100,8 @@ OUT_DIR = os.path.join(REPO, "build", "smoke_out")
 RE_B1 = [240000.0]
 RE_B5 = [240000.0, 480000.0, 960000.0, 1920000.0, 3840000.0]
 RE_B8 = RE_B5 + [160000.0, 320000.0, 640000.0]  # a full cluster of the CG kernels
+RE_B9 = RE_B8 + [1280000.0]  # more than a cluster: the CG kernels' cooperative grid
+B9_STEPS = 100
 STEPS = 500
 APPLY_SHAPES = [(1, 64, 32), (1, 64, 33), (1, 65, 32), (5, 64, 32), (5, 64, 33), (5, 65, 32)]
 TRAIN_SHAPES = [(3, 64, 32), (3, 64, 33), (3, 65, 32)]
@@ -203,24 +211,25 @@ def _bound(nbytes: float, ops: float, flops: float = FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tap_sum_bound_ms(shape, m: int):
-    """Three inputs read and one output written once; per cell 2(2m+2) hat
-    weights of 4 operations and (2m+2)^2 taps of 3 (weight product, multiply, add)."""
+def tap_sum_bound_ms(shape):
+    """Three inputs read and one output written once; per cell the operations
+    the 2x2 window needs (csrc/advect.cu): two floors, four hat weights of 4
+    operations and four taps of 3 (weight product, multiply, add). Fewer
+    where the window is clipped; the bytes bound it either way. max_shift
+    does not enter: the taps outside the window carry no weight."""
     cells = shape[0] * shape[1] * shape[2]
-    taps = 2 * m + 2
-    ops = cells * (4 * 2 * taps + 3 * taps * taps)
-    return _bound(16 * cells, ops)
+    return _bound(16 * cells, cells * (2 + 4 * 4 + 4 * 3))
 
 
-def tap_sum_bwd_bound_ms(shape, m: int):
-    """Four inputs read and three outputs written once; per cell the hat
-    weights and slopes of 2(2m+2) offsets (8 operations each) and, per tap,
-    10 operations: g*V, two weight products with their multiply-adds into
-    ddy and ddx, and g*wy*wx added into dV. About 3x the forward's."""
+def tap_sum_bwd_bound_ms(shape):
+    """Four inputs read and three outputs written once; per cell the
+    operations the windows need (csrc/advect.cu): two floors and four hat
+    weights (18), eight hat weights and slopes of the 4x4 slope window (8
+    each), 16 taps of ddy and ddx (7 each: g*V, two weight products, two
+    multiplies, two adds) and at most four dV terms (3 each). Fewer where a
+    window is clipped; the bytes bound it either way."""
     cells = shape[0] * shape[1] * shape[2]
-    taps = 2 * m + 2
-    ops = cells * (8 * 2 * taps + 10 * taps * taps)
-    return _bound(28 * cells, ops)
+    return _bound(28 * cells, cells * (18 + 8 * 8 + 16 * 7 + 4 * 3))
 
 
 def pcg_bound_ms(shape, iters: int):
@@ -330,24 +339,6 @@ def karman_rhs(batch_re, device, steps=30):
     return rhs, x0, masks
 
 
-def _offsets(shape, kind, gen, device):
-    """Tap-sum offsets: "uniform" in +-2.5 (beyond the taps' reach), "integer"
-    (the same rounded: every tap on a kink or a tie of the hat weights), or
-    "clamped" (uniform, then clamped into the field as the OPEN solver does)."""
-    import torch
-
-    dy = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
-    dx = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
-    if kind == "integer":
-        return dy.round(), dx.round()
-    if kind == "clamped":
-        jj = torch.arange(shape[1], device=device, dtype=dy.dtype)[None, :, None]
-        ii = torch.arange(shape[2], device=device, dtype=dy.dtype)[None, None, :]
-        dy = (torch.clamp(jj + dy.clamp(-2, 2), 0.0, shape[1] - 1.0) - jj).contiguous()
-        dx = (torch.clamp(ii + dx.clamp(-2, 2), 0.0, shape[2] - 1.0) - ii).contiguous()
-    return dy, dx
-
-
 def _sample_grid(dy, dx):
     """The grid of F.grid_sample (align_corners=True) that samples each cell
     (j, i) at (j + dy, i + dx)."""
@@ -359,37 +350,114 @@ def _sample_grid(dy, dx):
     return torch.stack([2.0 * (ii + dx) / (w - 1) - 1.0, 2.0 * (jj + dy) / (h - 1) - 1.0], -1)
 
 
-def grid_sample_yardstick(vals, dy, dx, m, gen):
+def grid_sample_yardstick(vals, dy, dx, m):
     """The OPEN tap-sum's library call: bilinear F.grid_sample with the edge
     value repeated outside the field (padding_mode "border"), timed on the
-    tap-sum's own inputs; and its difference from the tap-sum's twin on
-    offsets clamped as the solver clamps them, where the two compute the same
-    function. A yardstick only: the port never calls it."""
+    tap-sum's own inputs, offsets clamped as the solver clamps them, where
+    the two compute the same function; and its difference from the
+    tap-sum's twin there. A yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
     from solver_in_the_loop_torch.kernels.advect import tap_sum_fwd_plain
 
-    def sample(dy, dx, grid):
+    grid = _sample_grid(dy, dx)
+
+    def sample():
         return F.grid_sample(vals[:, None], grid, mode="bilinear", padding_mode="border",
                              align_corners=True)[:, 0]
 
-    grid = _sample_grid(dy, dx)
-    cy, cx = _offsets(tuple(vals.shape), "clamped", gen, vals.device)
-    err = float((sample(cy, cx, _sample_grid(cy, cx)) - tap_sum_fwd_plain(vals, cy, cx, m, False))
-                .abs().max())
-    return {"library_ms": time_ms(lambda: sample(dy, dx, grid), 200),
-            "library_max_abs_err_clamped": err}
+    err = float((sample() - tap_sum_fwd_plain(vals, dy, dx, m, False)).abs().max())
+    return {"library_ms": time_ms(sample, 200), "library_max_abs_err": err}
 
 
-def phase_kernels(device):
+# (shape, max_shift, periodic) of the tap-sum cases: the karman training and
+# apply fields on both boundaries, the Burgers SOL-04 fields (PERIODIC), and
+# max_shift 1 and 3 at the training shape
+BURGERS_SHAPES = [(5, 32, 33), (5, 33, 32)]
+TAP_CASES = ([(s, 2, p) for s in TRAIN_SHAPES + APPLY_SHAPES for p in (False, True)]
+             + [(s, 2, True) for s in BURGERS_SHAPES]
+             + [((3, 64, 32), m, p) for m in (1, 3) for p in (False, True)])
+
+
+def tap_sum_cases(device):
+    """Both tap-sum kernels against their twins at TAP_CASES, on "uniform",
+    "integer" and "clamped" offsets: the forward, ddy and ddx bit for bit, dV
+    bit for bit on clamped offsets and PERIODIC fields and within
+    TAP_SUM_BWD_DV_REL_TOL on the rest (the card twin's index_add_ adds an
+    OPEN edge cell's several non-zero terms with atomics). Each case prints
+    its launch's grid and block. Timed on clamped offsets, the solver's
+    (OPEN beside the library's grid_sample), and on uniform ones, where an
+    OPEN backward takes its edge path: OPEN at max_shift 2 and every case
+    that is not a karman field at max_shift 2."""
     import torch
 
     from solver_in_the_loop_torch.kernels.advect import (
+        launch_config,
         tap_sum_bwd,
         tap_sum_bwd_plain,
         tap_sum_fwd,
         tap_sum_fwd_plain,
     )
+    from solver_in_the_loop_torch.parity import (
+        TAP_SUM_BWD_DV_REL_TOL,
+        TAP_SUM_TOL,
+        tap_sum_offsets,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    fwd_cases, bwd_cases = [], []
+    for shape, m, periodic in TAP_CASES:
+        timed = not periodic or m != 2 or shape in BURGERS_SHAPES
+        for offsets in ("uniform", "integer", "clamped"):
+            vals, g = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
+            dy, dx = tap_sum_offsets(shape, offsets, m, periodic, gen, device)
+            base = {"shape": list(shape), "max_shift": m, "periodic": periodic,
+                    "offsets": offsets}
+            got = tap_sum_fwd(vals, dy, dx, m, periodic)
+            want = tap_sum_fwd_plain(vals, dy, dx, m, periodic)
+            torch.cuda.synchronize()
+            case = {**base, "max_abs_err": float((got - want).abs().max()),
+                    "launch": launch_config(shape, m, backward=False)}
+            if timed and offsets != "integer":
+                case["ms"] = time_ms(lambda: tap_sum_fwd(vals, dy, dx, m, periodic), 200)
+                case["plain_ms"] = time_ms(lambda: tap_sum_fwd_plain(vals, dy, dx, m, periodic),
+                                           20)
+                case["bound_ms"], case["bound_by"] = tap_sum_bound_ms(shape)
+                case["library_ms"] = None
+                if not periodic and offsets == "clamped":
+                    case.update(grid_sample_yardstick(vals, dy, dx, m))
+            fwd_cases.append(case)
+            require(case["max_abs_err"] <= TAP_SUM_TOL,
+                    f"tap_sum_fwd {case} differs from its plain twin")
+
+            got = tap_sum_bwd(vals, dy, dx, g, m, periodic)
+            want = tap_sum_bwd_plain(vals, dy, dx, g, m, periodic)
+            torch.cuda.synchronize()
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            dv_rel = errs[0] / float(want[0].abs().max())
+            case = {**base, "max_abs_err": max(errs), "dv_abs_err": errs[0],
+                    "dv_rel_err": dv_rel, "ddy_abs_err": errs[1], "ddx_abs_err": errs[2],
+                    "launch": launch_config(shape, m, backward=True)}
+            if timed and offsets != "integer":
+                case["ms"] = time_ms(lambda: tap_sum_bwd(vals, dy, dx, g, m, periodic), 200)
+                case["plain_ms"] = time_ms(
+                    lambda: tap_sum_bwd_plain(vals, dy, dx, g, m, periodic), 10)
+                case["bound_ms"], case["bound_by"] = tap_sum_bwd_bound_ms(shape)
+                case["library_ms"] = None
+                if not periodic and offsets == "clamped":
+                    grid = _sample_grid(dy, dx)
+                    case["library_ms"] = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        g[:, None], vals[:, None], grid, 0, 1, True, [True, True]), 200)
+            bwd_cases.append(case)
+            dv_tol = 0.0 if offsets == "clamped" or periodic else TAP_SUM_BWD_DV_REL_TOL
+            require(errs[1] <= TAP_SUM_TOL and errs[2] <= TAP_SUM_TOL and dv_rel <= dv_tol,
+                    f"tap_sum_bwd {case} differs from its plain twin")
+    return fwd_cases, bwd_cases
+
+
+def phase_kernels(device):
+    import torch
+
     from solver_in_the_loop_torch.kernels.cg import pcg_solve, pcg_solve_plain
     from solver_in_the_loop_torch.ops.poisson import fd_factors
     from solver_in_the_loop_torch.parity import (
@@ -404,61 +472,11 @@ def phase_kernels(device):
         TAP_SUM_TOL,
     )
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    m = 2
-    tap_cases = []
-    for shape in TRAIN_SHAPES + APPLY_SHAPES:
-        for periodic in (False, True):
-            for offsets in ("uniform", "integer"):
-                vals = torch.randn(shape, generator=gen, device=device)
-                dy, dx = _offsets(shape, offsets, gen, device)
-                got = tap_sum_fwd(vals, dy, dx, m, periodic)
-                want = tap_sum_fwd_plain(vals, dy, dx, m, periodic)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                case = {"shape": list(shape), "periodic": periodic, "offsets": offsets,
-                        "max_abs_err": err}
-                if offsets == "uniform" and not periodic:
-                    case["ms"] = time_ms(lambda: tap_sum_fwd(vals, dy, dx, m, periodic), 200)
-                    case["plain_ms"] = time_ms(
-                        lambda: tap_sum_fwd_plain(vals, dy, dx, m, periodic), 20)
-                    case["bound_ms"], case["bound_by"] = tap_sum_bound_ms(shape, m)
-                    case.update(grid_sample_yardstick(vals, dy, dx, m, gen))
-                tap_cases.append(case)
-                require(err <= TAP_SUM_TOL, f"tap_sum_fwd {case} differs from its plain twin")
-
-    bwd_cases = []
-    for shape in TRAIN_SHAPES + APPLY_SHAPES:
-        for periodic in (False, True):
-            kinds = ("uniform", "integer") + (("clamped",) if shape in TRAIN_SHAPES
-                                              and not periodic else ())
-            for offsets in kinds:
-                vals, g = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
-                dy, dx = _offsets(shape, offsets, gen, device)
-                got = tap_sum_bwd(vals, dy, dx, g, m, periodic)
-                want = tap_sum_bwd_plain(vals, dy, dx, g, m, periodic)
-                torch.cuda.synchronize()
-                errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-                dv_rel = errs[0] / float(want[0].abs().max())
-                case = {"shape": list(shape), "periodic": periodic, "offsets": offsets,
-                        "max_abs_err": max(errs), "dv_abs_err": errs[0], "dv_rel_err": dv_rel,
-                        "ddy_abs_err": errs[1], "ddx_abs_err": errs[2]}
-                if offsets == "uniform" and not periodic:
-                    case["ms"] = time_ms(lambda: tap_sum_bwd(vals, dy, dx, g, m, periodic), 200)
-                    case["plain_ms"] = time_ms(
-                        lambda: tap_sum_bwd_plain(vals, dy, dx, g, m, periodic), 10)
-                    case["bound_ms"], case["bound_by"] = tap_sum_bwd_bound_ms(shape, m)
-                    grid = _sample_grid(dy, dx)
-                    case["library_ms"] = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-                        g[:, None], vals[:, None], grid, 0, 1, True, [True, True]), 200)
-                bwd_cases.append(case)
-                dv_tol = 0.0 if offsets == "clamped" else TAP_SUM_BWD_DV_REL_TOL
-                require(errs[1] <= TAP_SUM_TOL and errs[2] <= TAP_SUM_TOL and dv_rel <= dv_tol,
-                        f"tap_sum_bwd {case} differs from its plain twin")
+    tap_cases, bwd_cases = tap_sum_cases(device)
 
     pcg_cases = []
     tol, max_iter = 1e-5, 1000
-    for batch_re in (RE_B1, PARITY_RE, RE_B5):
+    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B9):
         rhs, warm, masks = karman_rhs(batch_re, device)
         vy, vx, invd = fd_factors(rhs.shape[1], rhs.shape[2], device)
         for start in ("cold", "warm"):
@@ -479,10 +497,10 @@ def phase_kernels(device):
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
     cg_cases = cg_kernel_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
-    emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed): "
-          "F.grid_sample (bilinear, border padding, align_corners) forward and "
-          "aten.grid_sampler_2d_backward, the same function on the offsets the solver clamps "
-          "(library_max_abs_err_clamped); tap-sum on PERIODIC domains, PCG and CG: none, no "
+    emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed on "
+          "clamped offsets): F.grid_sample (bilinear, border padding, align_corners) forward "
+          "and aten.grid_sampler_2d_backward, the same function on the offsets the solver "
+          "clamps (library_max_abs_err); tap-sum on PERIODIC domains, PCG and CG: none, no "
           "single PyTorch call computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) "
           "on the same NHWC data seen as NCHW, with the bias but not the skip or activation; "
           "conv_fwd as the input gradient: aten.convolution_backward, input gradient only; "
@@ -499,10 +517,11 @@ def phase_kernels(device):
 
 def cg_kernel_cases(device):
     """The CG kernel against its twin on real karman right-hand sides at
-    batch 1, 3 (training), 5 and 8 (a full cluster), cold and warm: the
-    solution within CG_REL_TOL of its max, the iterations within CG_ITER_TOL,
-    the same bits from a second launch; its adjoint through autograd against
-    the plain path's; times, the twin's and the bound."""
+    batch 1, 3 (training), 5, 8 (a full cluster) and 9 (a cooperative grid),
+    cold and warm: the solution within CG_REL_TOL of its max, the iterations
+    within CG_ITER_TOL, the same bits from a second launch; its adjoint, and
+    the PCG kernel's at batch 9, through autograd against the plain path's;
+    times, the twin's and the bound."""
     import torch
 
     from solver_in_the_loop_torch.kernels import cg
@@ -510,7 +529,7 @@ def cg_kernel_cases(device):
 
     cases = []
     tol, max_iter = 1e-5, 1000
-    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B8):
+    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B8, RE_B9):
         rhs, warm, masks = karman_rhs(batch_re, device)
         for start in ("cold", "warm"):
             x0 = warm if start == "warm" else torch.zeros_like(rhs)
@@ -532,23 +551,33 @@ def cg_kernel_cases(device):
             require(case["rel_err"] <= CG_REL_TOL, f"cg_solve solution {case}")
             require(case["deterministic"], f"cg_solve is not deterministic {case}")
 
-    # the adjoint: the gradient through silt::cg_solve is a cold solve by the kernel
-    rhs, warm, masks = karman_rhs(PARITY_RE, device)
-    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(7),
-                      device=device)
+    # the adjoint: the gradient through silt::cg_solve (silt::pcg_solve) is a
+    # cold solve by the kernel; at batch 9 the cooperative grid's
+    from solver_in_the_loop_torch.ops.poisson import fd_factors
+    from solver_in_the_loop_torch.parity import PCG_REL_TOL
 
-    def grad():
-        b = rhs.clone().requires_grad_()
-        x, _ = cg.cg_solve_op(b, warm, masks.fluid, masks.face_u, masks.face_v, tol, max_iter)
-        return torch.autograd.grad(x, b, cot)[0]
+    for batch_re, op in ((PARITY_RE, "cg"), (RE_B9, "cg"), (RE_B9, "pcg")):
+        rhs, warm, masks = karman_rhs(batch_re, device)
+        cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(7),
+                          device=device)
+        ops = (masks.fluid, masks.face_u, masks.face_v)
+        if op == "pcg":
+            ops += fd_factors(rhs.shape[1], rhs.shape[2], device)
 
-    got = grad()
-    with plain_path():
-        want = grad()
-    case = {"shape": list(rhs.shape), "start": "adjoint", "rel_err": rel_err(got, want),
-            "max_abs_err": float((got - want).abs().max())}
-    cases.append(case)
-    require(case["rel_err"] <= CG_REL_TOL, f"cg_solve adjoint {case}")
+        def grad():
+            b = rhs.clone().requires_grad_()
+            solve = cg.cg_solve_op if op == "cg" else cg.pcg_solve_op
+            x, _ = solve(b, warm, *ops, tol, max_iter)
+            return torch.autograd.grad(x, b, cot)[0]
+
+        got = grad()
+        with plain_path():
+            want = grad()
+        case = {"shape": list(rhs.shape), "start": "adjoint", "op": op,
+                "rel_err": rel_err(got, want), "max_abs_err": float((got - want).abs().max())}
+        cases.append(case)
+        tol_rel = CG_REL_TOL if op == "cg" else PCG_REL_TOL
+        require(case["rel_err"] <= tol_rel, f"{op}_solve adjoint {case}")
     return cases
 
 
@@ -1528,6 +1557,61 @@ def phase_apply_cg():
     return b1_launches
 
 
+def phase_apply_b9():
+    """karman-apply at batch 9, one more than a cluster, with each
+    preconditioner option: a one-step warm-up, then a B9_STEPS run with every
+    launch count set to 0 just before it (each pressure solve one launch of
+    the kernel the option names, as a cooperative grid); steps 1, 5 and 20
+    against the same CLI run on the plain path, and those of its first
+    element (Re 240000) against the JAX golden of the apply phase."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch.ops.poisson import pressure_route
+    from solver_in_the_loop_torch.parity import ROLLOUT_REL_TOL, plain_path
+
+    golden = np.load(GOLDEN)
+    steps = B9_STEPS - 1
+    line = {"phase": "apply_b9", "re": RE_B9, "steps": steps, "tolerance": ROLLOUT_REL_TOL}
+    all_launches = {}
+    def argv(precon, simsteps):
+        return ["karman-apply", *apply_argv(RE_B9, simsteps), "--pressure-precon", precon]
+
+    for precon in ("fd", "none"):
+        run_cli_argv(argv(precon, 2))
+        reset_launches()
+        frames, scenes = run_cli_argv(argv(precon, B9_STEPS))
+        launches = read_launches()
+        with plain_path():
+            plain, _ = run_cli_argv(argv(precon, 21))
+        kernel = "pcg_solve" if precon == "fd" else "cg_solve"
+        want = {k: 0 for k in launches}
+        want.update({"tap_sum_fwd": 3 * steps, kernel: steps})
+        finite = all(bool(torch.isfinite(frames[k]).all()) for k in ("dens", "u", "v"))
+        route = pressure_route((len(RE_B9), 64, 32), "cuda", precon=precon)
+        entry = {"route": route, "launches": launches, "finite": finite,
+                 "scenes": scenes, "seconds_per_step": frames["rollout_seconds"] / steps,
+                 "cg_iters": _percentiles(frames["cg_iters"].cpu().numpy())}
+        entry["vs_plain"], worst_plain = _frames_errors(
+            frames, lambda f, t: plain[f][t - 1])
+        first = {k: frames[k][:, :1] for k in ("dens", "u", "v")}
+        entry["first_vs_jax_golden"], worst_gold = _frames_errors(
+            first, lambda f, t: golden[f"{f}_{t}"])
+        entry["worst"] = max(worst_plain, worst_gold)
+        line[precon] = entry
+        all_launches[precon] = launches
+        require(route == {"fd": "pcg", "none": "cg"}[precon],
+                f"apply_b9 {precon}: route {route}")
+        require(launches == want, f"apply_b9 --pressure-precon {precon}: {launches} != {want}")
+        require(finite and scenes == len(RE_B9), f"apply_b9 {precon}: finite {finite}, "
+                f"{scenes} scenes")
+    emit(line)
+    for precon in ("fd", "none"):
+        require(line[precon]["worst"] <= ROLLOUT_REL_TOL,
+                f"apply_b9 {precon} frames differ by {line[precon]['worst']}")
+    return all_launches["fd"], all_launches["none"]
+
+
 def phase_train_parity_cg(device):
     """One SOL-32 train step with --pressure-precon none (every solve, forward
     and adjoint, by the CG kernel), every launch count set to 0 just before
@@ -1605,14 +1689,18 @@ def main() -> int:
     lores_fd_launches, lores_cg_launches = timed("karman_gen_lores", phase_karman_gen_lores)
     apply_cg_launches = timed("apply_cg", phase_apply_cg)
     train_cg_launches = timed("train_parity_cg", phase_train_parity_cg, device)
+    b9_fd_launches, b9_cg_launches = timed("apply_b9", phase_apply_b9)
     emit({"phase": "seconds", **seconds})
 
     def at(name, shape, **match):
         return next(c for c in cases[name] if list(c["shape"]) == list(shape) and "ms" in c
                     and all(c[k] == v for k, v in match.items()))
 
-    rows = [("tap_sum_fwd", "advect.cu", "advect_kernel.py:128", at("tap_sum_fwd", (3, 64, 32))),
-            ("tap_sum_bwd", "advect.cu", "advect_kernel.py:143", at("tap_sum_bwd", (3, 64, 32))),
+    tap_main = {"max_shift": 2, "periodic": False, "offsets": "clamped"}
+    rows = [("tap_sum_fwd", "advect.cu", "advect_kernel.py:128",
+             at("tap_sum_fwd", (3, 64, 32), **tap_main)),
+            ("tap_sum_bwd", "advect.cu", "advect_kernel.py:143",
+             at("tap_sum_bwd", (3, 64, 32), **tap_main)),
             ("pcg_solve", "pcg.cu", "cg_kernel.py:112", at("pcg_solve", (3, 64, 32), start="warm")),
             ("cg_solve", "cg.cu", "cg_kernel.py:39", at("cg_solve", (1, 64, 32), start="warm")),
             ("conv_fwd", "conv.cu", "conv_kernel.py:123",
@@ -1641,7 +1729,9 @@ def main() -> int:
                               "karman_gen_lores_fd": lores_fd_launches[name],
                               "karman_gen_lores_none": lores_cg_launches[name],
                               "karman_apply_b1_cg": apply_cg_launches[name],
-                              "karman_train_step_cg": train_cg_launches[name]},
+                              "karman_train_step_cg": train_cg_launches[name],
+                              "karman_apply_b9_fd": b9_fd_launches[name],
+                              "karman_apply_b9_cg": b9_cg_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -17,11 +17,13 @@
 // r.r <= tol^2 max(b.b, 1e-30) with the threshold from b.
 //
 // Batch semantics. As in the folded TPU kernel and the port's PCG kernel, the
-// whole batch stops together: one thread block per batch element, the batch
-// one thread-block cluster (B <= 8), and after each iteration every block
-// publishes its "not yet converged" flag in its shared memory and reads its
-// peers' through distributed shared memory after a cluster barrier. At batch
-// 1 this is the per-element `_cg_kernel`.
+// whole batch stops together: one thread block per batch element. A batch
+// of at most 8 is one thread-block cluster, and after each iteration every
+// block publishes its "not yet converged" flag in its shared memory and reads
+// its peers' through distributed shared memory after a cluster barrier; a
+// larger batch is a cooperative grid of at most one block per SM, whose
+// flags go through global memory after a grid barrier (`batch_busy`). At
+// batch 1 this is the per-element `_cg_kernel`.
 //
 // Design. Without a preconditioner an iteration is one stencil, two dot
 // products and three vector updates, about 26 operations per cell: at 64x32
@@ -29,8 +31,8 @@
 // nor FP32 peak bound it. What bounds it is the chain of barriers of each
 // iteration times its ~110 cold iterations (about 4x the PCG's), so the
 // kernel keeps that chain at three: the block reduction of p.Ap, that of
-// r.r, and the cluster barrier of the stop test, which also publishes the
-// new p. Each of the 1,024 threads owns up to 8 cells (k = tid + 1024 i) and
+// r.r, and the cluster (or grid) barrier of the stop test, which also
+// publishes the new p. Each of the 1,024 threads owns up to 8 cells (k = tid + 1024 i) and
 // keeps their x, r, p and A p in registers; only p, which the stencil reads
 // across threads, and the masks live in shared memory (p and fluid 8 KB
 // each, both face masks 16.4 KB at 64x32). The two reductions use separate
@@ -47,8 +49,38 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCells = 8;  // per thread: CG_MAX_CELLS / 1024 in kernels/cg.py
 constexpr int kMaxDevices = 64;
+constexpr int kMaxCluster = 8;  // the portable cluster size (MAX_CLUSTER in kernels/cg.py)
 
 int g_smem_allowed[kMaxDevices] = {};
+
+// Whether any element of the batch is still above its threshold, given this
+// block's own answer `mine`. A batch of at most kMaxCluster elements is one
+// cluster (flags == nullptr): each block publishes its answer in `busy` and
+// reads its peers' through distributed shared memory after a cluster barrier.
+// A larger batch is a cooperative grid of one block per element: each block
+// writes its answer to its slot of `flags` in global memory (2 x batch ints,
+// one row per parity) and reads every slot after a grid barrier, each lane
+// of each warp a few of them. Either barrier also orders the block's own
+// shared memory. Both rows alternate, so no block overwrites an answer a
+// peer may still read.
+__device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags, int batch) {
+    int any = 0;
+    if (flags == nullptr) {
+        cg::cluster_group cluster = cg::this_cluster();
+        if (threadIdx.x == 0) busy[parity] = mine ? 1 : 0;
+        cluster.sync();
+        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
+            any |= *cluster.map_shared_rank(&busy[parity], rank);
+    } else {
+        int* row = flags + parity * batch;
+        if (threadIdx.x == 0) __stcg(row + blockIdx.x, mine ? 1 : 0);
+        cg::this_grid().sync();
+        for (int k = threadIdx.x & 31; k < batch; k += 32) any |= __ldcg(row + k);
+        any = __any_sync(0xffffffffu, any);
+    }
+    parity ^= 1;
+    return any != 0;
+}
 
 // Block-wide sum of a per-thread partial into `red` (kWarps floats); every
 // thread gets the total, summed in the same order (deterministic). One
@@ -86,15 +118,16 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
                                                         const float* __restrict__ face_u,
                                                         const float* __restrict__ face_v,
                                                         float* __restrict__ x_all,
-                                                        int* __restrict__ iters, int h, int w,
+                                                        int* __restrict__ iters,
+                                                        int* __restrict__ flags, int batch,
+                                                        int h, int w,
                                                         float tol2, int max_iter) {
     // p, fluid, face_u, face_v; its size is cg_smem_bytes in kernels/cg.py
     extern __shared__ float smem[];
     __shared__ float red_a[2 * kWarps];
     __shared__ float red_b[kWarps];
-    __shared__ int busy[2];  // double-buffered "not converged" flag read by the cluster
+    __shared__ int busy[2];  // the cluster's double-buffered "not converged" flag
 
-    cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x;
     const int n = h * w;
     const long long off = static_cast<long long>(blockIdx.x) * n;
@@ -154,13 +187,8 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
     int it = 0;
     int parity = 0;
     while (true) {
-        // whole-batch stop test; the cluster barrier also makes the new p visible
-        if (tid == 0) busy[parity] = rs > thresh ? 1 : 0;
-        cluster.sync();
-        int any = 0;
-        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
-            any |= *cluster.map_shared_rank(&busy[parity], rank);
-        parity ^= 1;
+        // whole-batch stop test; its barrier also makes the new p visible
+        const bool any = batch_busy(rs > thresh, busy, parity, flags, batch);
         if (it >= max_iter || !any) break;
 
         float pap = 0.0f;
@@ -204,19 +232,22 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
         if (k < n) x_all[off + k] = x[c];
     }
     if (blockIdx.x == 0 && tid == 0) *iters = it;
-    cluster.sync();  // no block leaves while a peer may still read its flags
+    // no block of a cluster leaves while a peer may still read its flags
+    if (flags == nullptr) cg::this_cluster().sync();
 }
 
 }  // namespace
 
 // b, x0, x: (batch, h, w); fluid: (h, w); face_u: (h, w+1); face_v: (h+1, w);
-// iters: one int. All contiguous, on the current device. smem_bytes is the
+// iters: one int; flags: 2 x batch ints of scratch, used (and required)
+// only for a batch above kMaxCluster. All contiguous, on the current
+// device. smem_bytes is the
 // dynamic shared memory of one block (cg_smem_bytes in kernels/cg.py).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid,
                              const float* face_u, const float* face_v, float* x, int* iters,
-                             int batch, int h, int w, float tol2, int max_iter, int smem_bytes,
-                             void* stream) {
+                             int* flags, int batch, int h, int w, float tol2, int max_iter,
+                             int smem_bytes, void* stream) {
     if (h * w > kThreads * kCells) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -233,15 +264,24 @@ extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
     cfg.stream = static_cast<cudaStream_t>(stream);
+    // one cluster for a batch of at most kMaxCluster, else a cooperative
+    // grid (the launch fails if the blocks cannot all be resident at once)
+    const bool one_cluster = batch <= kMaxCluster;
+    if (!one_cluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = batch;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    if (one_cluster) {
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = batch;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+    } else {
+        attr[0].id = cudaLaunchAttributeCooperative;
+        attr[0].val.cooperative = 1;
+    }
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, cg_kernel, b, x0, fluid, face_u, face_v, x, iters, h, w, tol2,
-                             max_iter);
+    err = cudaLaunchKernelEx(&cfg, cg_kernel, b, x0, fluid, face_u, face_v, x, iters,
+                             one_cluster ? nullptr : flags, batch, h, w, tol2, max_iter);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -17,11 +17,14 @@
 // Batch semantics. Like the folded TPU kernel and the XLA reference, the
 // whole batch stops together: iteration continues while ANY element's r.r is
 // above its threshold, and converged elements keep iterating. One thread
-// block owns one batch element; the batch is one thread-block cluster
-// (B <= 8), and after each iteration every block publishes its "not yet
+// block owns one batch element. A batch of at most 8 is one thread-block
+// cluster: after each iteration every block publishes its "not yet
 // converged" flag in its shared memory and reads its peers' flags through
-// distributed shared memory after a cluster barrier. The iteration count is
-// written to a device int.
+// distributed shared memory after a cluster barrier. A larger batch (the
+// folded TPU kernel takes it too) is a cooperative grid: the flags go
+// through global memory after a grid barrier (`batch_busy`). One block needs
+// a whole SM, so the batch is at most the SM count (MAX_BATCH in
+// kernels/cg.py). The iteration count is written to a device int.
 //
 // Design. The whole CG loop runs inside one launch, with no host round trip
 // per iteration: that is the point of the TPU kernel. At 64x32 one element is
@@ -38,8 +41,11 @@
 // iteration is a chain of about a dozen block barriers and one cluster
 // barrier, with 1,024 threads each doing a few hundred dependent
 // shared-memory multiply-adds in the products. The chain of barriers and the
-// latency of those loops bound it. Tensor-core products (the TPU kernel put
-// them on its MXU) and fewer barriers are left to a later change.
+// latency of those loops bound it; above a batch of 8 the grid barrier takes
+// the cluster barrier's place (at batch 9 no slower than batch 5 on an
+// NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py). Tensor-core products (the
+// TPU kernel put them on its MXU) and fewer barriers are left to a later
+// change.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -51,10 +57,40 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxCluster = 8;  // the portable cluster size (MAX_CLUSTER in kernels/cg.py)
 
 // Dynamic shared memory the kernel is allowed per device so far; the
 // attribute is raised only when a launch needs more, not on every launch.
 int g_smem_allowed[kMaxDevices] = {};
+
+// Whether any element of the batch is still above its threshold, given this
+// block's own answer `mine`. A batch of at most kMaxCluster elements is one
+// cluster (flags == nullptr): each block publishes its answer in `busy` and
+// reads its peers' through distributed shared memory after a cluster barrier.
+// A larger batch is a cooperative grid of one block per element: each block
+// writes its answer to its slot of `flags` in global memory (2 x batch ints,
+// one row per parity) and reads every slot after a grid barrier, each lane
+// of each warp a few of them. Either barrier also orders the block's own
+// shared memory. Both rows alternate, so no block overwrites an answer a
+// peer may still read.
+__device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags, int batch) {
+    int any = 0;
+    if (flags == nullptr) {
+        cg::cluster_group cluster = cg::this_cluster();
+        if (threadIdx.x == 0) busy[parity] = mine ? 1 : 0;
+        cluster.sync();
+        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
+            any |= *cluster.map_shared_rank(&busy[parity], rank);
+    } else {
+        int* row = flags + parity * batch;
+        if (threadIdx.x == 0) __stcg(row + blockIdx.x, mine ? 1 : 0);
+        cg::this_grid().sync();
+        for (int k = threadIdx.x & 31; k < batch; k += 32) any |= __ldcg(row + k);
+        any = __any_sync(0xffffffffu, any);
+    }
+    parity ^= 1;
+    return any != 0;
+}
 
 // Block-wide sums of two per-thread partials; every thread gets both totals,
 // summed in the same order (deterministic).
@@ -142,13 +178,13 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_kernel(const float* __restric
                            const float* __restrict__ face_v, const float* __restrict__ vy,
                            const float* __restrict__ vx, const float* __restrict__ invd,
                            float* __restrict__ x_all, int* __restrict__ iters,
-                           int h, int w, float tol2, int max_iter) {
+                           int* __restrict__ flags, int batch, int h, int w, float tol2,
+                           int max_iter) {
     // laid out as below; its size is pcg_smem_bytes in kernels/cg.py
     extern __shared__ float smem[];
     __shared__ float red[2 * kWarps];
-    __shared__ int busy[2];  // double-buffered "not converged" flag read by the cluster
+    __shared__ int busy[2];  // the cluster's double-buffered "not converged" flag
 
-    cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x;
     const int n = h * w;
     const long long off = static_cast<long long>(blockIdx.x) * n;
@@ -212,12 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_kernel(const float* __restric
     int parity = 0;
     while (true) {
         // whole-batch stop test: continue while any element is above its threshold
-        if (tid == 0) busy[parity] = rs > thresh ? 1 : 0;
-        cluster.sync();
-        int any = 0;
-        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
-            any |= *cluster.map_shared_rank(&busy[parity], rank);
-        parity ^= 1;
+        const bool any = batch_busy(rs > thresh, busy, parity, flags, batch);
         if (it >= max_iter || !any) break;
 
         apply_a(e, e.p, e.ap);
@@ -248,21 +279,23 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_kernel(const float* __restric
 
     for (int k = tid; k < n; k += kThreads) x_all[off + k] = e.x[k];
     if (blockIdx.x == 0 && tid == 0) *iters = it;
-    cluster.sync();  // no block leaves while a peer may still read its flags
+    // no block of a cluster leaves while a peer may still read its flags
+    if (flags == nullptr) cg::this_cluster().sync();
 }
 
 }  // namespace
 
 // b, x0, x: (batch, h, w); fluid: (h, w); face_u: (h, w+1); face_v: (h+1, w);
-// vy: (h, h); vx: (w, w); invd: (h, w); iters: one int. All contiguous, on
-// the current device. smem_bytes is the dynamic shared memory of one block
+// vy: (h, h); vx: (w, w); invd: (h, w); iters: one int; flags: 2 x batch
+// ints of scratch, used (and required) only for a batch above kMaxCluster.
+// All contiguous, on the current device. smem_bytes is the dynamic shared memory of one block
 // (pcg_smem_bytes in kernels/cg.py). Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* fluid,
                               const float* face_u, const float* face_v, const float* vy,
                               const float* vx, const float* invd, float* x, int* iters,
-                              int batch, int h, int w, float tol2, int max_iter, int smem_bytes,
-                              void* stream) {
+                              int* flags, int batch, int h, int w, float tol2, int max_iter,
+                              int smem_bytes, void* stream) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -278,15 +311,24 @@ extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* flui
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
     cfg.stream = static_cast<cudaStream_t>(stream);
+    // one cluster for a batch of at most kMaxCluster, else a cooperative
+    // grid (the launch fails if the blocks cannot all be resident at once)
+    const bool one_cluster = batch <= kMaxCluster;
+    if (!one_cluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = batch;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    if (one_cluster) {
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = batch;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+    } else {
+        attr[0].id = cudaLaunchAttributeCooperative;
+        attr[0].val.cooperative = 1;
+    }
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, pcg_kernel, b, x0, fluid, face_u, face_v, vy, vx, invd, x,
-                             iters, h, w, tol2, max_iter);
+                             iters, one_cluster ? nullptr : flags, batch, h, w, tol2, max_iter);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

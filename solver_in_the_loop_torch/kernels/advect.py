@@ -18,10 +18,15 @@ wrapper, so replacing a wrapper here replaces the kernel everywhere.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from solver_in_the_loop_torch.kernels import build
+
+# the largest max_shift the backward kernel's shared-memory tile takes
+# (csrc/advect.cu MAX_SHIFT)
+MAX_SHIFT = 32
 
 
 def _edge_index(idx: torch.Tensor, n: int, periodic: bool) -> torch.Tensor:
@@ -88,7 +93,7 @@ def tap_sum_bwd_plain(values: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     return dv, ddy, ddx
 
 
-def _check(what: str, tensors: dict, max_shift: int) -> None:
+def _check(what: str, tensors: dict, max_shift: int, limit: Optional[int] = None) -> None:
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.dtype != torch.float32 or t.dim() != 3 or not t.is_contiguous():
@@ -99,6 +104,9 @@ def _check(what: str, tensors: dict, max_shift: int) -> None:
                              f"match values {tuple(ref.shape)} on {ref.device}")
     if max_shift < 0:
         raise ValueError(f"{what}: max_shift must be >= 0, got {max_shift}")
+    if limit is not None and max_shift > limit:
+        raise ValueError(f"{what}: max_shift {max_shift} > {limit}, the most the kernel's "
+                         "shared-memory tile takes")
 
 
 def tap_sum_fwd(values: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
@@ -138,7 +146,7 @@ def tap_sum_bwd(values: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, g: tor
         return tap_sum_bwd_plain(values, dy, dx, g, max_shift, periodic)
     if values.device.type != "cuda":
         raise ValueError(f"tap_sum_bwd: unsupported device {values.device}")
-    _check("tap_sum_bwd", {"values": values, "dy": dy, "dx": dx, "g": g}, max_shift)
+    _check("tap_sum_bwd", {"values": values, "dy": dy, "dx": dx, "g": g}, max_shift, MAX_SHIFT)
     fn = build.function("advect", "silt_tap_sum_bwd",
                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     b, h, w = values.shape
@@ -153,6 +161,17 @@ def tap_sum_bwd(values: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor, g: tor
 
 
 tap_sum_bwd.launches = 0
+
+
+def launch_config(shape, max_shift: int, backward: bool) -> dict:
+    """The grid, threads per block and dynamic shared bytes with which
+    `tap_sum_bwd` (or `tap_sum_fwd`) launches its kernel for a (B, H, W)
+    field, as csrc/advect.cu computes them. Builds the library."""
+    fn = build.function("advect", "silt_tap_sum_config",
+                        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    cfg = (ctypes.c_int * 5)()
+    build.check(fn(int(backward), *shape, max_shift, cfg), "tap_sum launch_config")
+    return {"grid": list(cfg[:3]), "threads": cfg[3], "smem_bytes": cfg[4]}
 
 
 @torch.library.custom_op(

@@ -33,7 +33,12 @@ import torch
 from solver_in_the_loop_torch.kernels import build
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
 
-MAX_BATCH = 8  # one thread-block cluster, one block per batch element
+# One thread block per batch element. A batch of at most MAX_CLUSTER is one
+# thread-block cluster; a larger one a cooperative grid, whose blocks (one
+# SM each) must all be resident at once: at most the H100 SXM's 132 SMs,
+# rounded down.
+MAX_CLUSTER = 8
+MAX_BATCH = 128
 # 227 KB of dynamic shared memory per block on Hopper, less room for the
 # kernel's static reduction scratch
 SMEM_LIMIT_BYTES = 232448 - 1024
@@ -51,8 +56,8 @@ def pcg_smem_bytes(h: int, w: int) -> int:
 
 def pcg_kernel_fits(shape) -> bool:
     """Whether the fused kernel takes a (B, H, W) problem: the batch fits one
-    cluster and one element fits a block's shared memory (the port of the
-    VMEM gate in solver_in_the_loop_tpu/ops/pallas/cg.py)."""
+    resident grid (MAX_BATCH) and one element fits a block's shared memory
+    (the port of the VMEM gate in solver_in_the_loop_tpu/ops/pallas/cg.py)."""
     b, h, w = shape
     return 1 <= b <= MAX_BATCH and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES
 
@@ -66,7 +71,7 @@ def cg_smem_bytes(h: int, w: int) -> int:
 
 def cg_kernel_fits(shape) -> bool:
     """Whether the unpreconditioned kernel takes a (B, H, W) problem: the
-    batch fits one cluster and an element's cells the block's registers
+    batch fits one resident grid and an element's cells the block's registers
     (then its shared memory, cg_smem_bytes, is at most 164 KB)."""
     b, h, w = shape
     return 1 <= b <= MAX_BATCH and h * w <= CG_MAX_CELLS
@@ -161,6 +166,14 @@ def fd_apply(vy: torch.Tensor, vx: torch.Tensor, invd: torch.Tensor) -> Callable
     return minv
 
 
+def _stop_flags(b: torch.Tensor) -> torch.Tensor:
+    """The kernels' stop flags in global memory (2 x batch ints of scratch)
+    for a batch above one cluster; empty, a null pointer, for one cluster,
+    which keeps them in shared memory."""
+    bsz = b.shape[0]
+    return torch.empty(2 * bsz if bsz > MAX_CLUSTER else 0, dtype=torch.int32, device=b.device)
+
+
 def pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: int):
     """The kernel's function in plain PyTorch: returns (x, iterations as a
     0-d int32 tensor on b's device)."""
@@ -199,14 +212,16 @@ def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: 
     if b.device.type != "cuda":
         raise ValueError(f"pcg_solve: unsupported device {b.device}")
     _check(b, x0, fluid, face_u, face_v, vy, vx, invd)
-    fn = build.function("pcg", "silt_pcg_solve", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    fn = build.function("pcg", "silt_pcg_solve", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     bsz, h, w = b.shape
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
+    flags = _stop_flags(b)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters)),
+        err = fn(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters,
+                                          flags)),
                  bsz, h, w, tol * tol, max_iter, pcg_smem_bytes(h, w), stream)
     build.check(err, "pcg_solve")
     pcg_solve.launches += 1
@@ -282,14 +297,15 @@ def cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
     if b.device.type != "cuda":
         raise ValueError(f"cg_solve: unsupported device {b.device}")
     _check_cg(b, x0, fluid, face_u, face_v)
-    fn = build.function("cg", "silt_cg_solve", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    fn = build.function("cg", "silt_cg_solve", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     bsz, h, w = b.shape
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
+    flags = _stop_flags(b)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, x, iters)),
+        err = fn(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, x, iters, flags)),
                  bsz, h, w, tol * tol, max_iter, cg_smem_bytes(h, w), stream)
     build.check(err, "cg_solve")
     cg_solve.launches += 1

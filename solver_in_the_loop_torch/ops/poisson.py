@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import Domain, StaggeredGrid
 from solver_in_the_loop_torch.kernels.cg import (
+    MAX_BATCH,
     cg_kernel_fits,
     cg_solve_info,
     cg_solve_op,
@@ -113,11 +114,13 @@ def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") ->
     on CUDA, its plain twin on the CPU), "multigrid", or "periodic_cg" (the
     plain CG loop, CPU only).
 
-    On CUDA it takes the kernel where its gate takes the shape and else
-    multigrid where the JAX package would (`_mg_applicable`); on the CPU
-    multigrid where the JAX package takes it off the TPU and else the
-    kernel's twin. Raises NotImplementedError for what no route of the port
-    solves on the card."""
+    On CUDA it takes the kernel where its gate takes the shape (a batch of
+    at most MAX_BATCH: one cluster up to 8, a cooperative grid above), as
+    the JAX package takes its Pallas kernel where the VMEM gate of
+    ops/pallas/cg.py takes it, and else multigrid where the JAX package
+    would (`_mg_applicable`); on the CPU multigrid where the JAX package
+    takes it off the TPU and else the kernel's twin. Raises
+    NotImplementedError for what no route of the port solves on the card."""
     if precon not in PRECONS:
         raise ValueError(f"precon must be one of {PRECONS}, got {precon!r}")
     on_card = torch.device(device).type == "cuda"
@@ -137,8 +140,8 @@ def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") ->
     if on_card:
         raise NotImplementedError(
             f"pressure solve at {tuple(shape)} on CUDA: the fused {kernel.upper()} kernel does "
-            "not take it (batch <= 8 and one element in a block) and the JAX package would "
-            "not take multigrid there (ops/poisson.py _mg_applicable)")
+            f"not take it (batch <= {MAX_BATCH}, one element in a block) and the JAX package "
+            "would not take multigrid there (ops/poisson.py _mg_applicable)")
     return kernel
 
 

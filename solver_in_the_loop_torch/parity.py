@@ -128,6 +128,25 @@ def plain_path():
         yield
 
 
+def tap_sum_offsets(shape, kind: str, m: int, periodic: bool, gen: torch.Generator, device):
+    """Tap-sum offsets for the kernel checks: "uniform" in +-(m+0.5) (beyond
+    the taps' reach), "integer" (the same rounded: every tap on a kink or a
+    tie of the hat weights), or "clamped" (uniform, then clamped as the
+    solver clamps them, ops/interp.py: to +-m and, OPEN, into the field)."""
+    dy, dx = ((torch.rand(shape, generator=gen, device=device) * 2.0 - 1.0) * (m + 0.5)
+              for _ in range(2))
+    if kind == "integer":
+        return dy.round(), dx.round()
+    if kind == "clamped":
+        dy, dx = dy.clamp(-m, m), dx.clamp(-m, m)
+        if not periodic:
+            jj = torch.arange(shape[1], device=device, dtype=dy.dtype)[None, :, None]
+            ii = torch.arange(shape[2], device=device, dtype=dy.dtype)[None, None, :]
+            dy = torch.clamp(jj + dy, 0.0, shape[1] - 1.0) - jj
+            dx = torch.clamp(ii + dx, 0.0, shape[2] - 1.0) - ii
+    return dy.contiguous(), dx.contiguous()
+
+
 def train_set():
     """TRAIN_SET as numpy {dens (6, 40, 64, 32), u, v (staggered), re (6,)}."""
     with np.load(TRAIN_SET) as f:

@@ -9,7 +9,8 @@
 * the stopping threshold taken from b, also when warm-started;
 * the `silt::cg_solve` gradient against `jax.vjp` of the JAX solve;
 * the wrapper's CPU dispatch, the gate, and the route `solve_pressure` takes
-  with the preconditioner off.
+  with the preconditioner off (the kernel up to a batch of 128, as the JAX
+  package's Pallas kernel).
 
 Tolerances. Truncated iterates are the same float32 arithmetic summed in
 another order (the Pallas kernel's folded segment sums, XLA's reductions, and
@@ -167,7 +168,8 @@ def test_cg_kernel_gate():
     for batch in (1, 5, 8):
         assert tcg.cg_kernel_fits((batch, 64, 32))
     assert tcg.cg_kernel_fits((8, 128, 64))  # 8 cells per thread
-    assert not tcg.cg_kernel_fits((9, 64, 32))  # more than one cluster
+    assert tcg.cg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
+    assert not tcg.cg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
     assert not tcg.cg_kernel_fits((1, 256, 128))  # hi-res: multigrid
     assert not tcg.cg_kernel_fits((0, 64, 32))
     assert tcg.cg_smem_bytes(64, 32) == 4 * (2 * 2048 + 64 * 33 + 65 * 32)
@@ -191,7 +193,12 @@ def test_pressure_route_refusals():
     with pytest.raises(NotImplementedError, match="periodic"):
         tp.pressure_route((1, 32, 32), "cuda", periodic=True)
     assert tp.pressure_route((1, 32, 32), "cpu", periodic=True) == "periodic_cg"
-    with pytest.raises(NotImplementedError, match="CG kernel"):
-        tp.pressure_route((9, 64, 32), "cuda", precon="none")
+    # more than one cluster: the kernel as a cooperative grid, as the JAX
+    # package's Pallas kernel takes it; more than one resident grid: refused
+    for precon, kernel in (("fd", "pcg"), ("none", "cg")):
+        assert tp.pressure_route((9, 64, 32), "cuda", precon=precon) == kernel
+        assert tp.pressure_route((9, 64, 32), "cpu", precon=precon) == kernel
+        with pytest.raises(NotImplementedError, match="batch <= 128"):
+            tp.pressure_route((129, 64, 32), "cuda", precon=precon)
     with pytest.raises(ValueError):
         tp.pressure_route((1, 64, 32), "cpu", precon="jacobi")

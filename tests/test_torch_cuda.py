@@ -74,7 +74,7 @@ def test_tap_sum_rejects_bad_input(device):
         tap_sum_fwd(vals, vals.transpose(1, 2), vals, 2, False)
 
 
-@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("batch", [1, 5, 9, 16])
 def test_pcg_kernel_matches_plain(device, batch):
     dom = karman_domain(32)
     flow = KarmanFlow(dom, advection="shift", device=device)
@@ -107,20 +107,70 @@ def test_rollout_with_kernels_matches_plain(device, monkeypatch):
         assert _rel(with_kernels[key], plain[key]) <= 1e-3
 
 
-@pytest.mark.parametrize("shape", [(3, 64, 32), (3, 64, 33), (3, 65, 32), (1, 64, 32)])
-@pytest.mark.parametrize("periodic", [False, True])
-def test_tap_sum_bwd_kernel_equals_plain(device, shape, periodic):
-    gen = torch.Generator(device=device).manual_seed(2)
+# (shape, max_shift, periodic): the karman training and apply fields on both
+# boundaries, the Burgers SOL-04 fields (PERIODIC), and max_shift 1 and 3
+TAP_CASES = ([(s, 2, p) for s in [(3, 64, 32), (3, 64, 33), (3, 65, 32), (1, 64, 32)]
+              for p in (False, True)]
+             + [((5, 32, 33), 2, True), ((5, 33, 32), 2, True), ((3, 64, 32), 1, False),
+                ((3, 64, 32), 3, False), ((5, 32, 33), 1, True), ((3, 65, 33), 3, True)])
+
+
+@pytest.mark.parametrize("shape,m,periodic", TAP_CASES)
+@pytest.mark.parametrize("offsets", ["uniform", "integer", "clamped"])
+def test_tap_sum_bwd_kernel_equals_plain(device, shape, m, periodic, offsets):
+    """Both kernels bit for bit against their twins; dV within
+    TAP_SUM_BWD_DV_REL_TOL on unclamped OPEN offsets (the card twin's
+    index_add_ adds several non-zero terms into an edge cell with atomics),
+    bit for bit on the solver's clamped ones and on PERIODIC fields (one
+    reader per tap)."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape) + m)
     vals, g = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
-    dy = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
-    dx = torch.rand(shape, generator=gen, device=device) * 5.0 - 2.5
-    for offsets in ((dy, dx), (dy.round(), dx.round())):
-        launches = tap_sum_bwd.launches
-        got = tap_sum_bwd(vals, *offsets, g, 2, periodic)
-        assert tap_sum_bwd.launches == launches + 1
-        want = tap_sum_bwd_plain(vals, *offsets, g, 2, periodic)
-        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    dy, dx = parity.tap_sum_offsets(shape, offsets, m, periodic, gen, device)
+    assert torch.equal(tap_sum_fwd(vals, dy, dx, m, periodic),
+                       tap_sum_fwd_plain(vals, dy, dx, m, periodic))
+    launches = tap_sum_bwd.launches
+    got = tap_sum_bwd(vals, dy, dx, g, m, periodic)
+    assert tap_sum_bwd.launches == launches + 1
+    want = tap_sum_bwd_plain(vals, dy, dx, g, m, periodic)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    if offsets == "clamped" or periodic:
+        assert torch.equal(got[0], want[0])
+    else:
         assert _rel(got[0], want[0]) <= parity.TAP_SUM_BWD_DV_REL_TOL
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("name,value", [("v", float("inf")), ("v", float("nan")),
+                                        ("g", float("inf")), ("dy", float("nan"))])
+def test_tap_sum_kernels_spread_non_finite_as_plain(device, periodic, name, value):
+    """An inf or a NaN among the inputs lands where the twin puts it (the
+    blocks that see it sum every tap as the twin does), so the trainer's
+    non-finite guard decides alike; the other blocks keep the twin's bits."""
+    shape, m = (3, 64, 32), 2
+    gen = torch.Generator(device=device).manual_seed(11)
+    vals, g = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
+    dy, dx = parity.tap_sum_offsets(shape, "clamped", m, periodic, gen, device)
+    {"v": vals, "g": g, "dy": dy, "dx": dx}[name][1, 40, 17] = value
+    outs = [(tap_sum_fwd(vals, dy, dx, m, periodic), tap_sum_fwd_plain(vals, dy, dx, m, periodic))]
+    outs += zip(tap_sum_bwd(vals, dy, dx, g, m, periodic),
+                tap_sum_bwd_plain(vals, dy, dx, g, m, periodic))
+    for got, want in outs:
+        torch.testing.assert_close(got, want, rtol=0.0, atol=0.0, equal_nan=True)
+    assert any(not bool(torch.isfinite(want).all()) for _, want in outs)
+
+
+def test_tap_sum_bwd_rejects_a_shift_beyond_its_tile(device):
+    vals = torch.zeros(1, 8, 8, device=device)
+    with pytest.raises(ValueError, match="shared-memory tile"):
+        tap_sum_bwd(vals, vals, vals, vals, advect.MAX_SHIFT + 1, False)
+    assert advect.launch_config((3, 64, 32), 2, backward=True)["grid"] == [1, 16, 3]
+    fwd = advect.launch_config((3, 64, 32), 2, backward=False)
+    assert fwd == {"grid": [1, 16, 3], "threads": 128, "smem_bytes": 0}
+    # the forward takes any shift: a window wider than 64 columns, wrapped many times
+    vals = torch.randn(1, 8, 8, device=device)
+    dy = torch.full_like(vals, 0.25)
+    assert torch.equal(tap_sum_fwd(vals, dy, dy, 40, True),
+                       tap_sum_fwd_plain(vals, dy, dy, 40, True))
 
 
 def test_shift_sampler_gradients_equal_plain(device, monkeypatch):
@@ -244,7 +294,7 @@ def _cg_problem(device, batch, dom=None, seed=0):
     return rhs, flow.masks
 
 
-@pytest.mark.parametrize("batch", [1, 3, 5, 8])
+@pytest.mark.parametrize("batch", [1, 3, 5, 8, 9, 16])
 def test_cg_kernel_matches_plain(device, batch):
     rhs, masks = _cg_problem(device, batch, seed=batch)
     for x0 in (torch.zeros_like(rhs), (0.1 * rhs).contiguous()):
@@ -269,7 +319,7 @@ def test_cg_kernel_at_eight_cells_per_thread(device):
 
 
 def test_cg_kernel_rejects_what_it_does_not_take(device):
-    rhs, masks = _cg_problem(device, 9)
+    rhs, masks = _cg_problem(device, cg.MAX_BATCH + 1)
     with pytest.raises(ValueError, match="does not fit"):
         cg_solve(rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v, 1e-5, 10)
     rhs = rhs[:2]
@@ -342,3 +392,27 @@ def test_train_step_without_preconditioner_matches_plain(device):
     errors = parity.parity_errors(kernel, plain)
     for key, tol in parity.TRAIN_PARITY_TOL.items():
         assert errors[key] <= tol, (key, errors)
+
+
+@pytest.mark.parametrize("precon", ["fd", "none"])
+def test_batch_above_a_cluster_takes_the_kernel(device, precon):
+    """At (9, 64, 32) the batch is more than one cluster: the kernel that
+    precon names runs it as a cooperative grid, forward and adjoint, with
+    the CPU's solution and gradient."""
+    rhs, masks = _cg_problem(device, 9, seed=9)
+    kernel = {"fd": pcg_solve, "none": cg_solve}[precon]
+    assert pressure_route(rhs.shape, device, precon=precon) == {"fd": "pcg", "none": "cg"}[precon]
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(10),
+                      device=device)
+    launches = kernel.launches
+    div = (-rhs).requires_grad_()
+    p, iters = solve_pressure(div, masks, precon=precon)
+    (grad,) = torch.autograd.grad(p, div, cot)
+    assert kernel.launches == launches + 2
+    cpu_masks = KarmanFlow(karman_domain(32), advection="shift").masks
+    div_cpu = (-rhs).cpu().requires_grad_()
+    p_cpu, iters_cpu = solve_pressure(div_cpu, cpu_masks, precon=precon)
+    (grad_cpu,) = torch.autograd.grad(p_cpu, div_cpu, cot.cpu())
+    assert abs(int(iters) - int(iters_cpu)) <= parity.PCG_ITER_TOL
+    assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
+    assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]

@@ -7,8 +7,9 @@
   tests/test_pallas_cg.py runs them: truncated at a small iteration count,
   where CG is a fixed sequence of float32 operations;
 * `solve_pressure` with a warm start and `make_incompressible`;
-* the CUDA dispatch gate, and the multigrid route at the size where the JAX
-  package takes it.
+* the CUDA dispatch gate, the multigrid route at the size where the JAX
+  package takes it, and a batch of more than one cluster (9, 64, 32), which
+  the kernels take: solution and gradient against the JAX package's.
 
 Tolerances: truncated iterates are the same arithmetic in another summation
 order (XLA/Pallas reductions and matmuls vs PyTorch's), 1e-5 relative.
@@ -18,6 +19,7 @@ may stop one iteration apart: rtol 1e-4 of the solution's max.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from solver_in_the_loop_tpu.ops import poisson as jp
 from solver_in_the_loop_tpu.ops.pallas.cg_kernel import fused_cg_solve
 from solver_in_the_loop_tpu.physics import karman as jk
 
+from solver_in_the_loop_torch import parity
 from solver_in_the_loop_torch.core import grids as tg
 from solver_in_the_loop_torch.kernels import cg as tcg
 from solver_in_the_loop_torch.ops import poisson as tp
@@ -154,7 +157,8 @@ def test_kernel_gate():
     assert tcg.pcg_kernel_fits((1, 64, 32))
     assert tcg.pcg_kernel_fits((5, 64, 32))
     assert tcg.pcg_kernel_fits((8, 64, 32))
-    assert not tcg.pcg_kernel_fits((9, 64, 32))  # more than one cluster
+    assert tcg.pcg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
+    assert not tcg.pcg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
     assert not tcg.pcg_kernel_fits((1, 256, 128))  # hi-res: multigrid in the JAX package
     assert tcg.pcg_smem_bytes(64, 32) == 4 * 28768
 
@@ -169,3 +173,27 @@ def test_multigrid_sizes_raise_on_cpu():
     got, iters = tp.solve_pressure(torch.from_numpy(div), tm, x0=torch.from_numpy(p0))
     _rel_close(got.numpy(), want, 1e-4)
     assert 0 < int(iters) < 200
+
+
+@pytest.mark.parametrize("precon", ["fd", "none"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_batch_above_a_cluster_matches_jax(precon, warm):
+    """At (9, 64, 32), more than one cluster, the card runs the kernel that
+    precon names as a cooperative grid, and the CPU its twin, which stops
+    the whole batch together as the JAX package's solves do. Solution within
+    PCG_REL_TOL and gradient within the train-gradient tolerance of the JAX
+    package's solve_pressure (its XLA FD-PCG off the TPU)."""
+    kernel = {"fd": "pcg", "none": "cg"}[precon]
+    assert tp.pressure_route((9, 64, 32), "cuda", precon=precon) == kernel
+    assert tp.pressure_route((9, 64, 32), "cpu", precon=precon) == kernel
+    jm, tm, div, p0 = _problem(9, res=32, seed=8 + warm)
+    cot = np.random.RandomState(10).randn(*div.shape).astype(np.float32)
+    x0 = (jnp.asarray(p0), torch.from_numpy(p0)) if warm else (None, None)
+    p_j, vjp = jax.vjp(lambda d: jp.solve_pressure(d, jm, x0=x0[0]), jnp.asarray(div))
+    (want,) = vjp(jnp.asarray(cot))
+    div_t = torch.from_numpy(div).requires_grad_()
+    p_t, iters = tp.solve_pressure(div_t, tm, x0=x0[1], precon=precon)
+    (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
+    _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
+    _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])
+    assert 0 < int(iters) < 1000

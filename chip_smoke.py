@@ -14,8 +14,11 @@ each printing one JSON line:
                   preconditioner) against its plain PyTorch twin on the card,
                   at the shapes of the karman apply, training and generation
                   paths (the tap-sums also at the Burgers fields and at
-                  max_shift 1 and 3, with each launch's grid and block), with
-                  its time, the twin's and its bound
+                  max_shift 1 and 3, with each launch's grid and block; the
+                  CG kernels also at a shape off their 16x8 tiles, with a
+                  second launch's bits), with its time, the twin's and its
+                  bound; and both CG kernels at fixed iteration counts, the
+                  time of one iteration and of the set-up
 4. apply        — `karman-apply` through the CLI entry point at the full width
                   of the SOL-32 MarsMoon checkpoint (artifacts/a3_k_sol32), 500
                   steps at batch 1 and at batch 5, each after a one-step
@@ -82,7 +85,12 @@ The kernels phase also checks the CG kernel's adjoint and the conv kernels
 and times them beside cuDNN. Then a line of each phase's wall seconds, the
 per-kernel summary line, the card's `nvidia-smi` name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits non-zero without that
-line; without CUDA, or outside a checkout, it exits 1 at once. """
+line; without CUDA, or outside a checkout, it exits 1 at once.
+
+    python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]
+
+runs only the CG kernels' fixed-iteration timing, built from each DIR (see
+`cg_split`). """
 
 from __future__ import annotations
 
@@ -102,6 +110,8 @@ RE_B5 = [240000.0, 480000.0, 960000.0, 1920000.0, 3840000.0]
 RE_B8 = RE_B5 + [160000.0, 320000.0, 640000.0]  # a full cluster of the CG kernels
 RE_B9 = RE_B8 + [1280000.0]  # more than a cluster: the CG kernels' cooperative grid
 B9_STEPS = 100
+ODD_RES = 18  # karman at 36x18: sides that are not multiples of the PCG kernel's 16x8 tiles
+FIXED_ITERS = (8, 24)  # the fixed iteration counts that time one CG iteration
 STEPS = 500
 APPLY_SHAPES = [(1, 64, 32), (1, 64, 33), (1, 65, 32), (5, 64, 32), (5, 64, 33), (5, 65, 32)]
 TRAIN_SHAPES = [(3, 64, 32), (3, 64, 33), (3, 65, 32)]
@@ -235,11 +245,16 @@ def tap_sum_bwd_bound_ms(shape):
 def pcg_bound_ms(shape, iters: int):
     """Inputs (b, x0, fluid, face masks, Vy, Vx, invd) read and x written once;
     per element and iteration (plus the set-up pass) the four preconditioner
-    products 4HW(H+W) and about 28 operations per cell of operator, dots and updates."""
+    products 4HW(H+W), at fp32 accuracy, which on the tensor cores is three
+    TF32 products each (3xTF32) at the TF32 rate, as conv_bound_ms reckons
+    them, and about 28 operations per cell of operator, dots and updates at
+    the fp32 rate."""
     b, h, w = shape
     byts = 4 * (3 * b * h * w + 2 * h * w + h * (w + 1) + (h + 1) * w + h * h + w * w)
-    ops = b * (iters + 1) * (4 * h * w * (h + w) + 28 * h * w)
-    return _bound(byts, ops)
+    passes = b * (iters + 1)
+    t_bytes = 1e3 * byts / HBM_BYTES_PER_S
+    t_ops = 1e3 * passes * (3 * 4 * h * w * (h + w) / TF32_FLOPS + 28 * h * w / FP32_FLOPS)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cg_bound_ms(shape, iters: int):
@@ -310,10 +325,10 @@ def phase_build():
     require(not spills, f"the conv kernels spill registers: {spills}")
 
 
-def karman_rhs(batch_re, device, steps=30):
+def karman_rhs(batch_re, device, steps=30, res=32):
     """A real pressure problem on the card: the projection's RHS after `steps`
-    solver steps on the plain path, the previous step's pressure (the warm
-    start), and the masks."""
+    solver steps on the plain path at resolution `res` (64x32 at 32), the
+    previous step's pressure (the warm start), and the masks."""
     import torch
 
     from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
@@ -322,7 +337,7 @@ def karman_rhs(batch_re, device, steps=30):
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
     from solver_in_the_loop_torch.train.rollout import karman_rollout
 
-    dom = karman_domain(32)
+    dom = karman_domain(res)
     flow = KarmanFlow(dom, advection="shift", max_shift=2, device=device)
     re = torch.tensor(batch_re, device=device)
     d0, v0 = initial_state(dom, len(batch_re), device)
@@ -455,6 +470,46 @@ def tap_sum_cases(device):
     return fwd_cases, bwd_cases
 
 
+def cg_problems(device):
+    """The CG kernels' cases: karman at 64x32 and batch 1, 3 (training), 5, 8
+    (a full cluster) and 9 (a cooperative grid), and at ODD_RES and batch 2."""
+    from solver_in_the_loop_torch.parity import PARITY_RE
+
+    return ([karman_rhs(batch_re, device) for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B8, RE_B9)]
+            + [karman_rhs(RE_B5[:2], device, res=ODD_RES)])
+
+
+def fixed_iter_cases(device):
+    """Both CG kernels at fixed iteration counts: tol 0 makes the threshold 0,
+    so each runs exactly max_iter iterations. Cold starts on karman
+    right-hand sides at batch 1, 3 and 9, timed at FIXED_ITERS: the slope is
+    the time of one iteration (us_per_iter), the intercept the set-up and
+    the write-back (setup_ms)."""
+    import torch
+
+    from solver_in_the_loop_torch.kernels import cg
+    from solver_in_the_loop_torch.ops.poisson import fd_factors
+    from solver_in_the_loop_torch.parity import PARITY_RE
+
+    lo, hi = FIXED_ITERS
+    out = {"pcg_solve": [], "cg_solve": []}
+    for batch_re in (RE_B1, PARITY_RE, RE_B9):
+        rhs, _, masks = karman_rhs(batch_re, device)
+        ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
+        fd = fd_factors(rhs.shape[1], rhs.shape[2], device)
+        for name, solve, extra in (("pcg_solve", cg.pcg_solve, fd), ("cg_solve", cg.cg_solve, ())):
+            ms = {}
+            for max_iter in (lo, hi):
+                args = (*ops, *extra, 0.0, max_iter)
+                _, iters = solve(*args)
+                require(int(iters) == max_iter, f"{name} ran {int(iters)} of {max_iter} iterations")
+                ms[max_iter] = time_ms(lambda: solve(*args), 50)
+            us = 1e3 * (ms[hi] - ms[lo]) / (hi - lo)
+            out[name].append({"shape": list(rhs.shape), f"ms_{lo}": ms[lo], f"ms_{hi}": ms[hi],
+                              "us_per_iter": us, "setup_ms": ms[lo] - lo * us / 1e3})
+    return out
+
+
 def phase_kernels(device):
     import torch
 
@@ -465,7 +520,6 @@ def phase_kernels(device):
         CG_REL_TOL,
         CONV_FWD_REL_TOL,
         CONV_WGRAD_REL_TOL,
-        PARITY_RE,
         PCG_ITER_TOL,
         PCG_REL_TOL,
         TAP_SUM_BWD_DV_REL_TOL,
@@ -476,18 +530,19 @@ def phase_kernels(device):
 
     pcg_cases = []
     tol, max_iter = 1e-5, 1000
-    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B9):
-        rhs, warm, masks = karman_rhs(batch_re, device)
+    for rhs, warm, masks in cg_problems(device):
         vy, vx, invd = fd_factors(rhs.shape[1], rhs.shape[2], device)
         for start in ("cold", "warm"):
             x0 = warm if start == "warm" else torch.zeros_like(rhs)
             args = (rhs, x0, masks.fluid, masks.face_u, masks.face_v, vy, vx, invd, tol, max_iter)
             x_k, it_k = pcg_solve(*args)
             x_p, it_p = pcg_solve_plain(*args)
+            x_again, it_again = pcg_solve(*args)
             torch.cuda.synchronize()
             case = {"shape": list(rhs.shape), "start": start, "iters": int(it_k),
                     "plain_iters": int(it_p), "rel_err": rel_err(x_k, x_p),
                     "max_abs_err": float((x_k - x_p).abs().max()),
+                    "deterministic": bool(torch.equal(x_k, x_again)) and int(it_again) == int(it_k),
                     "ms": time_ms(lambda: pcg_solve(*args), 50),
                     "plain_ms": time_ms(lambda: pcg_solve_plain(*args), 5)}
             case["bound_ms"], case["bound_by"] = pcg_bound_ms(rhs.shape, case["iters"])
@@ -495,7 +550,9 @@ def phase_kernels(device):
             require(abs(case["iters"] - case["plain_iters"]) <= PCG_ITER_TOL,
                     f"pcg_solve iterations {case}")
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
+            require(case["deterministic"], f"pcg_solve is not deterministic {case}")
     cg_cases = cg_kernel_cases(device)
+    fixed_iter = fixed_iter_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
     emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed on "
           "clamped offsets): F.grid_sample (bilinear, border padding, align_corners) forward "
@@ -507,6 +564,7 @@ def phase_kernels(device):
           "conv_wgrad: aten.convolution_backward, weight gradient only",
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
           "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+          "fixed_iter": fixed_iter,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
                          "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL,
                          "cg_rel": CG_REL_TOL, "cg_iters": CG_ITER_TOL,
@@ -518,10 +576,11 @@ def phase_kernels(device):
 def cg_kernel_cases(device):
     """The CG kernel against its twin on real karman right-hand sides at
     batch 1, 3 (training), 5, 8 (a full cluster) and 9 (a cooperative grid),
-    cold and warm: the solution within CG_REL_TOL of its max, the iterations
-    within CG_ITER_TOL, the same bits from a second launch; its adjoint, and
-    the PCG kernel's at batch 9, through autograd against the plain path's;
-    times, the twin's and the bound."""
+    and at batch 2 and ODD_RES (cg_problems), cold and warm: the solution
+    within CG_REL_TOL of its max, the iterations within CG_ITER_TOL, the same
+    bits from a second launch; its adjoint, and the PCG kernel's at batch 9,
+    through autograd against the plain path's; times, the twin's and the
+    bound."""
     import torch
 
     from solver_in_the_loop_torch.kernels import cg
@@ -529,8 +588,7 @@ def cg_kernel_cases(device):
 
     cases = []
     tol, max_iter = 1e-5, 1000
-    for batch_re in (RE_B1, PARITY_RE, RE_B5, RE_B8, RE_B9):
-        rhs, warm, masks = karman_rhs(batch_re, device)
+    for rhs, warm, masks in cg_problems(device):
         for start in ("cold", "warm"):
             x0 = warm if start == "warm" else torch.zeros_like(rhs)
             args = (rhs, x0, masks.fluid, masks.face_u, masks.face_v, tol, max_iter)
@@ -1647,6 +1705,39 @@ def phase_train_parity_cg(device):
     return launches
 
 
+def cg_split(specs) -> int:
+    """`python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]`: only the
+    fixed-iteration timing of both CG kernels (fixed_iter_cases), built from
+    each DIR in turn, one JSON line per label. A DIR is csrc/ or a copy of it
+    with a part of the PCG iteration taken out (the preconditioner's
+    products, the reductions): its us_per_iter subtracted from the kernel's
+    is that part's share of an iteration."""
+    from pathlib import Path
+    from unittest import mock
+
+    import torch
+
+    from solver_in_the_loop_torch.kernels import build, cg
+
+    device = torch.device("cuda", 0)
+    # a copy of an earlier version may carve more shared memory in the plain
+    # CG (the fluid and both face masks beside p): every launch gets that room
+    cg_bytes = cg.cg_smem_bytes
+    with mock.patch.object(cg, "cg_smem_bytes", lambda h, w: max(
+            cg_bytes(h, w), 4 * (2 * h * w + h * (w + 1) + (h + 1) * w))):
+        for spec in specs:
+            label, src = spec.split("=", 1)
+            build.CSRC = Path(src).resolve()
+            build.BUILD_DIR = Path(REPO, "build", "kernels_split", label)
+            build._loaded.clear()
+            build._functions.clear()
+            report = build._compile(["pcg", "cg"])
+            emit({"phase": "cg_split", "label": label, "csrc": src,
+                  "ptxas": {name: info["ptxas"] for name, info in report.items()},
+                  **fixed_iter_cases(device)})
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "solver_in_the_loop_torch")):
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -1660,6 +1751,8 @@ def main() -> int:
     from solver_in_the_loop_torch.models.networks import disable_tf32
 
     disable_tf32()
+    if sys.argv[1:2] == ["--cg-split"]:
+        return cg_split(sys.argv[2:])
     device = torch.device("cuda", 0)
     seconds = {}
 

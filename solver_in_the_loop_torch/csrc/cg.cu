@@ -17,104 +17,48 @@
 // r.r <= tol^2 max(b.b, 1e-30) with the threshold from b.
 //
 // Batch semantics. As in the folded TPU kernel and the port's PCG kernel, the
-// whole batch stops together: one thread block per batch element. A batch
-// of at most 8 is one thread-block cluster, and after each iteration every
-// block publishes its "not yet converged" flag in its shared memory and reads
-// its peers' through distributed shared memory after a cluster barrier; a
-// larger batch is a cooperative grid of at most one block per SM, whose
-// flags go through global memory after a grid barrier (`batch_busy`). At
-// batch 1 this is the per-element `_cg_kernel`.
+// whole batch stops together: one thread block per batch element, a batch of
+// at most 8 one thread-block cluster, a larger one a cooperative grid of at
+// most one block per SM (`batch_busy` in csrc/cg_common.cuh, which this
+// kernel shares with csrc/pcg.cu, with the block reductions and the
+// operator). At batch 1 this is the per-element `_cg_kernel`.
 //
 // Design. Without a preconditioner an iteration is one stencil, two dot
 // products and three vector updates, about 26 operations per cell: at 64x32
 // an element is 2,048 cells, 53 kFLOP per iteration, so neither HBM bytes
-// nor FP32 peak bound it. What bounds it is the chain of barriers of each
-// iteration times its ~110 cold iterations (about 4x the PCG's), so the
-// kernel keeps that chain at three: the block reduction of p.Ap, that of
-// r.r, and the cluster (or grid) barrier of the stop test, which also
-// publishes the new p. Each of the 1,024 threads owns up to 8 cells (k = tid + 1024 i) and
-// keeps their x, r, p and A p in registers; only p, which the stencil reads
-// across threads, and the masks live in shared memory (p and fluid 8 KB
-// each, both face masks 16.4 KB at 64x32). The two reductions use separate
-// scratch, so no barrier guards their reuse.
+// nor FP32 peak bound it. What bounds it is the chain of each iteration
+// times its ~110 cold iterations (about 4x the PCG's): three barriers (the
+// block reduction of p.Ap, that of r.r, and the cluster or grid barrier of
+// the stop test, which also publishes the new p), the shuffle trees of the
+// two reductions, and each thread's stencil. So each thread owns up to 8
+// cells (k = tid + threads * c) and keeps their x, r, p and A p in
+// registers; only p, which the stencil reads across threads, lives in shared
+// memory, in a halo of zeros so that the ghosts need no test. The block is
+// fitted to the field: up to 2,048 cells (the karman 64x32) 256 threads,
+// which also keep each cell's operator coefficients in registers, read once;
+// up to 8,192 cells (CG_MAX_CELLS in kernels/cg.py) 1,024 threads, which
+// read them from global memory (L1) each iteration, as 64 registers a thread
+// do not hold them. The two reductions alternate two scratch buffers, so no
+// barrier only guards their reuse. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py `kernels` and `--cg-split`, PERF.md) an iteration at
+// (3,64,32) takes 1.4 us, the two reductions about 0.4 of it; as a
+// cooperative grid (batch 9) 2.1 us.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include "cg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCells = 8;  // per thread: CG_MAX_CELLS / 1024 in kernels/cg.py
-constexpr int kMaxDevices = 64;
-constexpr int kMaxCluster = 8;  // the portable cluster size (MAX_CLUSTER in kernels/cg.py)
+using silt::Cell;
 
-int g_smem_allowed[kMaxDevices] = {};
+constexpr int kCells = 8;  // per thread, at most
+constexpr int kSmallCells = 2048;  // fields up to this many cells take 256 threads
 
-// Whether any element of the batch is still above its threshold, given this
-// block's own answer `mine`. A batch of at most kMaxCluster elements is one
-// cluster (flags == nullptr): each block publishes its answer in `busy` and
-// reads its peers' through distributed shared memory after a cluster barrier.
-// A larger batch is a cooperative grid of one block per element: each block
-// writes its answer to its slot of `flags` in global memory (2 x batch ints,
-// one row per parity) and reads every slot after a grid barrier, each lane
-// of each warp a few of them. Either barrier also orders the block's own
-// shared memory. Both rows alternate, so no block overwrites an answer a
-// peer may still read.
-__device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags, int batch) {
-    int any = 0;
-    if (flags == nullptr) {
-        cg::cluster_group cluster = cg::this_cluster();
-        if (threadIdx.x == 0) busy[parity] = mine ? 1 : 0;
-        cluster.sync();
-        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
-            any |= *cluster.map_shared_rank(&busy[parity], rank);
-    } else {
-        int* row = flags + parity * batch;
-        if (threadIdx.x == 0) __stcg(row + blockIdx.x, mine ? 1 : 0);
-        cg::this_grid().sync();
-        for (int k = threadIdx.x & 31; k < batch; k += 32) any |= __ldcg(row + k);
-        any = __any_sync(0xffffffffu, any);
-    }
-    parity ^= 1;
-    return any != 0;
-}
-
-// Block-wide sum of a per-thread partial into `red` (kWarps floats); every
-// thread gets the total, summed in the same order (deterministic). One
-// barrier: the caller guarantees nobody still reads `red` from its last use.
-__device__ inline float block_sum(float a, float* red) {
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = a;
-    __syncthreads();
-    float s = 0.0f;
-    for (int k = 0; k < kWarps; ++k) s += red[k];
-    return s;
-}
-
-// (A p)[k] from p in shared memory
-__device__ inline float apply_a(const float* p, const float* fluid, const float* fu,
-                                const float* fv, int k, int h, int w) {
-    const int j = k / w, i = k - j * w;
-    const float pe = i < w - 1 ? p[k + 1] : 0.0f;
-    const float pw = i > 0 ? p[k - 1] : 0.0f;
-    const float pn = j < h - 1 ? p[k + w] : 0.0f;
-    const float ps = j > 0 ? p[k - w] : 0.0f;
-    const float me = fu[j * (w + 1) + i + 1];
-    const float mw = fu[j * (w + 1) + i];
-    const float mn = fv[(j + 1) * w + i];
-    const float ms = fv[j * w + i];
-    const float diag = me + mw + mn + ms;
-    const float lap = me * pe + mw * pw + mn * pn + ms * ps - diag * p[k];
-    const float fl = fluid[k];
-    return fl * (-lap) + (1.0f - fl) * p[k];
-}
-
+template <int kThreads, bool kRegCells>
 __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict__ b_all,
                                                         const float* __restrict__ x0_all,
-                                                        const float* __restrict__ fluid_g,
+                                                        const float* __restrict__ fluid,
                                                         const float* __restrict__ face_u,
                                                         const float* __restrict__ face_v,
                                                         float* __restrict__ x_all,
@@ -122,107 +66,102 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
                                                         int* __restrict__ flags, int batch,
                                                         int h, int w,
                                                         float tol2, int max_iter) {
-    // p, fluid, face_u, face_v; its size is cg_smem_bytes in kernels/cg.py
-    extern __shared__ float smem[];
-    __shared__ float red_a[2 * kWarps];
-    __shared__ float red_b[kWarps];
+    // p in its halo; its size is cg_smem_bytes in kernels/cg.py
+    extern __shared__ float ps[];
+    __shared__ float red_a[32];
+    __shared__ float red_b[2 * 32];
     __shared__ int busy[2];  // the cluster's double-buffered "not converged" flag
 
     const int tid = threadIdx.x;
     const int n = h * w;
+    const int stride = w + 1;
     const long long off = static_cast<long long>(blockIdx.x) * n;
-    float* ps = smem;
-    float* fluid = ps + n;
-    float* fu = fluid + n;
-    float* fv = fu + h * (w + 1);
 
+    silt::stage_halo(ps, x0_all + off, h, w, stride);
+    // each cell's index in the halo; a cell beyond the field (k >= n) takes
+    // a word of the ring, row 0's column -1, whose neighbours are the ring
+    // and cell (0, 0): with zero coefficients (kRegCells) its A p, and so its
+    // r, p and x, stay 0, and the loops need no test
+    int hk[kCells];
     float x[kCells], r[kCells], p[kCells], ap[kCells];
-    for (int k = tid; k < n; k += kThreads) {
-        fluid[k] = fluid_g[k];
-        ps[k] = x0_all[off + k];  // A x0 reads x0's neighbours
+    Cell cell[kRegCells ? kCells : 1];
+#pragma unroll
+    for (int c = 0; c < kCells; ++c) {
+        const int k = tid + c * kThreads;
+        const int j = k < n ? k / w : 0;
+        hk[c] = k < n ? silt::halo_index(j, k - j * w, stride) : stride;
+        if (kRegCells)
+            cell[c] = k < n ? silt::load_cell(fluid, face_u, face_v, j, k - j * w, w)
+                            : Cell{0, 0, 0, 0, 0, 0};
     }
-    for (int k = tid; k < h * (w + 1); k += kThreads) fu[k] = face_u[k];
-    for (int k = tid; k < (h + 1) * w; k += kThreads) fv[k] = face_v[k];
+    auto live = [&](int c) { return kRegCells || tid + c * kThreads < n; };
+    // (A v) on cell c: v there from a register, its neighbours from the halo;
+    // without kRegCells the coefficients from global memory (hk = k + j + w + 2)
+    auto apply_a = [&](int c, float v) {
+        const int k = tid + c * kThreads, h_k = hk[c];
+        const int j = h_k - k - w - 2;
+        const Cell cl = kRegCells ? cell[kRegCells ? c : 0]
+                                  : silt::load_cell(fluid, face_u, face_v, j, k - j * w, w);
+        return silt::apply_cell(cl, v, ps[h_k + 1], ps[h_k - 1], ps[h_k + stride], ps[h_k - stride]);
+    };
+    auto store_p = [&]() {
+#pragma unroll
+        for (int c = 0; c < kCells; ++c)
+            if (live(c)) ps[hk[c]] = p[c];
+    };
     __syncthreads();
 
-    // r0 = b - A x0; threshold from ||b||^2
-    float bb = 0.0f, rs_part = 0.0f;
+    // r0 = b - A x0; the threshold from ||b||^2
+    float sums[2] = {0.0f, 0.0f};  // b.b, r.r
 #pragma unroll
     for (int c = 0; c < kCells; ++c) {
         const int k = tid + c * kThreads;
-        if (k < n) {
-            const float bk = b_all[off + k];
-            x[c] = ps[k];
-            r[c] = bk - apply_a(ps, fluid, fu, fv, k, h, w);
-            bb += bk * bk;
-            rs_part += r[c] * r[c];
-        }
+        const float bk = k < n ? b_all[off + k] : 0.0f;
+        x[c] = k < n ? x0_all[off + k] : 0.0f;
+        r[c] = p[c] = ap[c] = 0.0f;
+        if (live(c)) r[c] = bk - apply_a(c, x[c]);
+        sums[0] += bk * bk;
+        sums[1] += r[c] * r[c];
     }
-    // both sums in one pass over red_a; its barrier also ends every read of x0
-    for (int o = 16; o > 0; o >>= 1) {
-        bb += __shfl_xor_sync(0xffffffffu, bb, o);
-        rs_part += __shfl_xor_sync(0xffffffffu, rs_part, o);
-    }
-    if ((tid & 31) == 0) {
-        red_a[tid >> 5] = bb;
-        red_a[kWarps + (tid >> 5)] = rs_part;
-    }
-    __syncthreads();
-    bb = 0.0f;
-    float rs = 0.0f;
-    for (int k = 0; k < kWarps; ++k) {
-        bb += red_a[k];
-        rs += red_a[kWarps + k];
-    }
-    const float thresh = tol2 * fmaxf(bb, 1e-30f);
+    // its barrier also ends every read of x0 in the halo
+    silt::block_sum(sums, red_b);
+    const float thresh = tol2 * fmaxf(sums[0], 1e-30f);
+    float rs = sums[1];
 #pragma unroll
-    for (int c = 0; c < kCells; ++c) {
-        const int k = tid + c * kThreads;
-        if (k < n) {
-            p[c] = r[c];
-            ps[k] = r[c];
-        }
-    }
+    for (int c = 0; c < kCells; ++c) p[c] = r[c];
+    store_p();
 
     int it = 0;
     int parity = 0;
     while (true) {
         // whole-batch stop test; its barrier also makes the new p visible
-        const bool any = batch_busy(rs > thresh, busy, parity, flags, batch);
+        const bool any = silt::batch_busy(rs > thresh, busy, parity, flags, batch);
         if (it >= max_iter || !any) break;
 
-        float pap = 0.0f;
+        float pap[1] = {0.0f};
 #pragma unroll
         for (int c = 0; c < kCells; ++c) {
-            const int k = tid + c * kThreads;
-            if (k < n) {
-                ap[c] = apply_a(ps, fluid, fu, fv, k, h, w);
-                pap += p[c] * ap[c];
+            if (live(c)) {
+                ap[c] = apply_a(c, p[c]);
+                pap[0] += p[c] * ap[c];
             }
         }
-        pap = block_sum(pap, red_a);
-        const float alpha = pap == 0.0f ? 0.0f : rs / pap;
-        float rs_new = 0.0f;
+        silt::block_sum(pap, red_a);
+        const float alpha = pap[0] == 0.0f ? 0.0f : rs / pap[0];
+        float rs_new[1] = {0.0f};
 #pragma unroll
         for (int c = 0; c < kCells; ++c) {
-            if (tid + c * kThreads < n) {
-                x[c] += alpha * p[c];
-                r[c] -= alpha * ap[c];
-                rs_new += r[c] * r[c];
-            }
+            x[c] += alpha * p[c];
+            r[c] -= alpha * ap[c];
+            rs_new[0] += r[c] * r[c];
         }
-        // every read of p in shared memory is done: the barrier of the p.Ap sum
-        rs_new = block_sum(rs_new, red_b);
-        const float beta = rs_new / (rs == 0.0f ? 1.0f : rs);
+        // its barrier also ends every read of p in the halo (the stencil's)
+        silt::block_sum(rs_new, red_b);
+        const float beta = rs_new[0] / (rs == 0.0f ? 1.0f : rs);
 #pragma unroll
-        for (int c = 0; c < kCells; ++c) {
-            const int k = tid + c * kThreads;
-            if (k < n) {
-                p[c] = r[c] + beta * p[c];
-                ps[k] = p[c];
-            }
-        }
-        rs = rs_new;
+        for (int c = 0; c < kCells; ++c) p[c] = r[c] + beta * p[c];
+        store_p();
+        rs = rs_new[0];
         ++it;
     }
 
@@ -233,55 +172,36 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
     }
     if (blockIdx.x == 0 && tid == 0) *iters = it;
     // no block of a cluster leaves while a peer may still read its flags
-    if (flags == nullptr) cg::this_cluster().sync();
+    if (flags == nullptr) silt::cgr::this_cluster().sync();
 }
+
+// the dynamic shared memory each instantiation is allowed so far, per device
+int g_smem_allowed[2][silt::kMaxDevices] = {};
 
 }  // namespace
 
 // b, x0, x: (batch, h, w); fluid: (h, w); face_u: (h, w+1); face_v: (h+1, w);
 // iters: one int; flags: 2 x batch ints of scratch, used (and required)
 // only for a batch above kMaxCluster. All contiguous, on the current
-// device. smem_bytes is the
-// dynamic shared memory of one block (cg_smem_bytes in kernels/cg.py).
+// device. smem_bytes is the dynamic shared memory of one block
+// (cg_smem_bytes in kernels/cg.py: p's halo, (h + 2) x (w + 1) floats).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid,
                              const float* face_u, const float* face_v, float* x, int* iters,
                              int* flags, int batch, int h, int w, float tol2, int max_iter,
                              int smem_bytes, void* stream) {
-    if (h * w > kThreads * kCells) return static_cast<int>(cudaErrorInvalidValue);
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    if (smem_bytes > g_smem_allowed[dev]) {
-        err = cudaFuncSetAttribute(cg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        g_smem_allowed[dev] = smem_bytes;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(batch, 1, 1);
-    cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    // one cluster for a batch of at most kMaxCluster, else a cooperative
-    // grid (the launch fails if the blocks cannot all be resident at once)
-    const bool one_cluster = batch <= kMaxCluster;
-    if (!one_cluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaLaunchAttribute attr[1];
-    if (one_cluster) {
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = batch;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-    } else {
-        attr[0].id = cudaLaunchAttributeCooperative;
-        attr[0].val.cooperative = 1;
-    }
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, cg_kernel, b, x0, fluid, face_u, face_v, x, iters,
-                             one_cluster ? nullptr : flags, batch, h, w, tol2, max_iter);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    if (h < 1 || w < 1 || batch < 1 || h * w > 1024 * kCells ||
+        smem_bytes < 4 * (h + 2) * (w + 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int* kflags = batch > silt::kMaxCluster ? flags : nullptr;
+    const cudaError_t err =
+        h * w <= kSmallCells
+            ? silt::launch_batch(cg_kernel<256, true>, g_smem_allowed[0], batch, 256, smem_bytes,
+                                 stream, b, x0, fluid, face_u, face_v, x, iters, kflags, batch, h,
+                                 w, tol2, max_iter)
+            : silt::launch_batch(cg_kernel<1024, false>, g_smem_allowed[1], batch, 1024,
+                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
+                                 kflags, batch, h, w, tol2, max_iter);
+    return static_cast<int>(err);
 }

@@ -17,318 +17,443 @@
 // Batch semantics. Like the folded TPU kernel and the XLA reference, the
 // whole batch stops together: iteration continues while ANY element's r.r is
 // above its threshold, and converged elements keep iterating. One thread
-// block owns one batch element. A batch of at most 8 is one thread-block
-// cluster: after each iteration every block publishes its "not yet
-// converged" flag in its shared memory and reads its peers' flags through
-// distributed shared memory after a cluster barrier. A larger batch (the
-// folded TPU kernel takes it too) is a cooperative grid: the flags go
-// through global memory after a grid barrier (`batch_busy`). One block needs
-// a whole SM, so the batch is at most the SM count (MAX_BATCH in
-// kernels/cg.py). The iteration count is written to a device int.
+// block owns one batch element; a batch of at most 8 is one thread-block
+// cluster, a larger one (up to MAX_BATCH in kernels/cg.py, one block per SM)
+// a cooperative grid (`batch_busy` in csrc/cg_common.cuh, which this kernel
+// shares with csrc/cg.cu, with the block reductions and the operator). The
+// iteration count is written to a device int.
 //
-// Design. The whole CG loop runs inside one launch, with no host round trip
-// per iteration: that is the point of the TPU kernel. At 64x32 one element is
-// 2,048 cells (8 KB per vector); the nine vectors (x, r, p, z, Ap, two
-// preconditioner temporaries, fluid, invd), both face masks, Vy, Vx and Vx^T
-// take about 115 KB of the block's dynamic shared memory, so every iteration
-// runs out of shared memory. The four preconditioner products are FP32 loops
-// over shared memory, ordered so that a warp reads one broadcast operand and
-// 32 consecutive words of the other (Vx^T is kept for the last product).
+// Design. The field is cut into 16x8 tiles, the tiles of the mma products,
+// and each warp owns two tiles side by side in a 16-row stripe: lane 4g + t
+// owns the four cells of each tile's C fragment, (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1), and keeps their x, r, p, A p, z, operator
+// coefficients and invd in registers (at 64x32: 8 warps, 8 cells a thread).
+// The four preconditioner products run on the tensor cores as
+// `mma.sync.m16n8k8` TF32 tiles in 3xTF32 (csrc/tf32.cuh, the split of
+// csrc/conv.cu), every operand read from shared memory: an output tile lands
+// in the C fragment of the warp that owns those cells, so the fourth
+// product's z is already in the registers that update p, and the second's
+// epilogue (* invd) uses the owner's invd. A warp's two tiles share each A
+// fragment, loaded and split once: per k-step 8 loads and 8 splits for 6
+// mma, where one tile per warp took 6 and 6 for 3. One TF32 product
+// (1xTF32) would save two thirds of the mma work, but the PCG then takes 24
+// iterations where the twin takes 20 at 64x32 (a CPU emulation,
+// tests/test_torch_pcg_tf32.py), beyond PCG_ITER_TOL; so 3xTF32, with no
+// switch.
+//
+// The products pair up: t1 = ((Vy^T r) Vx) * invd, then z = (Vy t1) Vx^T.
+// A 16-row stripe of Vy^T r is all that the same stripe of its product with
+// Vx reads, so the warps of a stripe chain the two with a named barrier of
+// their own (`bar.sync 1 + stripe`); only Vy t1, which reads every row of
+// t1, needs a block barrier. An iteration is then four block barriers (the
+// p.Ap sum, r complete in shared memory, the middle of the preconditioner,
+// the paired r.z and r.r sums), two stripe barriers and the cluster (or grid)
+// barrier of the stop test, which also publishes the new p. Shared memory holds p in a halo of zeros (so the
+// operator reads its ghosts without a test), r, the two temporaries, and Vy
+// and Vx twice each, in the orientations the products read, with row
+// strides that put every fragment load on 32 banks.
+//
+// Shapes. On a field whose sides are multiples of 16 and that has at most
+// 16 tiles (the karman 64x32) the kernel takes the layout above (`kFast`).
+// Any other shape the gate takes (pcg_kernel_fits) runs the same loop with
+// up to 16 warps, a warp owning up to three tiles one by one, the stripe
+// barriers replaced by block barriers, and the tiles padded with zeros by
+// predicated loads: rows and columns of Vy, Vx, invd and the fields beyond
+// the domain read as 0, so padded cells stay 0. Its shared memory is
+// unpadded (p's halo, r, two temporaries, one Vy and one Vx), which fits
+// pcg_smem_bytes at every shape the gate takes; a padded Vy alone would not
+// at (234, 1). That path spills registers; it is for correctness, not speed.
 //
 // What bounds it on the H100. One iteration is about 0.85 MFLOP per element
-// (the four products are 4*H*W*(H+W) = 786 kFLOP at 64x32) and every operand
-// lives in shared memory, so neither HBM bytes nor FP32 peak bound it: the
-// iteration is a chain of about a dozen block barriers and one cluster
-// barrier, with 1,024 threads each doing a few hundred dependent
-// shared-memory multiply-adds in the products. The chain of barriers and the
-// latency of those loops bound it; above a batch of 8 the grid barrier takes
-// the cluster barrier's place (at batch 9 no slower than batch 5 on an
-// NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py). Tensor-core products (the
-// TPU kernel put them on its MXU) and fewer barriers are left to a later
-// change.
+// at 64x32 (the four products 4*H*W*(H+W) = 786 kFLOP, 2.4 MFLOP of TF32
+// mma work in 3xTF32, and ~28 operations per cell of operator, dots and
+// updates), on one SM with every operand in shared memory: neither HBM
+// bytes nor the tensor cores' peak bound it. On an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py `kernels` and `--cg-split`, PERF.md) an iteration at
+// (3,64,32) takes 4.7 us: the products about 3.0 (the warps' fragment
+// loads from shared memory and mma issue, not the splits: keeping Vy and Vx
+// split in shared memory, 8 bytes an element, made the iteration slower,
+// 4.9 us), the two block reductions about 0.6 and the rest (operator,
+// updates, barriers, the stop test) about 1.1; set-up and write-back 0.016
+// ms a launch.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include "cg_common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDevices = 64;
-constexpr int kMaxCluster = 8;  // the portable cluster size (MAX_CLUSTER in kernels/cg.py)
+using silt::Acc;
+using silt::Cell;
+using silt::split_tf32;
 
-// Dynamic shared memory the kernel is allowed per device so far; the
-// attribute is raised only when a launch needs more, not on every launch.
-int g_smem_allowed[kMaxDevices] = {};
+constexpr int kMaxWarps = 16;  // 512 threads: a block's warps, at most
+constexpr int kFastWarps = 8;  // the fast layout's: two tiles each
+constexpr int kFlushSteps = 4;  // k-steps of 8 between flushes of the accumulators
 
-// Whether any element of the batch is still above its threshold, given this
-// block's own answer `mine`. A batch of at most kMaxCluster elements is one
-// cluster (flags == nullptr): each block publishes its answer in `busy` and
-// reads its peers' through distributed shared memory after a cluster barrier.
-// A larger batch is a cooperative grid of one block per element: each block
-// writes its answer to its slot of `flags` in global memory (2 x batch ints,
-// one row per parity) and reads every slot after a grid barrier, each lane
-// of each warp a few of them. Either barrier also orders the block's own
-// shared memory. Both rows alternate, so no block overwrites an answer a
-// peer may still read.
-__device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags, int batch) {
-    int any = 0;
-    if (flags == nullptr) {
-        cg::cluster_group cluster = cg::this_cluster();
-        if (threadIdx.x == 0) busy[parity] = mine ? 1 : 0;
-        cluster.sync();
-        for (unsigned rank = 0; rank < cluster.num_blocks(); ++rank)
-            any |= *cluster.map_shared_rank(&busy[parity], rank);
-    } else {
-        int* row = flags + parity * batch;
-        if (threadIdx.x == 0) __stcg(row + blockIdx.x, mine ? 1 : 0);
-        cg::this_grid().sync();
-        for (int k = threadIdx.x & 31; k < batch; k += 32) any |= __ldcg(row + k);
-        any = __any_sync(0xffffffffu, any);
-    }
-    parity ^= 1;
-    return any != 0;
-}
+// The smallest stride >= n that is m modulo 32.
+__host__ __device__ inline int stride_mod32(int n, int m) { return n + (((m - n) % 32) + 32) % 32; }
 
-// Block-wide sums of two per-thread partials; every thread gets both totals,
-// summed in the same order (deterministic).
-__device__ inline void block_sum2(float& a, float& b, float* red) {
-    for (int o = 16; o > 0; o >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, o);
-        b += __shfl_xor_sync(0xffffffffu, b, o);
-    }
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();  // the previous call's readers are done with red
-    if (lane == 0) {
-        red[warp] = a;
-        red[kWarps + warp] = b;
-    }
-    __syncthreads();
-    a = 0.0f;
-    b = 0.0f;
-    for (int k = 0; k < kWarps; ++k) {
-        a += red[k];
-        b += red[kWarps + k];
-    }
-}
-
-struct Element {
-    int h, w, n;
-    float *x, *r, *p, *z, *ap, *t0, *t1, *fluid, *invd, *fu, *fv, *vy, *vx, *vxt;
+// Shared-memory layout in floats: strides and offsets. The fast layout pads
+// each stride so that a fragment's 32 lanes hit 32 banks: an A operand's
+// lanes read (m + g, k + t), g < 8, t < 4, so its row stride is 4 mod 32; a
+// B operand stored k-major reads (k + t, n + g), row stride 8 mod 32; so r
+// and t1 (B operands) take 8, t0 (an A operand) 4, and Vy and Vx are kept
+// twice, each copy in the orientation one product reads, with stride 4. The
+// general layout has no padding and one copy of each (the first product
+// reads Vy, the second Vx, across their rows).
+struct Layout {
+    int ps, ldr, ld0, ldy, ldx;  // strides: p's halo, r and t1, t0, Vy, Vx
+    int r, t0, t1, vy, vyt, vx, vxt, words;
 };
 
-// out = A(p) on one element
-__device__ inline void apply_a(const Element& e, const float* p, float* out) {
-    const int w = e.w, h = e.h;
-    for (int k = threadIdx.x; k < e.n; k += kThreads) {
-        const int j = k / w, i = k - j * w;
-        const float pe = i < w - 1 ? p[k + 1] : 0.0f;
-        const float pw = i > 0 ? p[k - 1] : 0.0f;
-        const float pn = j < h - 1 ? p[k + w] : 0.0f;
-        const float ps = j > 0 ? p[k - w] : 0.0f;
-        const float me = e.fu[j * (w + 1) + i + 1];
-        const float mw = e.fu[j * (w + 1) + i];
-        const float mn = e.fv[(j + 1) * w + i];
-        const float ms = e.fv[j * w + i];
-        const float diag = me + mw + mn + ms;
-        const float lap = me * pe + mw * pw + mn * pn + ms * ps - diag * p[k];
-        const float fl = e.fluid[k];
-        out[k] = fl * (-lap) + (1.0f - fl) * p[k];
+__host__ __device__ inline Layout pcg_layout(int h, int w, bool fast) {
+    Layout l;
+    l.ps = fast ? stride_mod32(w + 1, 8) : w + 1;
+    l.ldr = fast ? stride_mod32(w, 8) : w;
+    l.ld0 = fast ? stride_mod32(w, 4) : w;
+    l.ldy = fast ? stride_mod32(h, 4) : h;
+    l.ldx = fast ? stride_mod32(w, 4) : w;
+    l.r = (h + 2) * l.ps;
+    l.t0 = l.r + h * l.ldr;
+    l.t1 = l.t0 + h * l.ld0;
+    l.vy = l.t1 + h * l.ldr;
+    l.vyt = l.vy + h * l.ldy;
+    l.vx = l.vyt + (fast ? h * l.ldy : 0);
+    l.vxt = l.vx + w * l.ldx;
+    l.words = l.vxt + (fast ? w * l.ldx : 0);
+    return l;
+}
+
+// Element (a, b) of a matrix in shared memory: p[a * s0 + b * s1].
+struct View {
+    const float* p;
+    int s0, s1;
+};
+
+// The C fragments d[q] of kN 16x8 tiles side by side, at rows mb and
+// columns nb + 8q, of A (m x k) times B (k x n), over k < klen, in 3xTF32:
+// the tiles share each A fragment, loaded and split once. Every kFlushSteps
+// k-steps the three accumulators are added into the total. kChecked:
+// elements of A or B beyond (m, klen) and (klen, n) read as 0, the zero
+// padding of the tiles.
+template <bool kChecked, int kN>
+__device__ __forceinline__ void tile_product(float (&d)[kN][4], const View& a, const View& b,
+                                             int mb, int nb, int m, int n, int klen) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float* pa = a.p + (mb + g) * a.s0 + t * a.s1;
+    const float* pb = b.p + t * b.s0 + (nb + g) * b.s1;
+    const int a8 = 8 * a.s0, a4 = 4 * a.s1, b4 = 4 * b.s0, b8 = 8 * b.s1;
+    const int ak = 8 * a.s1, bk = 8 * b.s0;
+    const bool m0 = !kChecked || mb + g < m, m1 = !kChecked || mb + g + 8 < m;
+    const bool n0 = !kChecked || nb + g < n;
+    Acc acc[kN];
+#pragma unroll
+    for (int q = 0; q < kN; ++q) acc[q].zero();
+    const int steps = (klen + 7) >> 3;
+#pragma unroll 4
+    for (int s = 0; s < steps; ++s) {
+        const int k = 8 * s + t;
+        const bool k0 = !kChecked || k < klen, k1 = !kChecked || k + 4 < klen;
+        unsigned ab[4], as[4];
+        split_tf32(m0 && k0 ? pa[0] : 0.0f, ab[0], as[0]);
+        split_tf32(m1 && k0 ? pa[a8] : 0.0f, ab[1], as[1]);
+        split_tf32(m0 && k1 ? pa[a4] : 0.0f, ab[2], as[2]);
+        split_tf32(m1 && k1 ? pa[a8 + a4] : 0.0f, ab[3], as[3]);
+#pragma unroll
+        for (int q = 0; q < kN; ++q) {
+            unsigned bb[2], bs[2];
+            split_tf32(k0 && n0 ? pb[q * b8] : 0.0f, bb[0], bs[0]);
+            split_tf32(k1 && n0 ? pb[q * b8 + b4] : 0.0f, bb[1], bs[1]);
+            acc[q].mma(ab, as, bb, bs);
+            if (s % kFlushSteps == kFlushSteps - 1) acc[q].flush();
+        }
+        pa += ak;
+        pb += bk;
+    }
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+        acc[q].flush();
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[q][e] = acc[q].sum[e];
     }
 }
 
-// z = Vy ((Vy^T r Vx) * invd) Vx^T on one element; ends with a barrier
-__device__ inline void minv(const Element& e, const float* r, float* z) {
-    const int h = e.h, w = e.w;
-    for (int k = threadIdx.x; k < e.n; k += kThreads) {  // t0 = Vy^T r
-        const int a = k / w, i = k - a * w;
-        float s = 0.0f;
-        for (int j = 0; j < h; ++j) s += e.vy[j * h + a] * r[j * w + i];
-        e.t0[k] = s;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < e.n; k += kThreads) {  // t1 = (t0 Vx) * invd
-        const int a = k / w, c = k - a * w;
-        float s = 0.0f;
-        for (int i = 0; i < w; ++i) s += e.t0[a * w + i] * e.vx[i * w + c];
-        e.t1[k] = s * e.invd[k];
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < e.n; k += kThreads) {  // t0 = Vy t1
-        const int j = k / w, c = k - j * w;
-        float s = 0.0f;
-        for (int a = 0; a < h; ++a) s += e.vy[j * h + a] * e.t1[a * w + c];
-        e.t0[k] = s;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < e.n; k += kThreads) {  // z = t0 Vx^T
-        const int j = k / w, i = k - j * w;
-        float s = 0.0f;
-        for (int c = 0; c < w; ++c) s += e.t0[j * w + c] * e.vxt[c * w + i];
-        z[k] = s;
-    }
-    __syncthreads();
+// Waits for the warps of stripe `stripe` (the fast layout: two tiles per
+// warp, the stripe's nq / 2 warps consecutive) or, in the general layout,
+// for the block.
+template <bool kFast>
+__device__ __forceinline__ void stripe_sync(int stripe, int nq) {
+    if (kFast) asm volatile("bar.sync %0, %1;" ::"r"(1 + stripe), "r"(16 * nq) : "memory");
+    else __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pcg_kernel(const float* __restrict__ b_all, const float* __restrict__ x0_all,
-                           const float* __restrict__ fluid, const float* __restrict__ face_u,
-                           const float* __restrict__ face_v, const float* __restrict__ vy,
-                           const float* __restrict__ vx, const float* __restrict__ invd,
-                           float* __restrict__ x_all, int* __restrict__ iters,
-                           int* __restrict__ flags, int batch, int h, int w, float tol2,
-                           int max_iter) {
-    // laid out as below; its size is pcg_smem_bytes in kernels/cg.py
-    extern __shared__ float smem[];
-    __shared__ float red[2 * kWarps];
+template <bool kFast>
+__global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
+    pcg_kernel(const float* __restrict__ b_all, const float* __restrict__ x0_all,
+               const float* __restrict__ fluid, const float* __restrict__ face_u,
+               const float* __restrict__ face_v, const float* __restrict__ vy_g,
+               const float* __restrict__ vx_g, const float* __restrict__ invd_g,
+               float* __restrict__ x_all, int* __restrict__ iters, int* __restrict__ flags,
+               int batch, int h, int w, float tol2, int max_iter) {
+    constexpr int kTiles = kFast ? 2 : 3;  // tiles per warp, at most
+    constexpr int kC = 4 * kTiles;        // cells per thread
+    extern __shared__ __align__(16) float smem[];
+    __shared__ float red_a[32];
+    __shared__ float red_b[3 * 32];
     __shared__ int busy[2];  // the cluster's double-buffered "not converged" flag
 
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
     const int n = h * w;
+    const int nq = (w + 7) >> 3, ntiles = ((h + 15) >> 4) * nq;
     const long long off = static_cast<long long>(blockIdx.x) * n;
-    const float* b = b_all + off;
+    const Layout lay = pcg_layout(h, w, kFast);
+    float* ps = smem;
+    float* rs_ = smem + lay.r;
+    float* t0 = smem + lay.t0;
+    float* t1 = smem + lay.t1;
+    float* vy = smem + lay.vy;
+    float* vyt = smem + lay.vyt;
+    float* vx = smem + lay.vx;
+    float* vxt = smem + lay.vxt;
 
-    Element e;
-    e.h = h;
-    e.w = w;
-    e.n = n;
-    float* s = smem;
-    e.x = s; s += n;
-    e.r = s; s += n;
-    e.p = s; s += n;
-    e.z = s; s += n;
-    e.ap = s; s += n;
-    e.t0 = s; s += n;
-    e.t1 = s; s += n;
-    e.fluid = s; s += n;
-    e.invd = s; s += n;
-    e.fu = s; s += h * (w + 1);
-    e.fv = s; s += (h + 1) * w;
-    e.vy = s; s += h * h;
-    e.vx = s; s += w * w;
-    e.vxt = s;
+    silt::stage_halo(ps, x0_all + off, h, w, lay.ps);
+#pragma unroll 4
+    for (int k = tid; k < h * h; k += blockDim.x) {
+        const int j = k / h, a = k - j * h;
+        vy[j * lay.ldy + a] = vy_g[k];
+        if (kFast) vyt[a * lay.ldy + j] = vy_g[k];
+    }
+#pragma unroll 4
+    for (int k = tid; k < w * w; k += blockDim.x) {
+        const int i = k / w, c = k - i * w;
+        vx[i * lay.ldx + c] = vx_g[k];
+        if (kFast) vxt[c * lay.ldx + i] = vx_g[k];
+    }
 
-    for (int k = tid; k < n; k += kThreads) {
-        e.x[k] = x0_all[off + k];
-        e.fluid[k] = fluid[k];
-        e.invd[k] = invd[k];
+    // this thread's cells: tile u of the warp is 2 * warp + u in the fast
+    // layout (two neighbours in a stripe), warp + u * warps in the general
+    // one; cell 4u + e of the thread is element e of the tile's C fragment
+    int mb[kTiles], nb[kTiles];
+    bool tile_ok[kTiles];
+    unsigned real = 0;  // bit c: cell c lies in the domain
+    float x[kC], r[kC], p[kC], ap[kC], z[kC], inv[kC], bv[kC];
+    Cell cell[kC];
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u) {
+        const int tile = kFast ? 2 * warp + u : warp + u * warps;
+        tile_ok[u] = kFast || tile < ntiles;
+        mb[u] = 16 * (tile / nq);
+        nb[u] = 8 * (tile - (tile / nq) * nq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int c = 4 * u + e;
+            const int j = mb[u] + g + 8 * (e >> 1), i = nb[u] + 2 * t + (e & 1);
+            const bool ok = kFast || (tile_ok[u] && j < h && i < w);
+            cell[c] = ok ? silt::load_cell(fluid, face_u, face_v, j, i, w) : Cell{0, 0, 0, 0, 0, 0};
+            inv[c] = ok ? invd_g[j * w + i] : 0.0f;
+            x[c] = ok ? x0_all[off + j * w + i] : 0.0f;
+            bv[c] = ok ? b_all[off + j * w + i] : 0.0f;
+            if (ok) real |= 1u << c;
+        }
     }
-    for (int k = tid; k < h * (w + 1); k += kThreads) e.fu[k] = face_u[k];
-    for (int k = tid; k < (h + 1) * w; k += kThreads) e.fv[k] = face_v[k];
-    for (int k = tid; k < h * h; k += kThreads) e.vy[k] = vy[k];
-    for (int k = tid; k < w * w; k += kThreads) {
-        e.vx[k] = vx[k];
-        const int row = k / w, col = k - row * w;
-        e.vxt[col * w + row] = vx[k];
-    }
+
+    // row and column of element e of tile u's C fragment
+    auto row = [&](int u, int e) { return mb[u] + g + 8 * (e >> 1); };
+    auto col = [&](int u, int e) { return nb[u] + 2 * t + (e & 1); };
+    // out = A(v) on this thread's cells: v in registers, its neighbours
+    // from the halo in shared memory (a cell's partner in its row pair from
+    // the partner's register)
+    auto apply_a = [&](const float (&v)[kC], float (&out)[kC]) {
+#pragma unroll
+        for (int u = 0; u < kTiles; ++u) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = 4 * u + e;
+                out[c] = 0.0f;
+                if (kFast || (real >> c & 1u)) {
+                    const int k = silt::halo_index(row(u, e), col(u, e), lay.ps);
+                    const float pe = (e & 1) ? ps[k + 1] : v[c ^ 1];
+                    const float pw = (e & 1) ? v[c ^ 1] : ps[k - 1];
+                    out[c] = silt::apply_cell(cell[c], v[c], pe, pw, ps[k + lay.ps], ps[k - lay.ps]);
+                }
+            }
+        }
+    };
+    // the four cells of tile u (a C fragment) into a matrix of row stride ld
+    auto store_tile = [&](float* dst, int ld, int u, const float (&d)[4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (kFast || (real >> (4 * u + e) & 1u)) dst[row(u, e) * ld + col(u, e)] = d[e];
+    };
+    // a product on this warp's tiles, out(u, d) on tile u's fragment: in the
+    // fast layout both tiles at once (they share the A fragments)
+    auto product = [&](const View& a, const View& b, int klen, auto&& out) {
+        if constexpr (kFast) {
+            float d[2][4];
+            tile_product<false, 2>(d, a, b, mb[0], nb[0], h, w, klen);
+            out(0, d[0]);
+            out(1, d[1]);
+        } else {
+#pragma unroll
+            for (int u = 0; u < kTiles; ++u) {
+                if (!tile_ok[u]) continue;
+                float d[1][4];
+                tile_product<true, 1>(d, a, b, mb[u], nb[u], h, w, klen);
+                out(u, d[0]);
+            }
+        }
+    };
+    // z = Vy ((Vy^T r Vx) * invd) Vx^T, r in shared memory, z into this
+    // thread's cells; one block barrier, in the middle
+    const View a_vyt = kFast ? View{vyt, lay.ldy, 1} : View{vy, 1, lay.ldy};  // (a, j) = Vy[j, a]
+    const View a_vy{vy, lay.ldy, 1};
+    const View a_t0{t0, lay.ld0, 1};
+    const View b_r{rs_, lay.ldr, 1};
+    const View b_t1{t1, lay.ldr, 1};
+    const View b_vx = kFast ? View{vxt, 1, lay.ldx} : View{vx, lay.ldx, 1};  // (i, c) = Vx[i, c]
+    const View b_vxt{vx, 1, lay.ldx};  // (c, i) = Vx[i, c]
+    auto minv = [&]() {
+        product(a_vyt, b_r, h, [&](int u, const float (&d)[4]) { store_tile(t0, lay.ld0, u, d); });
+        stripe_sync<kFast>(mb[0] >> 4, nq);  // t0 = Vy^T r
+        product(a_t0, b_vx, w, [&](int u, const float (&d)[4]) {
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = d[e] * inv[4 * u + e];
+            store_tile(t1, lay.ldr, u, v);
+        });
+        __syncthreads();  // t1 = (t0 Vx) * invd
+        product(a_vy, b_t1, h, [&](int u, const float (&d)[4]) { store_tile(t0, lay.ld0, u, d); });
+        stripe_sync<kFast>(mb[0] >> 4, nq);  // t0 = Vy t1
+#pragma unroll
+        for (int c = 0; c < kC; ++c) z[c] = 0.0f;
+        product(a_t0, b_vxt, w, [&](int u, const float (&d)[4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) z[4 * u + e] = d[e];
+        });  // z = t0 Vx^T
+    };
+    // r into its matrix for the first product, p into the halo for the operator
+    auto store_r_p = [&](bool into_r) {
+#pragma unroll
+        for (int u = 0; u < kTiles; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = 4 * u + e;
+                if (!kFast && !(real >> c & 1u)) continue;
+                if (into_r) rs_[row(u, e) * lay.ldr + col(u, e)] = r[c];
+                else ps[silt::halo_index(row(u, e), col(u, e), lay.ps)] = p[c];
+            }
+    };
     __syncthreads();
 
-    // threshold from ||b||^2; r0 = b - A x0
-    float bb = 0.0f, unused = 0.0f;
-    for (int k = tid; k < n; k += kThreads) bb += b[k] * b[k];
-    block_sum2(bb, unused, red);
-    const float thresh = tol2 * fmaxf(bb, 1e-30f);
-
-    apply_a(e, e.x, e.ap);
-    __syncthreads();
-    for (int k = tid; k < n; k += kThreads) e.r[k] = b[k] - e.ap[k];
-    __syncthreads();
-    minv(e, e.r, e.z);
-    float rz = 0.0f, rs = 0.0f;
-    for (int k = tid; k < n; k += kThreads) {
-        e.p[k] = e.z[k];
-        rz += e.r[k] * e.z[k];
-        rs += e.r[k] * e.r[k];
+    // r0 = b - A x0; the threshold from ||b||^2; z0 = M^-1 r0; p0 = z0
+#pragma unroll
+    for (int c = 0; c < kC; ++c) p[c] = x[c];
+    apply_a(p, ap);
+    float sums[3] = {0.0f, 0.0f, 0.0f};  // b.b, r.z, r.r
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+        r[c] = bv[c] - ap[c];
+        sums[0] += bv[c] * bv[c];
     }
-    block_sum2(rz, rs, red);
+    store_r_p(true);
+    __syncthreads();  // r complete; every read of x0 in the halo done
+    minv();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+        sums[1] += r[c] * z[c];
+        sums[2] += r[c] * r[c];
+    }
+    silt::block_sum(sums, red_b);
+    const float thresh = tol2 * fmaxf(sums[0], 1e-30f);
+    float rz = sums[1], rs = sums[2];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) p[c] = z[c];
+    store_r_p(false);
 
     int it = 0;
     int parity = 0;
     while (true) {
-        // whole-batch stop test: continue while any element is above its threshold
-        const bool any = batch_busy(rs > thresh, busy, parity, flags, batch);
+        // whole-batch stop test; its barrier also makes the new p visible
+        const bool any = silt::batch_busy(rs > thresh, busy, parity, flags, batch);
         if (it >= max_iter || !any) break;
 
-        apply_a(e, e.p, e.ap);
-        __syncthreads();
-        float pap = 0.0f;
-        for (int k = tid; k < n; k += kThreads) pap += e.p[k] * e.ap[k];
-        block_sum2(pap, unused, red);
-        const float alpha = pap == 0.0f ? 0.0f : rz / pap;
-        for (int k = tid; k < n; k += kThreads) {
-            e.x[k] += alpha * e.p[k];
-            e.r[k] -= alpha * e.ap[k];
+        apply_a(p, ap);
+        float pap[1] = {0.0f};
+#pragma unroll
+        for (int c = 0; c < kC; ++c) pap[0] += p[c] * ap[c];
+        silt::block_sum(pap, red_a);
+        const float alpha = pap[0] == 0.0f ? 0.0f : rz / pap[0];
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+            x[c] += alpha * p[c];
+            r[c] -= alpha * ap[c];
         }
-        __syncthreads();
-        minv(e, e.r, e.z);
-        float rz_new = 0.0f;
-        rs = 0.0f;
-        for (int k = tid; k < n; k += kThreads) {
-            rz_new += e.r[k] * e.z[k];
-            rs += e.r[k] * e.r[k];
+        store_r_p(true);
+        __syncthreads();  // r complete
+        minv();
+        float rr[2] = {0.0f, 0.0f};  // r.z, r.r
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+            rr[0] += r[c] * z[c];
+            rr[1] += r[c] * r[c];
         }
-        block_sum2(rz_new, rs, red);
-        const float beta = rz_new / (rz == 0.0f ? 1.0f : rz);
-        for (int k = tid; k < n; k += kThreads) e.p[k] = e.z[k] + beta * e.p[k];
-        __syncthreads();
-        rz = rz_new;
+        // its barrier also ends every read of p in the halo (the operator's)
+        silt::block_sum(rr, red_b);
+        const float beta = rr[0] / (rz == 0.0f ? 1.0f : rz);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) p[c] = z[c] + beta * p[c];
+        store_r_p(false);
+        rz = rr[0];
+        rs = rr[1];
         ++it;
     }
 
-    for (int k = tid; k < n; k += kThreads) x_all[off + k] = e.x[k];
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (kFast || (real >> (4 * u + e) & 1u)) x_all[off + row(u, e) * w + col(u, e)] = x[4 * u + e];
     if (blockIdx.x == 0 && tid == 0) *iters = it;
     // no block of a cluster leaves while a peer may still read its flags
-    if (flags == nullptr) cg::this_cluster().sync();
+    if (flags == nullptr) silt::cgr::this_cluster().sync();
 }
+
+// the dynamic shared memory each instantiation is allowed so far, per device
+int g_smem_allowed[2][silt::kMaxDevices] = {};
 
 }  // namespace
 
 // b, x0, x: (batch, h, w); fluid: (h, w); face_u: (h, w+1); face_v: (h+1, w);
 // vy: (h, h); vx: (w, w); invd: (h, w); iters: one int; flags: 2 x batch
 // ints of scratch, used (and required) only for a batch above kMaxCluster.
-// All contiguous, on the current device. smem_bytes is the dynamic shared memory of one block
-// (pcg_smem_bytes in kernels/cg.py). Returns the cudaError_t of the launch
-// (0 on success).
+// All contiguous, on the current device. smem_bytes is the dynamic shared
+// memory of one block (pcg_smem_bytes in kernels/cg.py), which the kernel's
+// layout must fit. Returns the cudaError_t of the launch (0 on success).
 extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* fluid,
                               const float* face_u, const float* face_v, const float* vy,
                               const float* vx, const float* invd, float* x, int* iters,
                               int* flags, int batch, int h, int w, float tol2, int max_iter,
                               int smem_bytes, void* stream) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    if (smem_bytes > g_smem_allowed[dev]) {
-        err = cudaFuncSetAttribute(pcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        g_smem_allowed[dev] = smem_bytes;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(batch, 1, 1);
-    cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    // one cluster for a batch of at most kMaxCluster, else a cooperative
-    // grid (the launch fails if the blocks cannot all be resident at once)
-    const bool one_cluster = batch <= kMaxCluster;
-    if (!one_cluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    cudaLaunchAttribute attr[1];
-    if (one_cluster) {
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = batch;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-    } else {
-        attr[0].id = cudaLaunchAttributeCooperative;
-        attr[0].val.cooperative = 1;
-    }
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, pcg_kernel, b, x0, fluid, face_u, face_v, vy, vx, invd, x,
-                             iters, one_cluster ? nullptr : flags, batch, h, w, tol2, max_iter);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    if (h < 1 || w < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int stripes = (h + 15) / 16, tiles = stripes * ((w + 7) / 8);
+    // the fast layout: both sides multiples of 16 (a warp owns two tiles side
+    // by side), a named barrier per stripe (ids 1..15; 0 is __syncthreads)
+    const bool fast = h % 16 == 0 && w % 16 == 0 && tiles <= 2 * kFastWarps && stripes <= 15 &&
+                      4 * pcg_layout(h, w, true).words <= smem_bytes;
+    if (!fast && (tiles > 3 * kMaxWarps || 4 * pcg_layout(h, w, false).words > smem_bytes))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int* kflags = batch > silt::kMaxCluster ? flags : nullptr;
+    const int threads = 32 * (fast ? tiles / 2 : (tiles < kMaxWarps ? tiles : kMaxWarps));
+    const cudaError_t err =
+        fast ? silt::launch_batch(pcg_kernel<true>, g_smem_allowed[1], batch, threads, smem_bytes,
+                                  stream, b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters,
+                                  kflags, batch, h, w, tol2, max_iter)
+             : silt::launch_batch(pcg_kernel<false>, g_smem_allowed[0], batch, threads, smem_bytes,
+                                  stream, b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters,
+                                  kflags, batch, h, w, tol2, max_iter);
+    return static_cast<int>(err);
 }

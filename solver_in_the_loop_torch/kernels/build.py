@@ -4,10 +4,11 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library, which is loaded with `ctypes`: this builds in
 seconds, where an extension that includes PyTorch's headers takes minutes.
 Libraries go to `build/kernels/` at the root of the checkout (ignored by git),
-named by a hash of the source and flags, so a changed source is rebuilt and a
-stale library is never loaded. Nothing is built when this module is imported:
-the first kernel launch builds its library, and `build_all` builds every
-source at once, one `nvcc` per source, all started together.
+named by a hash of the flags, the source and the headers of csrc/ it includes,
+so a changed source or header is rebuilt and a stale library is never
+loaded. Nothing is built when this module is imported: the first kernel
+launch builds its library, and `build_all` builds every source at once, one
+`nvcc` per source, all started together.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,9 +52,27 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list:
+    """csrc/<name>.cu and every header of csrc/ it includes, directly or
+    through another header (`#include "..."`), in the order first reached."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / m for m in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
+    """The library of csrc/<name>.cu, named by a hash of the flags, the source
+    and every header it includes, so an edit to any of them builds anew."""
     flags = COMMON_FLAGS + SOURCES[name]
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in _inputs(name))
                           + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -43,14 +43,16 @@ MAX_BATCH = 128
 # kernel's static reduction scratch
 SMEM_LIMIT_BYTES = 232448 - 1024
 # csrc/cg.cu keeps each thread's cells of x, r, p and A p in registers: at
-# most 8 cells for each of its 1,024 threads
+# most 8 cells for each of its threads, 1,024 on the largest fields
 CG_MAX_CELLS = 1024 * 8
 
 
 def pcg_smem_bytes(h: int, w: int) -> int:
-    """Dynamic shared memory the kernel needs per block, in the layout that
-    csrc/pcg.cu carves: nine (h, w) vectors, both face masks, Vy, Vx, Vx^T.
-    The one source of this size: the gate reads it and the launch passes it."""
+    """Dynamic shared memory a block of the kernel gets: the room of nine
+    (h, w) vectors, both face masks, Vy, Vx and Vx^T. csrc/pcg.cu carves its
+    layouts inside it (at 64x32 the fast layout takes 84,288 of its 115,072
+    bytes; the unpadded one fits at every shape the gate takes). The one
+    source of this size: the gate reads it and the launch passes it."""
     return 4 * (9 * h * w + h * (w + 1) + (h + 1) * w + h * h + 2 * w * w)
 
 
@@ -63,16 +65,16 @@ def pcg_kernel_fits(shape) -> bool:
 
 
 def cg_smem_bytes(h: int, w: int) -> int:
-    """Dynamic shared memory csrc/cg.cu needs per block: p and fluid (h, w)
-    and both face masks. The one source of this size: the gate reads it and
-    the launch passes it."""
-    return 4 * (2 * h * w + h * (w + 1) + (h + 1) * w)
+    """Dynamic shared memory csrc/cg.cu needs per block: p in a halo of
+    zeros, (h + 2) x (w + 1) floats (csrc/cg_common.cuh `halo_index`). The
+    one source of this size: the launch passes it."""
+    return 4 * (h + 2) * (w + 1)
 
 
 def cg_kernel_fits(shape) -> bool:
     """Whether the unpreconditioned kernel takes a (B, H, W) problem: the
     batch fits one resident grid and an element's cells the block's registers
-    (then its shared memory, cg_smem_bytes, is at most 164 KB)."""
+    (then its shared memory, cg_smem_bytes, is at most 96 KB)."""
     b, h, w = shape
     return 1 <= b <= MAX_BATCH and h * w <= CG_MAX_CELLS
 

@@ -75,3 +75,21 @@ def test_launch_error_is_raised():
     build.check(0, "ok")
     with pytest.raises(RuntimeError, match="tap_sum_fwd: CUDA error 9"):
         build.check(9, "tap_sum_fwd")
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """An edit to a header of csrc/ alone builds every source that includes
+    it anew, and no other."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert [p.name for p in build._inputs("pcg")] == ["pcg.cu", "cg_common.cuh", "tf32.cuh"]
+    assert [p.name for p in build._inputs("conv")] == ["conv.cu", "tf32.cuh"]
+    for header, users in (("cg_common.cuh", {"pcg", "cg"}), ("tf32.cuh", {"pcg", "conv"})):
+        before = {name: build._lib_path(name) for name in build.SOURCES}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        changed = {name for name in build.SOURCES if build._lib_path(name) != before[name]}
+        assert changed == users, header

@@ -172,7 +172,7 @@ def test_cg_kernel_gate():
     assert not tcg.cg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
     assert not tcg.cg_kernel_fits((1, 256, 128))  # hi-res: multigrid
     assert not tcg.cg_kernel_fits((0, 64, 32))
-    assert tcg.cg_smem_bytes(64, 32) == 4 * (2 * 2048 + 64 * 33 + 65 * 32)
+    assert tcg.cg_smem_bytes(64, 32) == 4 * 66 * 33  # p in a halo of zeros
 
 
 @pytest.mark.parametrize("shape,device,precon,route", [

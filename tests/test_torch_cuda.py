@@ -10,7 +10,7 @@ machine does not have; this file imports nothing of JAX). Tolerances are
 those of solver_in_the_loop_torch/parity.py, which chip_smoke.py holds the
 card to: the tap-sum forward and backward bit for bit on the
 offsets the solver passes, the PCG within one iteration and 1e-4 of the
-solution's max, the unpreconditioned CG within one iteration and 5e-6 and
+solution's max, the unpreconditioned CG within one iteration and 5e-6, both
 bit-equal across launches, the conv forward within 1e-5 and its weight gradient within
 1e-4 of the output's max, a 10-step rollout within 1e-3, one SOL-32 and one
 SOL-04 train step's losses within 1e-4 and gradients within 1e-3.
@@ -33,7 +33,13 @@ from solver_in_the_loop_torch.kernels.advect import (
 from solver_in_the_loop_torch.kernels.cg import cg_solve, cg_solve_plain, pcg_solve, pcg_solve_plain
 from solver_in_the_loop_torch.models.networks import disable_tf32
 from solver_in_the_loop_torch.ops import interp
-from solver_in_the_loop_torch.ops.poisson import fd_factors, pressure_route, solve_pressure
+from solver_in_the_loop_torch.core.grids import Boundary, Domain
+from solver_in_the_loop_torch.ops.poisson import (
+    fd_factors,
+    masks_from_fluid_cells,
+    pressure_route,
+    solve_pressure,
+)
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train.rollout import karman_rollout
 
@@ -74,7 +80,7 @@ def test_tap_sum_rejects_bad_input(device):
         tap_sum_fwd(vals, vals.transpose(1, 2), vals, 2, False)
 
 
-@pytest.mark.parametrize("batch", [1, 5, 9, 16])
+@pytest.mark.parametrize("batch", [1, 3, 5, 8, 9, 16])
 def test_pcg_kernel_matches_plain(device, batch):
     dom = karman_domain(32)
     flow = KarmanFlow(dom, advection="shift", device=device)
@@ -88,6 +94,67 @@ def test_pcg_kernel_matches_plain(device, batch):
         x_p, it_p = pcg_solve_plain(*args)
         assert abs(int(it_k) - int(it_p)) <= 1
         assert _rel(x_k, x_p) <= 1e-4
+        x_again, it_again = pcg_solve(*args)  # fixed-order sums: the same bits
+        assert torch.equal(x_k, x_again) and int(it_k) == int(it_again)
+
+
+def _box_problem(device, shape, seed=0):
+    """An OPEN box with a disc obstacle, of any shape: a right-hand side on
+    its fluid cells, a warm start and the masks."""
+    b, h, w = shape
+    jj, ii = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+    fluid = (((jj - h / 3) ** 2 + (ii - w / 2) ** 2) > (min(h, w) / 5) ** 2).float()[None]
+    masks = masks_from_fluid_cells(fluid.to(device),
+                                   Domain((h, w), (float(h), float(w)), Boundary.OPEN))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rhs = (torch.randn(shape, generator=gen, device=device) * masks.fluid).contiguous()
+    warm = (0.1 * torch.randn(shape, generator=gen, device=device) * masks.fluid).contiguous()
+    return rhs, warm, masks
+
+
+# Fields off the PCG kernel's 16x8 tiles: karman at 36x18 (9 tiles, one per
+# warp), 80x40 (25: two per warp) and 88x44 (36: three per warp), and the
+# gate's thinnest fields, an obstacle-free box of one column or one row.
+OFF_TILE_CASES = [(2, 18), (2, 40), (1, 44), (1, 234, 1), (1, 1, 167)]
+
+
+@pytest.mark.parametrize("case", OFF_TILE_CASES)
+def test_cg_kernels_off_the_tiles_match_plain(device, case):
+    """Both CG kernels at shapes the gates take off the 64x32 field: the
+    preconditioner's tiles padded with zeros, several tiles per warp; the
+    solution and iterations against the twins, the same bits twice."""
+    if len(case) == 2:
+        rhs, masks = _cg_problem(device, case[0], karman_domain(case[1]), seed=case[1])
+        warm = (0.1 * rhs).contiguous()
+    else:
+        rhs, warm, masks = _box_problem(device, case, seed=sum(case))
+    shape = tuple(rhs.shape)
+    assert cg.pcg_kernel_fits(shape) and cg.cg_kernel_fits(shape)
+    fd = fd_factors(shape[1], shape[2], device)
+    for x0 in (torch.zeros_like(rhs), warm):
+        ops = (rhs, x0, masks.fluid, masks.face_u, masks.face_v)
+        for kernel, plain, extra, rel in ((pcg_solve, pcg_solve_plain, fd, parity.PCG_REL_TOL),
+                                          (cg_solve, cg_solve_plain, (), parity.CG_REL_TOL)):
+            args = (*ops, *extra, 1e-5, 4000)
+            x_k, it_k = kernel(*args)
+            x_p, it_p = plain(*args)
+            assert abs(int(it_k) - int(it_p)) <= parity.PCG_ITER_TOL, (kernel.__name__, it_k, it_p)
+            assert _rel(x_k, x_p) <= rel, kernel.__name__
+            x_again, _ = kernel(*args)
+            assert torch.equal(x_k, x_again), kernel.__name__
+
+
+def test_cg_kernels_run_max_iter_at_tol_zero(device):
+    """tol 0 makes the threshold 0: each kernel runs exactly max_iter
+    iterations (the fixed-iteration timing in chip_smoke.py relies on it)."""
+    rhs, _, masks = _box_problem(device, (3, 64, 32))
+    ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
+    for max_iter in (8, 24):
+        _, it = pcg_solve(*ops, *fd_factors(64, 32, device), 0.0, max_iter)
+        assert int(it) == max_iter
+        _, it = cg_solve(*ops, 0.0, max_iter)
+        assert int(it) == max_iter
 
 
 def test_rollout_with_kernels_matches_plain(device, monkeypatch):

@@ -11,7 +11,8 @@ each printing one JSON line:
 2. build        — compiles every kernel of solver_in_the_loop_torch/csrc with
                   nvcc, one process per source, all started together
 3. kernels      — each kernel (tap-sum forward and backward, PCG, CG without
-                  preconditioner) against its plain PyTorch twin on the card,
+                  preconditioner, the conv kernels in fp32 and in bf16)
+                  against its plain PyTorch twin on the card,
                   at the shapes of the karman apply, training and generation
                   paths (the tap-sums also at the Burgers fields and at
                   max_shift 1 and 3, with each launch's grid and block; the
@@ -32,21 +33,32 @@ each printing one JSON line:
                   first 40 frames of its training set, cut to 16 iterations
                   (TRAIN_REDUCED), with the kernels' launch counts, the CG
                   iterations forward and adjoint, the updates the guard let
-                  through, and `karman-apply` from the checkpoint it wrote
+                  through, the trace its --profile wrote, and `karman-apply`
+                  from the checkpoint it wrote
 8. train_parity — one SOL-32 train step on the kernel path against the same
                   step on the plain path and against the JAX package's step
                   (tests/data/torch_port/karman_train_step_sol32.npz)
 8b.             — the same step with the nets' convs in the port's conv kernels
                   (`--conv kernel`) against the same golden
 9. train_profile — where a training iteration's time goes (torch.profiler)
-10. burgers_gen — `burgers-gen` through the CLI: the Makefile's hi-res
-                  training set (seeds 0-9, 128x128, 30 skipped steps) cut to
-                  40 frames, and its test sim seed 100 at the full 200 frames;
-                  frame 0 of seed 100 against the JAX package's
+10. burgers_gen — `burgers-gen --thumb` through the CLI: the Makefile's
+                  hi-res training set (seeds 0-9, 128x128, 30 skipped steps)
+                  cut to 40 frames, and its test sim seed 100 at the full 200
+                  frames; frame 0 of seed 100 against the JAX package's, and
+                  the thumbnails' count
 11. burgers_train — `burgers-train --conv kernel` through the CLI: the
                   Makefile's SOL-04 run (MarsMoon 32x5, batch 5, msteps 4,
                   32x32) on that set, cut to 1 epoch of 72 iterations
                   (BURGERS_TRAIN_REDUCED), with the kernels' launch counts
+11b. burgers_train_bf16 — the same with --bf16 on the bf16 conv kernels, cut
+                  to 8 iterations: their launch counts; one full-width SOL-04
+                  --bf16 train step against the JAX golden
+                  (tests/data/torch_port/burgers_train_step_sol04_bf16.npz),
+                  the plain path and cuDNN's bf16 conv; a SOL-32 step's
+                  bf16 launches
+11c. resume     — `burgers-train --conv kernel` for 11 epochs, and for 10
+                  then `--resume 10 --epochs 11`: the same parameters, bit
+                  for bit
 12. burgers_apply — `burgers-apply --conv kernel` through the CLI: the
                   Makefile's SOL-04 run_test of the test sim (199 steps) with
                   the trained artifacts/a3_b_sol04 net, after a warm-up run,
@@ -59,13 +71,16 @@ each printing one JSON line:
                   (tests/data/torch_port/burgers_train_step_sol04.npz)
 15. burgers_profile — where a SOL-04 training iteration's and an apply
                   step's time goes, with the conv kernels and with cuDNN
-16. karman_gen  — `karman-gen` through the CLI: the Makefile's hi-res training
-                  set (256x128, the 6 Re batched, multigrid pressure solve)
-                  cut to KARMAN_GEN_FRAMES frames from step 0
+16. karman_gen  — `karman-gen --thumb` through the CLI: the Makefile's hi-res
+                  training set (256x128, the 6 Re batched, multigrid pressure
+                  solve) cut to KARMAN_GEN_FRAMES frames from step 0
                   (KARMAN_GEN_REDUCED); steps 1, 5 and 20 of sims 0 and 5
                   against the JAX package's
-                  (tests/data/torch_port/karman_gen_hires_r128.npz), and a
-                  profile of its steps
+                  (tests/data/torch_port/karman_gen_hires_r128.npz), the
+                  thumbnails' count and one against the thumbnail rule, and
+                  a profile of its steps
+16b. evaluate   — `karman-apply` of the SOL-32 net from sim 0's frame 0, then
+                  `evaluate` against that sim on the card and on the CPU
 17. karman_gen_lores — the Makefile's lo-res source run for Re 160000 (64x32,
                   499 steps) from the last frame of sim 0 of that set, with
                   the FD-preconditioned kernel and with the plain CG kernel
@@ -118,6 +133,9 @@ TRAIN_SHAPES = [(3, 64, 32), (3, 64, 33), (3, 65, 32)]
 # train: the Makefile's SOL-32 run, cut to fit the script
 FIXTURE_DIR = os.path.join(REPO, "build", "smoke_fixture")
 TRAIN_OUT = os.path.join(REPO, "build", "smoke_train")
+# the train phase's --profile run: its own --tf and trace directory
+TRAIN_PROFILE_OUT = os.path.join(REPO, "build", "smoke_train_profile")
+TRAIN_TRACE = os.path.join(TRAIN_PROFILE_OUT, "trace")
 TRAIN_FRAMES = 40
 TRAIN_ITERS = 2 * (TRAIN_FRAMES - 32)  # 6 sims / batch 3 x (frames - msteps)
 TRAIN_REDUCED = {
@@ -147,7 +165,6 @@ BURGERS_TRAIN_REDUCED = {
     "epochs": "100 -> 1",
     "training set": "burgers-fdt-hires-set (seeds 0-9, -t 200) -> the same command with -t 40, "
                     "made by the port's burgers-gen in the burgers_gen phase",
-    "thumbnails": "--thumb dropped from burgers-gen (needs PIL; ROADMAP.md A7)",
 }
 
 # karman: the Makefile's hi-res set (karman-fdt-hires-set) and its lo-res
@@ -158,19 +175,21 @@ KARMAN_GEN_FRAMES = 21  # up to step 20, the last the golden holds
 KARMAN_GEN_REDUCED = {
     "simsteps": "1500 -> 21 frames, all kept (-s 999 -> -s 0): 20 steps from the initial "
                 "state, where the Makefile keeps frames 1000..1499 of 1,500",
-    "thumbnails": "--thumb dropped (needs PIL; ROADMAP.md A7)",
 }
 KARMAN_LORES_REDUCED = {
     "initial frame": "sim_000000 frame 1000 of the full hi-res set -> its frame "
                      f"{KARMAN_GEN_FRAMES - 1}, the last of the cut set",
     "Re": "the 6 runs of the Makefile's loop -> the first (Re 160000)",
-    "thumbnails": "--thumb dropped (needs PIL; ROADMAP.md A7)",
 }
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores, TF32 FLOP/s on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+# evaluate on the card against the CPU: float32 means of the same values in
+# another summation order
+EVAL_REL_TOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -285,13 +304,38 @@ def conv_wgrad_bound_ms(shape):
                   TF32_FLOPS)
 
 
+def conv_bf16_bound_ms(shape, with_skip: bool):
+    """x, w, bias (and skip) read and y written once in bf16; the
+    2*M*K*K*Cin*Cout operations of one bf16 product per term at the bf16
+    tensor-core rate."""
+    b, h, w, cin, cout, k = shape
+    m = b * h * w
+    byts = 2 * (m * cin + k * k * cin * cout + cout + m * cout * (2 if with_skip else 1))
+    return _bound(byts, 2 * m * k * k * cin * cout, BF16_FLOPS)
+
+
+def conv_wgrad_bf16_bound_ms(shape):
+    """x and dz read in bf16 and dW written in fp32 once; 2*M*K*K*Cin*Cout
+    operations at the bf16 rate."""
+    b, h, w, cin, cout, k = shape
+    m = b * h * w
+    return _bound(2 * (m * cin + m * cout) + 4 * k * k * cin * cout,
+                  2 * m * k * k * cin * cout, BF16_FLOPS)
+
+
 def kernel_wrappers():
     """Every kernel's wrapper (each counts its launches), by kernel name."""
     from solver_in_the_loop_torch.kernels import advect, cg, conv
 
     return {"tap_sum_fwd": advect.tap_sum_fwd, "tap_sum_bwd": advect.tap_sum_bwd,
             "pcg_solve": cg.pcg_solve, "cg_solve": cg.cg_solve, "conv_fwd": conv.conv_fwd,
-            "conv_wgrad": conv.conv_wgrad}
+            "conv_wgrad": conv.conv_wgrad, "conv_fwd_bf16": conv.conv_fwd_bf16,
+            "conv_wgrad_bf16": conv.conv_wgrad_bf16}
+
+
+def counts(**launches) -> dict:
+    """Launch counts of every kernel: those given, 0 for the others."""
+    return {name: launches.get(name, 0) for name in kernel_wrappers()}
 
 
 def reset_launches() -> None:
@@ -320,9 +364,18 @@ def phase_build():
     t0 = time.perf_counter()
     report = build.build_all(force=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": report})
-    spills = [ln for ln in report["conv"]["ptxas"]
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    require(not spills, f"the conv kernels spill registers: {spills}")
+    # no spill in the conv kernels, but for the bf16 forward at K = 7 (no net
+    # of the repo has a 7x7 conv): it spills 4 bytes, more with its tap loop
+    # rolled or its channel loop rolled (measured on the H100)
+    for name in ("conv", "conv_bf16"):
+        spills, entry = [], None
+        for ln in report[name]["ptxas"]:
+            if "Compiling entry function" in ln:
+                entry = ln
+            elif ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln
+                  and "conv_fwd_bf16_kernelILi7E" not in (entry or "")):
+                spills.append((entry, ln))
+        require(not spills, f"the {name} kernels spill registers: {spills}")
 
 
 def karman_rhs(batch_re, device, steps=30, res=32):
@@ -518,7 +571,9 @@ def phase_kernels(device):
     from solver_in_the_loop_torch.parity import (
         CG_ITER_TOL,
         CG_REL_TOL,
+        CONV_BF16_ULPS,
         CONV_FWD_REL_TOL,
+        CONV_WGRAD_BF16_REL_TOL,
         CONV_WGRAD_REL_TOL,
         PCG_ITER_TOL,
         PCG_REL_TOL,
@@ -554,6 +609,7 @@ def phase_kernels(device):
     cg_cases = cg_kernel_cases(device)
     fixed_iter = fixed_iter_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
+    bf16_cases, bf16_wgrad_cases = conv_bf16_kernel_cases(device)
     emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed on "
           "clamped offsets): F.grid_sample (bilinear, border padding, align_corners) forward "
           "and aten.grid_sampler_2d_backward, the same function on the offsets the solver "
@@ -561,16 +617,21 @@ def phase_kernels(device):
           "single PyTorch call computes their function; conv_fwd: F.conv2d (cuDNN, TF32 off) "
           "on the same NHWC data seen as NCHW, with the bias but not the skip or activation; "
           "conv_fwd as the input gradient: aten.convolution_backward, input gradient only; "
-          "conv_wgrad: aten.convolution_backward, weight gradient only",
+          "conv_wgrad: aten.convolution_backward, weight gradient only; the bf16 kernels: "
+          "the same calls on the bf16 tensors (cuDNN's bf16 conv)",
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
           "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+          "conv_fwd_bf16": bf16_cases, "conv_wgrad_bf16": bf16_wgrad_cases,
           "fixed_iter": fixed_iter,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
                          "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL,
                          "cg_rel": CG_REL_TOL, "cg_iters": CG_ITER_TOL,
-                         "conv_fwd_rel": CONV_FWD_REL_TOL, "conv_wgrad_rel": CONV_WGRAD_REL_TOL}})
+                         "conv_fwd_rel": CONV_FWD_REL_TOL, "conv_wgrad_rel": CONV_WGRAD_REL_TOL,
+                         "conv_bf16_ulps": CONV_BF16_ULPS,
+                         "conv_wgrad_bf16_rel": CONV_WGRAD_BF16_REL_TOL}})
     return {"tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
-            "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases}
+            "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+            "conv_fwd_bf16": bf16_cases, "conv_wgrad_bf16": bf16_wgrad_cases}
 
 
 def cg_kernel_cases(device):
@@ -755,6 +816,143 @@ def conv_kernel_cases(device):
     return fwd_cases, wgrad_cases
 
 
+# the bf16 convs of MarsMoon under --bf16 --conv kernel: (B, H, W, Cin, Cout,
+# K, act, skip, where) at the Burgers block shape and the karman shape, the
+# stems and heads, and a 3x3 conv; input and weight gradients at the same
+# (B, H, W, Cin, Cout, K) of the forward conv
+CONV_BF16_CASES = [
+    (5, 32, 32, 32, 32, 5, "leaky_relu", True, "burgers train: block conv2"),
+    (5, 32, 32, 32, 32, 5, "leaky_relu", False, "burgers train: block conv1"),
+    (5, 32, 32, 4, 32, 5, "leaky_relu", False, "burgers train: stem"),
+    (5, 32, 32, 32, 2, 5, "none", False, "burgers train: head"),
+    (3, 64, 32, 32, 32, 5, "leaky_relu", True, "karman train: block conv2"),
+    (3, 64, 32, 3, 32, 5, "leaky_relu", False, "karman train: stem"),
+    (5, 32, 32, 32, 32, 3, "relu", True, "3x3"),
+]
+CONV_BF16_GRAD_CASES = [
+    (5, 32, 32, 32, 32, 5, "burgers train: block"),
+    (5, 32, 32, 4, 32, 5, "burgers train: stem"),
+    (5, 32, 32, 32, 2, 5, "burgers train: head"),
+    (3, 64, 32, 32, 32, 5, "karman train: block"),
+    (5, 32, 32, 32, 32, 3, "3x3"),
+]
+
+
+def conv_bf16_launch(shape, dgrad: bool = False):
+    """The launch configuration csrc/conv_bf16.cu takes for a conv of `shape`
+    (B, H, W, Cin, Cout, K): the forward's grid, block and shared memory, and
+    the weight gradient's cluster."""
+    b, h, w, cin, cout, k = shape
+    if dgrad:
+        cin, cout = cout, cin
+    cc = min(-(-cin // 16) * 16, 32)
+    cs = cc + 8
+    fwd = {"grid": [b * -(-h // 4) * -(-w // 16), -(-cout // 16)], "block": 128,
+           "smem_bytes": 2 * ((4 + k - 1) * (16 + k - 1) * cs + k * k * 16 * cs)}
+    if dgrad:
+        return fwd
+    seg = min(-(-w // 16) * 16, 64)
+    per_stage = max(1, 256 // seg)
+    units = b * h * -(-w // seg)
+    ranks = max(1, min(8, -(-units // per_stage)))
+    wgrad = {"grid": [ranks, k * -(-cin // 16) * -(-cout // 16)], "cluster": ranks,
+             "block": 64 * k, "pixels_per_unit": seg, "units": units,
+             "smem_bytes": max(2 * per_stage * (seg + k - 1 + seg) * 24, 4 * 2 * k * 256)}
+    return fwd, wgrad
+
+
+def conv_bf16_kernel_cases(device):
+    """conv_fwd_bf16 (also as the input gradient) and conv_wgrad_bf16 against
+    their twins on the card, with their times, the twins', cuDNN's bf16 conv
+    and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from solver_in_the_loop_torch.kernels.conv import (
+        conv_fwd_bf16,
+        conv_fwd_plain,
+        conv_wgrad_bf16,
+        conv_wgrad_plain,
+    )
+    from solver_in_the_loop_torch.parity import (
+        CONV_BF16_ULPS,
+        CONV_WGRAD_BF16_REL_TOL,
+        bf16_errors,
+    )
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def inputs(b, h, w, cin, cout, k):
+        x = torch.randn((b, h, w, cin), generator=gen, device=device).to(bf16)
+        wt = (0.1 * torch.randn((cout, cin, k, k), generator=gen, device=device)).to(bf16)
+        bias = (0.1 * torch.randn((cout,), generator=gen, device=device)).to(bf16)
+        dz = torch.randn((b, h, w, cout), generator=gen, device=device).to(bf16)
+        return x, wt, bias, dz
+
+    fwd_cases = []
+    for *shape, act, with_skip, where in CONV_BF16_CASES:
+        x, wt, bias, skip = inputs(*shape)
+        skip = skip if with_skip else None
+        w = wt.permute(2, 3, 1, 0)
+        r = shape[5] // 2
+        got = conv_fwd_bf16(x, w, bias, skip, act, 0.3)
+        want = conv_fwd_plain(x, w, bias, skip, act, 0.3)
+        torch.cuda.synchronize()
+        case = {"shape": shape, "act": act, "skip": with_skip, "where": where, "dgrad": False,
+                "launch": conv_bf16_launch(shape)[0],
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "bf16_err": bf16_errors(got, want),
+                "deterministic": bool(torch.equal(got, conv_fwd_bf16(x, w, bias, skip, act, 0.3))),
+                "ms": time_ms(lambda: conv_fwd_bf16(x, w, bias, skip, act, 0.3), 200),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10),
+                "library_ms": time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias,
+                                                       padding=r), 200)}
+        case["bound_ms"], case["bound_by"] = conv_bf16_bound_ms(shape, with_skip)
+        fwd_cases.append(case)
+        require(case["bf16_err"] <= CONV_BF16_ULPS, f"conv_fwd_bf16 {case} differs from its twin")
+        require(case["deterministic"], f"conv_fwd_bf16 {case} is not deterministic")
+
+    wgrad_cases = []
+    for *shape, where in CONV_BF16_GRAD_CASES:
+        x, wt, _, dz = inputs(*shape)
+        w = wt.permute(2, 3, 1, 0).transpose(2, 3)  # the input gradient's kernel
+        got = conv_fwd_bf16(dz, w, flip=True)
+        want = conv_fwd_plain(dz, w, flip=True)
+        b, h, wd, cin, cout, k = shape
+        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+        case = {"shape": [b, h, wd, cout, cin, k], "act": "none", "skip": False, "where": where,
+                "dgrad": True, "launch": conv_bf16_launch(shape, dgrad=True),
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "bf16_err": bf16_errors(got, want),
+                "ms": time_ms(lambda: conv_fwd_bf16(dz, w, flip=True), 200),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10),
+                "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                    dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+                    [True, False, False]), 200)}
+        case["bound_ms"], case["bound_by"] = conv_bf16_bound_ms(case["shape"], False)
+        fwd_cases.append(case)
+        require(case["bf16_err"] <= CONV_BF16_ULPS, f"conv_fwd_bf16 (dgrad) {case} differs")
+
+        got = conv_wgrad_bf16(x, dz, k)
+        want = conv_wgrad_plain(x, dz, k)
+        torch.cuda.synchronize()
+        case = {"shape": shape, "where": where, "launch": conv_bf16_launch(shape)[1],
+                "max_abs_err": float((got - want).abs().max()), "rel_err": rel_err(got, want),
+                "deterministic": bool(torch.equal(got, conv_wgrad_bf16(x, dz, k))),
+                "ms": time_ms(lambda: conv_wgrad_bf16(x, dz, k), 200),
+                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10),
+                "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                    dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+                    [False, True, False]), 200)}
+        case["bound_ms"], case["bound_by"] = conv_wgrad_bf16_bound_ms(shape)
+        wgrad_cases.append(case)
+        require(case["rel_err"] <= CONV_WGRAD_BF16_REL_TOL,
+                f"conv_wgrad_bf16 {case} differs from its twin")
+        require(case["deterministic"], f"conv_wgrad_bf16 {case} is not deterministic")
+    return fwd_cases, wgrad_cases
+
+
 def apply_argv(re_list, simsteps: int):
     """karman-apply's arguments for the SOL-32 rollout at res 32 from the
     built-in initial state."""
@@ -800,8 +998,7 @@ def phase_apply(re_list):
             "finite": finite, "scenes": scenes,
             "max_abs_u": float(frames["u"].abs().max()), "max_abs_v": float(frames["v"].abs().max())}
     emit(line)
-    require(launches == {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": steps,
-                         "cg_solve": 0, "conv_fwd": 0, "conv_wgrad": 0},
+    require(launches == counts(tap_sum_fwd=3 * steps, pcg_solve=steps),
             f"launch counts {launches} != 3x{steps} tap-sum, no backward, {steps} pcg, "
             "no conv kernel (--conv library)")
     require(finite, "non-finite frames in the rollout")
@@ -935,7 +1132,11 @@ def _percentiles(values):
 def phase_train():
     """The slice's main path: `karman-train` through the CLI entry point at
     the SOL-32 width, every launch count set to 0 just before it, then
-    `karman-apply` for 20 steps from the checkpoint it wrote."""
+    `karman-apply` for 20 steps from the checkpoint it wrote; and the same
+    command with --profile and no epoch, whose one traced step writes a
+    trace. (Its update is kept and taken at the full learning rate, before
+    any warm-up epoch, as the JAX CLI takes it: from this seed's glorot net
+    that step overflows the unroll, so it stays out of the trained run.)"""
     from unittest import mock
 
     import numpy as np
@@ -943,6 +1144,7 @@ def phase_train():
 
     from solver_in_the_loop_torch import __main__ as cli
     from solver_in_the_loop_torch.kernels import cg
+    from solver_in_the_loop_torch.utils import profiling
 
     fixture = write_train_fixture()
     shutil.rmtree(TRAIN_OUT, ignore_errors=True)
@@ -972,9 +1174,8 @@ def phase_train():
     # and again in the recompute; the backward of u's and v's (density does
     # not reach the loss), not for step 0, whose inputs are data; one solve
     # per step forward and one adjoint per step but step 0
-    per_iter = {"tap_sum_fwd": 2 * 3 * msteps, "tap_sum_bwd": 2 * (msteps - 1),
-                "pcg_solve": msteps + (msteps - 1), "cg_solve": 0, "conv_fwd": 0,
-                "conv_wgrad": 0}
+    per_iter = counts(tap_sum_fwd=2 * 3 * msteps, tap_sum_bwd=2 * (msteps - 1),
+                      pcg_solve=msteps + (msteps - 1))
     solves = torch.stack(record).cpu().numpy().reshape(iters, per_iter["pcg_solve"])
     fwd_iters, adj_iters = solves[:, :msteps], solves[:, msteps:]
     frames, _ = run_cli_argv(["karman-apply", "-o", OUT_DIR, "--model",
@@ -983,6 +1184,14 @@ def phase_train():
                               "-t", "20", "--re", "240000"])
     apply_finite = all(bool(torch.isfinite(v).all()) for k, v in frames.items()
                        if k != "rollout_seconds")
+    shutil.rmtree(TRAIN_PROFILE_OUT, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["karman-train", *train_argv(), "--tf", TRAIN_PROFILE_OUT, "--epochs", "0",
+              "--profile", TRAIN_TRACE])
+    profile_seconds = time.perf_counter() - t0
+    profile_launches = read_launches()
+    traces = profiling.trace_files(TRAIN_TRACE)
     applied = iters - result.notfinite
     line = {"phase": "train", "argv": train_argv(), "reduced": TRAIN_REDUCED, "fixture": fixture,
             "iterations": iters, "seconds": seconds,
@@ -997,6 +1206,8 @@ def phase_train():
             "predicted_per_iter": per_iter,
             "cg_iters_forward": _percentiles(fwd_iters), "cg_iters_adjoint": _percentiles(adj_iters),
             "max_memory_allocated_bytes": peak,
+            "profile_run": {"seconds": profile_seconds, "launches": profile_launches,
+                            "trace": {os.path.basename(t): os.path.getsize(t) for t in traces}},
             "checkpoint": sorted(os.listdir(TRAIN_OUT)),
             "apply_from_checkpoint": {"steps": 19, "finite": apply_finite,
                                       "max_abs_u": float(frames["u"].abs().max())}}
@@ -1009,6 +1220,9 @@ def phase_train():
             f"the last loss {result.losses[-1]} exceeds the first {result.losses[0]}")
     require(launches == {k: v * iters for k, v in per_iter.items()},
             f"launch counts {launches} != {per_iter} per iteration x {iters}")
+    require(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+            f"--profile wrote {traces} to {TRAIN_TRACE}")
+    require(profile_launches == per_iter, f"the --profile run's launches {profile_launches}")
     require(np.array_equal(fwd_iters, np.asarray(result.cg_iters)),
             "the recorded forward solves are not the trainer's")
     for name in ("model.msgpack", "dataStats.json"):
@@ -1144,9 +1358,9 @@ def phase_train_profile(device, iters=2):
 
 
 def burgers_gen_argv(out: str, seed: int, frames: int):
-    """The Makefile's burgers-gen command for one sim (without --thumb)."""
+    """The Makefile's burgers-gen command for one sim."""
     return ["burgers-gen", "-o", out, "-r", "128", "-l", "32", "--dt", "0.1", "-s", "30",
-            "-t", str(frames), "--seed", str(seed)]
+            "-t", str(frames), "--seed", str(seed), "--thumb"]
 
 
 def phase_burgers_gen():
@@ -1168,7 +1382,7 @@ def phase_burgers_gen():
     set_seconds = time.perf_counter() - t0
     t0 = time.perf_counter()
     test = cli.main(["burgers-gen", "-o", BURGERS_TEST, *par.BURGERS_GEN_ARGV,
-                     "-t", str(BURGERS_TEST_FRAMES)])
+                     "-t", str(BURGERS_TEST_FRAMES), "--thumb"])
     test_seconds = time.perf_counter() - t0
     launches = read_launches()
     frame0 = read_array(test.frame_path("velo", 0))
@@ -1176,7 +1390,10 @@ def phase_burgers_gen():
         err = float(np.abs(frame0 - g["velo_hi"]).max() / np.abs(g["velo_hi"]).max())
     scenes = Scene.list(BURGERS_SET)
     last = read_array(test.frame_path("velo", BURGERS_TEST_FRAMES - 1))
+    thumbs = {d: sum(len(files) for _, _, files in os.walk(os.path.join(d, "thumb")))
+              for d in (BURGERS_SET, BURGERS_TEST)}
     line = {"phase": "burgers_gen", "set_sims": len(scenes), "set_frames": BURGERS_SET_FRAMES,
+            "thumbs_set": thumbs[BURGERS_SET], "thumbs_test": thumbs[BURGERS_TEST],
             "set_seconds": set_seconds, "test_frames": len(test.frames("velo")),
             "test_seconds": test_seconds,
             "seconds_per_step_test": test_seconds / (BURGERS_TEST_FRAMES + 30 - 1),
@@ -1190,6 +1407,9 @@ def phase_burgers_gen():
     require(line["test_frames"] == BURGERS_TEST_FRAMES, "the test sim's frames are incomplete")
     require(err <= par.BURGERS_GEN_REL_TOL, f"burgers-gen frame 0 differs from JAX's by {err}")
     require(line["last_frame_finite"], "the test sim's last frame is not finite")
+    # four fields (velU, velV, frcU, frcV) of every written frame
+    require(thumbs == {BURGERS_SET: 4 * len(BURGERS_SEEDS) * BURGERS_SET_FRAMES,
+                       BURGERS_TEST: 4 * BURGERS_TEST_FRAMES}, f"thumbnails written: {thumbs}")
 
 
 def burgers_train_argv():
@@ -1222,8 +1442,8 @@ def phase_burgers_train():
     # and again in the recompute; their backward for steps 1..m-1 (step 0
     # advects data); 12 convs per step, their input gradients but the step-0
     # stem's, and 12 weight gradients per step; no solve
-    per_iter = {"tap_sum_fwd": 2 * 2 * m, "tap_sum_bwd": 2 * (m - 1), "pcg_solve": 0,
-                "cg_solve": 0, "conv_fwd": 12 * m + 12 * m - 1, "conv_wgrad": 12 * m}
+    per_iter = counts(tap_sum_fwd=2 * 2 * m, tap_sum_bwd=2 * (m - 1),
+                      conv_fwd=12 * m + 12 * m - 1, conv_wgrad=12 * m)
     line = {"phase": "burgers_train", "argv": burgers_train_argv(),
             "reduced": BURGERS_TRAIN_REDUCED, "iterations": iters, "seconds": seconds,
             "sec_per_iter_median_after_first": float(np.median(result.iter_seconds[1:])),
@@ -1245,6 +1465,130 @@ def phase_burgers_train():
     for name in ("model.msgpack", "dataStats.json", "model_epoch0001.msgpack"):
         require(os.path.isfile(os.path.join(BURGERS_TF, name)), f"{name} was not written")
     return launches
+
+
+BF16_FRAMES = 8  # burgers_train_bf16: (10 sims / batch 5) x (8 - msteps 4) = 8 iterations
+BURGERS_TF_BF16 = os.path.join(REPO, "build", "smoke_burgers_tf_bf16")
+
+
+def phase_burgers_train_bf16(device):
+    """`burgers-train --bf16 --conv kernel` through the CLI on the cut set,
+    every launch count set to 0 just before it: the bf16 conv kernels'
+    launches, finite losses, an update applied; then one full-width SOL-04
+    train step with --bf16 on the kernels against the JAX golden (the Pallas
+    conv in interpret mode), the plain path and cuDNN's bf16 conv, and one
+    SOL-32 step's bf16 launches."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    bf16 = torch.bfloat16
+    argv = ["burgers-train", "--train", BURGERS_SET, "--tf", BURGERS_TF_BF16,
+            "--epochs", "1", "--lr", "0.0001", "--dt", "0.1", "-t", str(BF16_FRAMES), "-s", "4",
+            "-m", str(BURGERS_MSTEPS), "-n", "10", "-b", "5", "--seed", "0", "--conv", "kernel",
+            "--bf16"]
+    shutil.rmtree(BURGERS_TF_BF16, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    iters = len(result.losses)
+    m = BURGERS_MSTEPS
+    # as burgers_train counts them, on the bf16 kernels
+    per_iter = counts(tap_sum_fwd=2 * 2 * m, tap_sum_bwd=2 * (m - 1),
+                      conv_fwd_bf16=12 * m + 12 * m - 1, conv_wgrad_bf16=12 * m)
+
+    reset_launches()
+    kernel = par.parity_summary(par.burgers_parity_step(device, "kernel", compute_dtype=bf16))
+    step_launches = read_launches()
+    with par.plain_path():
+        plain = par.parity_summary(par.burgers_parity_step(device, "kernel", compute_dtype=bf16))
+    library = par.parity_summary(par.burgers_parity_step(device, "library", compute_dtype=bf16))
+    golden = par.train_golden_summary(par.BURGERS_TRAIN_GOLDEN_BF16)
+    reset_launches()
+    karman = par.parity_step(device, "kernel", compute_dtype=bf16)
+    karman_launches = read_launches()
+    line = {"phase": "burgers_train_bf16", "argv": argv,
+            "reduced": {"simsteps": f"200 -> {BF16_FRAMES} frames per sim: {2 * (BF16_FRAMES - m)} "
+                                    "iterations, on the burgers_gen phase's set",
+                        "epochs": "100 -> 1"},
+            "iterations": iters, "seconds": seconds,
+            "sec_per_iter_median_after_first": float(np.median(result.iter_seconds[1:])),
+            "first_loss": result.losses[0], "last_loss": result.losses[-1],
+            "guard_skipped": result.notfinite, "updates_applied": iters - result.notfinite,
+            "launches": launches, "predicted_per_iter": per_iter,
+            "tolerances": par.TRAIN_PARITY_TOL_BF16, "kernel_loss": kernel[0],
+            "jax_loss": golden[0], "step_launches": step_launches,
+            "vs_jax_golden": par.parity_errors(kernel, golden),
+            "vs_plain": par.parity_errors(kernel, plain),
+            "library_vs_jax_golden": par.parity_errors(library, golden),
+            "karman_sol32_step": {"loss": karman[0], "launches": karman_launches}}
+    emit(line)
+    require(iters == 2 * (BF16_FRAMES - m), f"{iters} bf16 iterations")
+    require(all(np.isfinite(result.losses)), "a bf16 training loss is not finite")
+    require(iters - result.notfinite >= 1, "the non-finite guard skipped every bf16 update")
+    require(launches == {k: v * iters for k, v in per_iter.items()},
+            f"bf16 launch counts {launches} != {per_iter} per iteration x {iters}")
+    require(step_launches == per_iter, f"bf16 parity step launches {step_launches}")
+    for against in ("vs_jax_golden", "vs_plain"):
+        for key, tol in par.TRAIN_PARITY_TOL_BF16.items():
+            require(line[against][key] <= tol, f"bf16 train parity {against} {key}: "
+                    f"{line[against][key]} > {tol}")
+    msteps = par.PARITY_MSTEPS
+    require(np.isfinite(karman[0]) and karman_launches["conv_fwd_bf16"] == 2 * 12 * msteps - 1
+            and karman_launches["conv_wgrad_bf16"] == 12 * msteps,
+            f"bf16 launches of the karman step {karman_launches}")
+    return launches, karman_launches
+
+
+RESUME_DIR = os.path.join(REPO, "build", "smoke_resume")
+RESUME_FRAMES = 6  # (5 sims / batch 5) x (6 - msteps 4) = 2 iterations per epoch
+
+
+def phase_resume():
+    """`burgers-train --conv kernel` three ways on the cut set: 11 epochs
+    uninterrupted, 10 epochs, and those resumed with --resume 10 --epochs 11;
+    the resumed run must end on the uninterrupted run's parameters, bit for
+    bit (the kernels are deterministic), with the same losses."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch.train import checkpoint as ckpt
+
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+
+    def train(tf, *extra):
+        return cli.main(["burgers-train", "--train", BURGERS_SET, "--tf",
+                         os.path.join(RESUME_DIR, tf), "--lr", "0.0001", "--dt", "0.1",
+                         "-t", str(RESUME_FRAMES), "-s", "4", "-m", str(BURGERS_MSTEPS), "-n", "5",
+                         "-b", "5", "--seed", "0", "--conv", "kernel", *extra])
+
+    t0 = time.perf_counter()
+    whole = train("whole", "--epochs", "11")
+    train("cut", "--epochs", "10")
+    resumed = train("cut", "--resume", "10", "--epochs", "11")
+    seconds = time.perf_counter() - t0
+    trees = [ckpt._flatten(ckpt.read_msgpack(os.path.join(RESUME_DIR, tf, "model.msgpack"))
+                           ["params"]["params"]) for tf in ("whole", "cut")]
+    equal = trees[0].keys() == trees[1].keys() and all(
+        np.array_equal(trees[0][k], trees[1][k]) for k in trees[0])
+    epoch10 = ckpt.read_msgpack(os.path.join(RESUME_DIR, "cut", "model_epoch0010.msgpack"))
+    line = {"phase": "resume", "seconds": seconds, "iterations_whole": len(whole.losses),
+            "iterations_resumed": len(resumed.losses),
+            "last_losses": [whole.losses[-1], resumed.losses[-1]], "params_bit_equal": equal,
+            "epoch10_keys": sorted(epoch10),
+            "max_abs_param_diff": max(float(np.abs(trees[0][k] - trees[1][k]).max())
+                                      for k in trees[0])}
+    emit(line)
+    require("opt_state" in epoch10, "the epoch checkpoint holds no optimizer state")
+    require(len(resumed.losses) * 11 == len(whole.losses), "the resumed run's iterations")
+    require(resumed.losses == whole.losses[-len(resumed.losses):],
+            "the resumed run's losses differ from the uninterrupted run's")
+    require(equal, "the resumed run ends on other parameters than the uninterrupted run")
 
 
 def burgers_apply_argv(conv: str, simsteps: int):
@@ -1282,8 +1626,7 @@ def phase_burgers_apply():
         require(finite and scenes == 1, f"burgers-apply --conv {conv}: finite {finite}, "
                 f"{scenes} scenes")
     emit(line)
-    want = {"tap_sum_fwd": 2 * steps, "tap_sum_bwd": 0, "pcg_solve": 0, "cg_solve": 0,
-            "conv_fwd": 12 * steps, "conv_wgrad": 0}
+    want = counts(tap_sum_fwd=2 * steps, conv_fwd=12 * steps)
     require(line["kernel"]["launches"] == want,
             f"burgers-apply launch counts {line['kernel']['launches']} != {want}")
     return line["kernel"]["launches"]
@@ -1472,13 +1815,14 @@ def phase_karman_gen(device):
     from solver_in_the_loop_torch import __main__ as cli
     from solver_in_the_loop_torch import parity as par
     from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+    from solver_in_the_loop_torch.io import thumbs
     from solver_in_the_loop_torch.io.scene import Scene
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.rollout import karman_rollout
 
     shutil.rmtree(KARMAN_SET, ignore_errors=True)
     argv = ["karman-gen", "-o", KARMAN_SET, *par.KARMAN_HIRES_ARGV,
-            "-t", str(KARMAN_GEN_FRAMES), "-s", "0"]
+            "-t", str(KARMAN_GEN_FRAMES), "-s", "0", "--thumb"]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -1497,6 +1841,11 @@ def phase_karman_gen(device):
         vs_golden[f"sim_{sim}"] = errs
         worst = max(worst, w)
     scenes = Scene.list(KARMAN_SET)
+    # one thumbnail against the thumbnail rule on its frame
+    last_sim = Scene(os.path.join(KARMAN_SET, f"sim_{len(par.KARMAN_HIRES_RE) - 1:06d}"))
+    png = os.path.join(thumbs.thumb_dir_for(last_sim.path), f"velU_{steps:06d}.png")
+    thumb_ok = bool(np.array_equal(thumbs.png_pixels(png), thumbs.thumb_pixels(
+        last_sim.read_staggered("velo", steps)[0][0], 10000.0)))
 
     # where a step's time goes: 2 steps from the last frame, warm-started cold
     dom = karman_domain(128, 100.0)
@@ -1510,7 +1859,8 @@ def phase_karman_gen(device):
             "shape": list(frames["dens"].shape[1:]), "steps": steps,
             "seconds": seconds, "rollout_seconds": frames["rollout_seconds"],
             "seconds_per_step": frames["rollout_seconds"] / steps,
-            "write_seconds": frames["write_seconds"], "launches": launches,
+            "write_seconds": frames["write_seconds"], "thumbs": frames["thumbs"],
+            "thumb_equals_rule": thumb_ok, "launches": launches,
             "mg_iters_per_step": _percentiles(iters), "mg_iters_first_steps": iters[:8].tolist(),
             "finite": finite, "scenes": len(scenes),
             "frames_per_scene": len(scenes[0].frames("dens")) if scenes else 0,
@@ -1523,19 +1873,58 @@ def phase_karman_gen(device):
     require(finite, "non-finite frames in the hi-res karman-gen")
     require(len(scenes) == 6 and line["frames_per_scene"] == KARMAN_GEN_FRAMES,
             f"{len(scenes)} scenes of {line['frames_per_scene']} frames")
+    # dens, velU and velV of every frame, frame 0 included
+    require(frames["thumbs"] == 3 * 6 * KARMAN_GEN_FRAMES, f"{frames['thumbs']} thumbnails")
+    require(thumb_ok, f"{png} is not the thumbnail rule on its frame")
     require(worst <= par.ROLLOUT_REL_TOL, f"hi-res karman-gen vs the JAX golden: {worst}")
     return launches
 
 
+EVAL_DIR = os.path.join(REPO, "build", "smoke_evaluate")
+
+
+def phase_evaluate():
+    """The accuracy metric on the card: karman-apply with the trained SOL-32
+    net from frame 0 of sim 0 of the karman_gen phase's hi-res frames (as the
+    Makefile's run_test starts from frame 1000), KARMAN_GEN_FRAMES - 1 steps,
+    then `evaluate` against that sim on the card and with --device cpu: the
+    two JSON lines agree within EVAL_REL_TOL."""
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    sim = os.path.join(KARMAN_SET, "sim_000000")
+    cli.main(["karman-apply", "-o", EVAL_DIR, "--model", os.path.join(CKPT, "model.msgpack"),
+              "--stats", os.path.join(CKPT, "dataStats.json"),
+              "--initdH", os.path.join(sim, "dens_000000.npz"),
+              "--initvH", os.path.join(sim, "velo_000000.npz"), "-d", "4", "-r", "32", "-l", "100",
+              "--re", str(int(par.KARMAN_HIRES_RE[0])), "-t", str(KARMAN_GEN_FRAMES)])
+    argv = ["evaluate", "--run", os.path.join(EVAL_DIR, "sim_000000"), "--ref", sim,
+            "--ref-offset", "0", "--scale", "4", "--steps", str(KARMAN_GEN_FRAMES - 1)]
+    t0 = time.perf_counter()
+    card = cli.main(argv)
+    card_seconds = time.perf_counter() - t0
+    cpu = cli.main([*argv, "--device", "cpu"])
+    pairs = list(zip([card["mae_mean"], card["mae_final"], *card["mae_per_step_head"]],
+                     [cpu["mae_mean"], cpu["mae_final"], *cpu["mae_per_step_head"]]))
+    worst = max(abs(a - b) / abs(b) for a, b in pairs)
+    line = {"phase": "evaluate", "argv": argv, "card": card, "cpu": cpu,
+            "card_seconds": card_seconds, "worst_rel_diff": worst, "tolerance": EVAL_REL_TOL}
+    emit(line)
+    require(card["steps"] == cpu["steps"] == KARMAN_GEN_FRAMES - 1, f"evaluate steps {line}")
+    require(worst <= EVAL_REL_TOL, f"evaluate on the card and the CPU differ by {worst}")
+
+
 def lores_argv(precon: str):
-    """The Makefile's karman-fdt-lores-set command for Re 160000 (without
-    --thumb), from the last frame of sim 0 of the cut hi-res set."""
+    """The Makefile's karman-fdt-lores-set command for Re 160000, from the
+    last frame of sim 0 of the cut hi-res set."""
     sim = os.path.join(KARMAN_SET, "sim_000000")
     last = KARMAN_GEN_FRAMES - 1
     return ["karman-gen", "-o", os.path.join(KARMAN_LORES, precon), "-r", "32", "-l", "100",
             "--re", "160000", "--seed", "0", "--skipsteps", "0", "-t", "500", "-d", "4",
             "--initdH", os.path.join(sim, f"dens_{last:06d}.npz"),
-            "--initvH", os.path.join(sim, f"velo_{last:06d}.npz"), "--pressure-precon", precon]
+            "--initvH", os.path.join(sim, f"velo_{last:06d}.npz"), "--pressure-precon", precon,
+            "--thumb"]
 
 
 def phase_karman_gen_lores():
@@ -1598,8 +1987,7 @@ def phase_apply_cg():
         entry = {"seconds_per_step": frames["rollout_seconds"] / steps,
                  "rollout_seconds": frames["rollout_seconds"], "launches": launches,
                  "cg_iters": _percentiles(iters), "finite": finite, "scenes": scenes}
-        want = {"tap_sum_fwd": 3 * steps, "tap_sum_bwd": 0, "pcg_solve": 0, "cg_solve": steps,
-                "conv_fwd": 0, "conv_wgrad": 0}
+        want = counts(tap_sum_fwd=3 * steps, cg_solve=steps)
         require(launches == want, f"apply_cg at batch {len(re_list)}: {launches} != {want}")
         require(finite and scenes == len(re_list), f"apply_cg at batch {len(re_list)}: "
                 f"finite {finite}, {scenes} scenes")
@@ -1686,8 +2074,8 @@ def phase_train_parity_cg(device):
     plain = par.parity_summary(plain_step)
     golden = par.train_golden_summary()
     msteps = par.PARITY_MSTEPS
-    want = {"tap_sum_fwd": 2 * 3 * msteps, "tap_sum_bwd": 2 * (msteps - 1), "pcg_solve": 0,
-            "cg_solve": msteps + (msteps - 1), "conv_fwd": 0, "conv_wgrad": 0}
+    want = counts(tap_sum_fwd=2 * 3 * msteps, tap_sum_bwd=2 * (msteps - 1),
+                  cg_solve=msteps + (msteps - 1))
     line = {"phase": "train_parity_cg", "tolerances": par.TRAIN_PARITY_TOL,
             "kernel_loss": kernel[0], "plain_loss": plain[0], "jax_loss": golden[0],
             "launches": launches, "predicted": want,
@@ -1774,11 +2162,15 @@ def main() -> int:
     timed("train_profile", phase_train_profile, device)
     timed("burgers_gen", phase_burgers_gen)
     burgers_train_launches = timed("burgers_train", phase_burgers_train)
+    bf16_launches, karman_bf16_launches = timed("burgers_train_bf16", phase_burgers_train_bf16,
+                                                device)
+    timed("resume", phase_resume)
     burgers_apply_launches = timed("burgers_apply", phase_burgers_apply)
     timed("burgers_parity", phase_burgers_parity)
     timed("burgers_train_parity", phase_burgers_train_parity, device)
     timed("burgers_profile", phase_burgers_profile, device)
     gen_launches = timed("karman_gen", phase_karman_gen, device)
+    timed("evaluate", phase_evaluate)
     lores_fd_launches, lores_cg_launches = timed("karman_gen_lores", phase_karman_gen_lores)
     apply_cg_launches = timed("apply_cg", phase_apply_cg)
     train_cg_launches = timed("train_parity_cg", phase_train_parity_cg, device)
@@ -1799,7 +2191,11 @@ def main() -> int:
             ("conv_fwd", "conv.cu", "conv_kernel.py:123",
              at("conv_fwd", (5, 32, 32, 32, 32, 5), act="leaky_relu", skip=True)),
             ("conv_wgrad", "conv.cu", "conv_kernel.py:191",
-             at("conv_wgrad", (5, 32, 32, 32, 32, 5)))]
+             at("conv_wgrad", (5, 32, 32, 32, 32, 5))),
+            ("conv_fwd_bf16", "conv_bf16.cu", "conv_kernel.py:123",
+             at("conv_fwd_bf16", (5, 32, 32, 32, 32, 5), act="leaky_relu", skip=True)),
+            ("conv_wgrad_bf16", "conv_bf16.cu", "conv_kernel.py:191",
+             at("conv_wgrad_bf16", (5, 32, 32, 32, 32, 5)))]
     # the per-element TPU kernels that the same CUDA kernel replaces at batch 1
     per_element = {"pcg_solve": "cg_kernel.py:180", "cg_solve": "cg_kernel.py:235"}
     # the main path of each kernel: karman training for the tap-sum and the
@@ -1807,7 +2203,8 @@ def main() -> int:
     # the preconditioner off for the CG
     main_path = {"tap_sum_fwd": train_launches, "tap_sum_bwd": train_launches,
                  "pcg_solve": train_launches, "cg_solve": lores_cg_launches,
-                 "conv_fwd": burgers_train_launches, "conv_wgrad": burgers_train_launches}
+                 "conv_fwd": burgers_train_launches, "conv_wgrad": burgers_train_launches,
+                 "conv_fwd_bf16": bf16_launches, "conv_wgrad_bf16": bf16_launches}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"solver_in_the_loop_torch/csrc/{src}",
          "replaces": f"solver_in_the_loop_tpu/ops/pallas/{tpu}",
@@ -1824,7 +2221,9 @@ def main() -> int:
                               "karman_apply_b1_cg": apply_cg_launches[name],
                               "karman_train_step_cg": train_cg_launches[name],
                               "karman_apply_b9_fd": b9_fd_launches[name],
-                              "karman_apply_b9_cg": b9_cg_launches[name]},
+                              "karman_apply_b9_cg": b9_cg_launches[name],
+                              "burgers_train_bf16": bf16_launches[name],
+                              "karman_train_step_bf16": karman_bf16_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -2,9 +2,9 @@
 
     python -m solver_in_the_loop_torch <command> [args...]
 
-The port covers the karman and Burgers data generation, training and serving
-paths so far; the other commands of `python -m solver_in_the_loop_tpu` (PRE,
-evaluation) follow as their slices are ported.
+The port covers the karman and Burgers data generation, training, serving
+and evaluation paths so far; the PRE commands of `python -m
+solver_in_the_loop_tpu` follow as their slices are ported.
 """
 
 from __future__ import annotations
@@ -19,13 +19,15 @@ COMMANDS = {
     "burgers-gen": ("solver_in_the_loop_torch.apps.burgers_gen", "burgers data generation"),
     "burgers-train": ("solver_in_the_loop_torch.apps.burgers_train", "burgers SOL/NON training"),
     "burgers-apply": ("solver_in_the_loop_torch.apps.burgers_apply", "burgers test rollout"),
+    "evaluate": ("solver_in_the_loop_torch.apps.evaluate", "rollout MAE vs hi-res reference"),
 }
 
 
 def main(argv=None):
     """Run one command; returns what the command's main returns (the apply
     commands and karman-gen: their frames; the train commands: their
-    TrainResult; burgers-gen: its Scene), 0 for --help and 2 for an unknown
+    TrainResult; burgers-gen: its Scene; evaluate: its JSON line as a dict),
+    0 for --help and 2 for an unknown
     command."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):

@@ -9,8 +9,9 @@ Port of solver_in_the_loop_tpu/apps/burgers_gen.py with the same flags plus
 
 The forces advance in closed form (phase(t) = phase0 + t*dt*omega), or are
 replayed from hi-res force frames (`--loadfH`); loop step i (1-based) writes
-frame i - skipsteps once i >= skipsteps. `--thumb` needs PIL and raises
-NotImplementedError (ROADMAP.md A7).
+frame i - skipsteps once i >= skipsteps, on the frame writer's thread pool
+(io/npz_pool.py). `--thumb` writes a PNG of every written frame's velU, velV,
+frcU and frcV (x 100000) to <output>/thumb/sim_%06d/ (io/thumbs.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import argparse
 import glob as _glob
 import logging
+import os
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from solver_in_the_loop_torch.core.grids import StaggeredGrid
 from solver_in_the_loop_torch.core.random_fields import randfreq_staggered
 from solver_in_the_loop_torch.core.resample import downsample_staggered
 from solver_in_the_loop_torch.io import scene as scene_io
+from solver_in_the_loop_torch.io import thumbs
 from solver_in_the_loop_torch.io.scene import Scene
 from solver_in_the_loop_torch.physics.burgers import (
     BurgersFlow,
@@ -82,9 +85,6 @@ def read_forces(pattern: str, count: int, scale: int, device):
 
 def run(args):
     """Generate one scene; returns it."""
-    if args.thumb:
-        raise NotImplementedError("--thumb is not ported: it needs PIL, which the card's "
-                                  "machine lacks (ROADMAP.md A7)")
     device = resolve_device(args.device)
     rng = np.random.RandomState(args.seed)
     dom = burgers_domain(args.res, args.len)
@@ -112,18 +112,26 @@ def run(args):
         f0 = sample_force_sum(forces, dom, device=device)
 
     uu, vv, fu, fv = (frames[k].cpu().numpy() for k in ("u", "v", "fu", "fv"))
+    start = [t[0].cpu().numpy() for t in (v0.u, v0.v, f0.u, f0.v)]  # frame 0's u, v, fu, fv
     sc = Scene.create(args.output)
     sc.write_params(vars(args).copy())
     with scene_io.scene_run_log(sc.path):
         log.info("params: %s", vars(args))
         log.info("writing %s", sc.path)
         if args.skipsteps == 0:
-            sc.write_staggered("velo", 0, v0.u[:1].cpu().numpy(), v0.v[:1].cpu().numpy())
-            sc.write_staggered("forc", 0, f0.u[:1].cpu().numpy(), f0.v[:1].cpu().numpy())
+            sc.write_staggered("velo", 0, start[0][None], start[1][None])
+            sc.write_staggered("forc", 0, start[2][None], start[3][None])
         keep = [t for t in range(uu.shape[0]) if t + 1 >= max(args.skipsteps, 1)]
         frame_ids = [t + 1 - args.skipsteps for t in keep]
         sc.write_staggered_batch("velo", frame_ids, uu[keep, 0], vv[keep, 0])
         sc.write_staggered_batch("forc", frame_ids, fu[keep, 0], fv[keep, 0])
+        if args.thumb:
+            kept = [(0, *start)] if args.skipsteps == 0 else []
+            kept += [(f, uu[t, 0], vv[t, 0], fu[t, 0], fv[t, 0]) for t, f in zip(keep, frame_ids)]
+            td = thumbs.thumb_dir_for(sc.path)
+            thumbs.save_thumbs((field, 100000.0, os.path.join(td, f"{name}_{f:06d}.png"))
+                               for f, *fields in kept
+                               for name, field in zip(("velU", "velV", "frcU", "frcV"), fields))
     return sc
 
 

@@ -9,11 +9,12 @@ Makefile (`burgers-fdt-sol04`; `burgers-fdt-non` is the same with -m 1):
         --tf OUT/tf --log OUT/tf/run.log --epochs 100 --lr 0.0001 \
         --dt 0.1 -t 200 -s 4 -m 4 -n 10 -b 5 --seed 0
 
-It writes OUT/tf/dataStats.json at the start, model_epoch%04d.msgpack after
-the first epoch and every 10 epochs, and model.msgpack at the end, in the
-JAX package's format. Flags of the JAX CLI that this port does not implement
-yet raise NotImplementedError naming their ROADMAP.md item, as karman-train's
-do.
+It writes OUT/tf/dataStats.json at the start, model_epoch%04d.msgpack (the
+parameters and the optimizer state) after the first epoch and every 10
+epochs, and model.msgpack at the end, in the JAX package's format. The
+flags --resume, --inittf, --bf16, --profile and --debug-nans work as
+karman-train's; flags of the JAX CLI that this port does not implement yet
+raise NotImplementedError naming their ROADMAP.md item, as karman-train's do.
 """
 
 from __future__ import annotations
@@ -26,19 +27,14 @@ import tempfile
 import torch
 
 from solver_in_the_loop_torch.apps.karman_apply import resolve_device
-from solver_in_the_loop_torch.apps.karman_train import refuse_not_ported
+from solver_in_the_loop_torch.apps.karman_train import prepare, refuse_not_ported, train
 from solver_in_the_loop_torch.models.features import Normalization
-from solver_in_the_loop_torch.models.networks import CONV_IMPLS, build_model
+from solver_in_the_loop_torch.models.networks import CONV_IMPLS
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow, burgers_domain
 from solver_in_the_loop_torch.train import checkpoint as ckpt
-from solver_in_the_loop_torch.train.dataset import EpochSchedule, load_burgers_dataset
-from solver_in_the_loop_torch.train.trainer import (
-    SolTrainConfig,
-    make_burgers_train_step,
-    make_optimizer,
-    run_training,
-)
-from solver_in_the_loop_torch.utils.metrics import MetricsWriter, setup_logging
+from solver_in_the_loop_torch.train.dataset import load_burgers_dataset
+from solver_in_the_loop_torch.train.trainer import SolTrainConfig, make_burgers_train_step
+from solver_in_the_loop_torch.utils.metrics import setup_logging
 
 log = logging.getLogger(__name__)
 
@@ -70,8 +66,9 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
                    help="per-tensor grad-norm clip at 0.001 (reference karman_train.py:453)")
     p.add_argument("--warmup-epochs", type=int, default=0,
                    help="run the first N epochs at lr/10 (0, the default, disables)")
-    p.add_argument("--resume", type=int, default=-1)
-    p.add_argument("--inittf", default=None)
+    p.add_argument("--resume", type=int, default=-1,
+                   help="resume from model_epoch%%04d.msgpack of --tf at this epoch")
+    p.add_argument("--inittf", default=None, help="warm-start checkpoint (msgpack)")
     p.add_argument("--pretf", default=None)
     p.add_argument("--tf", default=os.path.join(tempfile.gettempdir(), "silt", "tf"),
                    help="output dir (models, logs)")
@@ -84,10 +81,12 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--max-shift", type=int, default=2)
     p.add_argument("--leaky-alpha", type=float, default=0.3,
                    help="LeakyReLU negative slope (Keras default 0.3)")
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
     p.add_argument("--dp", action="store_true")
-    p.add_argument("--profile", default=None)
-    p.add_argument("--debug-nans", action="store_true")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace of one step to this dir")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first NaN")
     p.add_argument("--conv", choices=CONV_IMPLS, default="library",
                    help="the net's convolutions: cuDNN ('library') or the port's "
                         "CUDA kernels ('kernel')")
@@ -113,6 +112,10 @@ def run(args):
         return None
 
     stats = dict(data_np.stats)
+    if args.resume > 0:
+        stats = ckpt.load_stats(args.tf)
+        # resume with the slope the run was started with (absent: the old 0.01)
+        args.leaky_alpha = stats.get("leaky_alpha", 0.01)
     use_force = not args.noforce
     if use_force:
         norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
@@ -131,35 +134,14 @@ def run(args):
     cfg = SolTrainConfig(
         msteps=args.msteps, lr=args.lr, epochs=args.epochs, adplr=args.adplr,
         clip_grad=args.clip_grad, remat=not args.no_remat, remat_policy=args.remat_policy,
-        warmup_epochs=args.warmup_epochs)
+        warmup_epochs=args.warmup_epochs, debug_nans=args.debug_nans)
     stats["leaky_alpha"] = args.leaky_alpha  # the apply CLIs rebuild the net with it
-    model = build_model(args.model, in_channels=4 if use_force else 2,
-                        leaky_slope=args.leaky_alpha, init=args.init,
-                        generator=torch.Generator().manual_seed(args.seed),
-                        conv=args.conv).to(device)
-    log.info("model %s: %d params, conv %s", args.model, ckpt.param_count(model), args.conv)
-    optimizer = make_optimizer(model, cfg)
-    ckpt.save_stats(args.tf, stats)
-
+    model, optimizer = prepare(args, stats, device, 4 if use_force else 2, cfg)
     train_step = make_burgers_train_step(flow, model, optimizer, cfg, dt=args.dt,
                                          use_force=use_force)
-    schedule = EpochSchedule(args.nsims, args.simsteps, args.sbatch, seed=args.seed)
-    writer = MetricsWriter(args.tf)
-
-    def on_epoch_end(epoch):
-        if epoch == 0 or epoch % 10 == 9:  # Burgers also keeps epoch 1
-            ckpt.save_checkpoint(args.tf, model, args.model, epoch=epoch + 1)
-
-    try:
-        result = run_training(train_step, optimizer, data_np.to_device(device), norm, schedule,
-                              cfg, on_epoch_end=on_epoch_end, metrics_writer=writer)
-    finally:
-        writer.close()
-    ckpt.save_checkpoint(args.tf, model, args.model)
-    log.info("final loss %.6f; %.4f sec/iter (best epoch), %.4f (median epoch); "
-             "%d non-finite update(s) skipped", result.losses[-1], result.sec_per_iter,
-             result.sec_per_iter_median, result.notfinite)
-    return result
+    # Burgers also keeps epoch 1
+    return train(args, train_step, optimizer, model, data_np.to_device(device), norm, cfg,
+                 lambda epoch: epoch == 0 or epoch % 10 == 9)
 
 
 def main(argv=None):

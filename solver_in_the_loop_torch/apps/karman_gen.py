@@ -9,16 +9,19 @@ Port of solver_in_the_loop_tpu/apps/karman_gen.py with the same flags plus
 
 `--re` takes several values, which run batched in one rollout. The first
 `--skipsteps` steps run and are not kept; frames skipsteps+1 .. simsteps-1 are
-written, and frame 0 too with `-s 0`. At 256x128 the pressure solve takes
-multigrid (ops/multigrid.py), at 64x32 the fused CG kernel. `--seed` is
-accepted for the Makefile's commands: nothing here is random. `--thumb` needs
-PIL and raises NotImplementedError (ROADMAP.md A7).
+written, and frame 0 too with `-s 0`, on the frame writer's thread pool
+(io/npz_pool.py). At 256x128 the pressure solve takes multigrid
+(ops/multigrid.py), at 64x32 the fused CG kernel. `--seed` is accepted for
+the Makefile's commands: nothing here is random. `--thumb` writes a PNG of
+every written frame's dens, velU and velV (x 10000) to
+<output>/thumb/sim_%06d/ (io/thumbs.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import numpy as np
@@ -30,6 +33,7 @@ from solver_in_the_loop_torch.apps.karman_apply import (
     resolve_device,
 )
 from solver_in_the_loop_torch.io import scene as scene_io
+from solver_in_the_loop_torch.io import thumbs
 from solver_in_the_loop_torch.io.scene import Scene
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
 from solver_in_the_loop_torch.train.rollout import karman_rollout
@@ -63,10 +67,8 @@ def run(args):
     """Generate one scene per Re. Returns the rollout's frames (see
     train.rollout.karman_rollout) plus "route", the pressure solver it ran
     (ops/poisson.py `pressure_route`), "rollout_seconds", the wall time of
-    the rollout alone, synchronized with the device, and "write_seconds"."""
-    if args.thumb:
-        raise NotImplementedError("--thumb is not ported: it needs PIL, which the card's "
-                                  "machine lacks (ROADMAP.md A7)")
+    the rollout alone, synchronized with the device, "write_seconds", the
+    frames' and thumbnails' writes, and "thumbs", the PNGs written."""
     if bool(args.initdH) != bool(args.initvH):
         raise ValueError("provide both --initdH and --initvH")
     if args.skipsteps >= args.simsteps - 1:
@@ -101,6 +103,7 @@ def run(args):
     dens, uu, vv = (frames[k].cpu().numpy() for k in ("dens", "u", "v"))
     d0_np, u0_np, v0_np = (t.cpu().numpy() for t in (d0.values, v0.u, v0.v))
     frame_ids = [args.skipsteps + 1 + t for t in range(dens.shape[0])]
+    thumb_items = []
     for b in range(batch):
         sc = Scene.create(args.output)
         params = vars(args).copy()
@@ -114,11 +117,20 @@ def run(args):
                 sc.write_staggered("velo", 0, u0_np[b:b + 1], v0_np[b:b + 1])
             sc.write_centered_batch("dens", frame_ids, dens[:, b])
             sc.write_staggered_batch("velo", frame_ids, uu[:, b], vv[:, b])
+            if args.thumb:
+                td = thumbs.thumb_dir_for(sc.path)
+                kept = [(0, d0_np[b], u0_np[b], v0_np[b])] if args.skipsteps == 0 else []
+                kept += [(f, dens[t, b], uu[t, b], vv[t, b]) for t, f in enumerate(frame_ids)]
+                thumb_items += [(field, 10000.0, os.path.join(td, f"{name}_{f:06d}.png"))
+                                for f, *fields in kept
+                                for name, field in zip(("dens", "velU", "velV"), fields)]
             log.info("done %s", sc.path)
+    n_thumbs = thumbs.save_thumbs(thumb_items)
     write_seconds = time.perf_counter() - t0
-    log.info("wrote %d scenes of %d frames in %.3f s", batch,
-             len(frame_ids) + (args.skipsteps == 0), write_seconds)
-    frames.update(route=route, rollout_seconds=seconds, write_seconds=write_seconds)
+    log.info("wrote %d scenes of %d frames and %d thumbnails in %.3f s", batch,
+             len(frame_ids) + (args.skipsteps == 0), n_thumbs, write_seconds)
+    frames.update(route=route, rollout_seconds=seconds, write_seconds=write_seconds,
+                  thumbs=n_thumbs)
     return frames
 
 

@@ -11,10 +11,19 @@ SOL-32 run of the repo's Makefile (`karman-fdt-sol32`):
         --tf OUT/tf --log OUT/tf/run.log --epochs 100 --lr 0.0001 \
         -l 100 -t 500 -s 4 -m 32 -n 6 -b 3 --seed 0
 
-It writes OUT/tf/dataStats.json at the start, model_epoch%04d.msgpack every
-10 epochs and model.msgpack at the end, in the JAX package's format. Flags
-of the JAX CLI that this port does not implement yet raise
-NotImplementedError naming their ROADMAP.md item.
+It writes OUT/tf/dataStats.json at the start, model_epoch%04d.msgpack (the
+parameters and the optimizer state) every 10 epochs and model.msgpack at the
+end, in the JAX package's format, so either package resumes the other's run.
+As in the JAX CLI: `--resume N` reloads dataStats.json (and its LeakyReLU
+slope) and epoch N's parameters and optimizer state and skips N epochs of
+the schedule; `--inittf PATH` starts from a checkpoint's parameters;
+`--bf16` runs the net's convolutions in bfloat16 on float32 parameters;
+`--profile DIR` traces one step on the index pairs (0, 0) before training,
+without drawing from the schedule, and keeps its update; `--debug-nans`
+raises FloatingPointError at the first NaN (train/trainer.py); `--reg-loss`
+is accepted and changes nothing (the reference's regularization list is
+empty). Flags of the JAX CLI that this port does not implement yet
+(NOT_PORTED) raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from solver_in_the_loop_torch.train.trainer import (
     make_optimizer,
     run_training,
 )
+from solver_in_the_loop_torch.utils import profiling
 from solver_in_the_loop_torch.utils.metrics import MetricsWriter, setup_logging
 
 log = logging.getLogger(__name__)
@@ -45,14 +55,8 @@ log = logging.getLogger(__name__)
 # flags of the JAX CLI left out of this port, with the ROADMAP.md item that
 # ports them; each raises NotImplementedError when given
 NOT_PORTED = {
-    "resume": "A1 (resume with the optimizer state)",
-    "inittf": "A1 (--inittf warm start)",
-    "pretf": "A5 (PRE: --pretf supervised init)",
-    "dp": "A6 (data parallelism)",
-    "bf16": "A1 (--bf16 network compute)",
-    "profile": "A1 (--profile trace)",
-    "debug_nans": "A1 (--debug-nans)",
-    "reg_loss": "A1 (--reg-loss)",
+    "pretf": "A4 (PRE: --pretf supervised init)",
+    "dp": "A5 (data parallelism)",
 }
 
 
@@ -76,14 +80,16 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
                    help="'reference': glorot_uniform on every conv (needs --clip-grad, "
                         "on by default); 'zero': lecun_normal hidden convs, zero head")
     p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--reg-loss", action="store_true")
+    p.add_argument("--reg-loss", action="store_true",
+                   help="accepted for the reference's CLI; a no-op (its model.losses is empty)")
     p.add_argument("--adplr", action="store_true")
     p.add_argument("--clip-grad", action=argparse.BooleanOptionalAction, default=True,
                    help="per-tensor grad-norm clip at 0.001 (reference karman_train.py:453)")
     p.add_argument("--warmup-epochs", type=int, default=1,
                    help="run the first N epochs at lr/10 (0 disables)")
-    p.add_argument("--resume", type=int, default=-1)
-    p.add_argument("--inittf", default=None)
+    p.add_argument("--resume", type=int, default=-1,
+                   help="resume from model_epoch%%04d.msgpack of --tf at this epoch")
+    p.add_argument("--inittf", default=None, help="warm-start checkpoint (msgpack)")
     p.add_argument("--pretf", default=None)
     p.add_argument("--tf", default=os.path.join(tempfile.gettempdir(), "silt", "tf"),
                    help="output dir (models, logs)")
@@ -96,12 +102,14 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--max-shift", type=int, default=2)
     p.add_argument("--leaky-alpha", type=float, default=0.3,
                    help="LeakyReLU negative slope (Keras default 0.3)")
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
     p.add_argument("--dp", action="store_true")
     p.add_argument("--ptol", type=float, default=1e-5, help="pressure CG tolerance")
     p.add_argument("--pmaxiter", type=int, default=1000, help="pressure CG max iterations")
-    p.add_argument("--profile", default=None)
-    p.add_argument("--debug-nans", action="store_true")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler trace of one step to this dir")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first NaN")
     p.add_argument("--conv", choices=CONV_IMPLS, default="library",
                    help="the net's convolutions: cuDNN ('library') or the port's "
                         "CUDA kernels ('kernel')")
@@ -115,11 +123,69 @@ def refuse_not_ported(args) -> None:
     """Raise NotImplementedError for a NOT_PORTED flag that is given (a
     parser without the flag gives none)."""
     for flag, item in NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if (value > 0) if flag == "resume" else value:  # --resume N resumes for N > 0
+        if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to the PyTorch trainer yet "
                 f"(ROADMAP.md {item})")
+
+
+def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig):
+    """What both trainers do between the data and the epoch loop, as the JAX
+    CLIs do it: the net (bf16 compute with --bf16) and its optimizer, the
+    parameters from --inittf, the parameters and optimizer state of epoch
+    --resume (else dataStats.json written); returns (model, optimizer)."""
+    model = build_model(args.model, in_channels=in_channels, leaky_slope=args.leaky_alpha,
+                        init=args.init, generator=torch.Generator().manual_seed(args.seed),
+                        conv=args.conv,
+                        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
+    log.info("model %s: %d params, conv %s, compute %s", args.model, ckpt.param_count(model),
+             args.conv, "bfloat16" if args.bf16 else "float32")
+    optimizer = make_optimizer(model, cfg)
+    if getattr(args, "reg_loss", False):
+        log.info("--reg-loss: no regularization terms (the reference's list is empty)")
+    if args.inittf:
+        ckpt.load_model_weights(model, args.inittf, args.model)
+        log.info("warm start from %s", args.inittf)
+    if args.resume > 0:
+        if not ckpt.load_epoch_checkpoint(args.tf, args.resume, model, args.model, optimizer):
+            log.warning("epoch %d's checkpoint holds no optimizer state; Adam starts afresh",
+                        args.resume)
+        log.info("resumed from epoch %d", args.resume)
+    else:
+        ckpt.save_stats(args.tf, stats)
+    return model, optimizer
+
+
+def train(args, train_step, optimizer, model, data, norm, cfg, keep_epoch):
+    """--profile's traced step, the epoch loop with an epoch checkpoint after
+    every epoch `keep_epoch` names, and the final model.msgpack; returns the
+    TrainResult."""
+    if args.profile:
+        # one step on the pairs (0, 0), which draws nothing from the
+        # schedule; its update is kept, as the JAX CLIs keep it
+        idx0 = torch.zeros((args.sbatch, 2), dtype=torch.int64, device=data["u"].device)
+        with profiling.trace(args.profile):
+            train_step(data, norm, idx0)
+        log.info("profiler trace written to %s", args.profile)
+    schedule = EpochSchedule(args.nsims, args.simsteps, args.sbatch, seed=args.seed)
+    writer = MetricsWriter(args.tf)
+
+    def on_epoch_end(epoch):
+        if keep_epoch(epoch):
+            ckpt.save_checkpoint(args.tf, model, args.model, optimizer, epoch=epoch + 1)
+
+    try:
+        result = run_training(train_step, optimizer, data, norm, schedule, cfg,
+                              start_epoch=max(args.resume, 0), on_epoch_end=on_epoch_end,
+                              metrics_writer=writer)
+    finally:
+        writer.close()
+    ckpt.save_checkpoint(args.tf, model, args.model)
+    if result.losses:
+        log.info("final loss %.6f; %.4f sec/iter (best epoch), %.4f (median epoch); "
+                 "%d non-finite update(s) skipped", result.losses[-1], result.sec_per_iter,
+                 result.sec_per_iter_median, result.notfinite)
+    return result
 
 
 def run(args):
@@ -139,6 +205,10 @@ def run(args):
         return None
 
     stats = dict(data_np.stats)
+    if args.resume > 0:
+        stats = ckpt.load_stats(args.tf)
+        # resume with the slope the run was started with (absent: the old 0.01)
+        args.leaky_alpha = stats.get("leaky_alpha", 0.01)
     norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
     res_y, res_x = data_np.resolution
     dom = karman_domain(res_x, args.len)
@@ -155,33 +225,12 @@ def run(args):
     cfg = SolTrainConfig(
         msteps=args.msteps, lr=args.lr, epochs=args.epochs, adplr=args.adplr,
         clip_grad=args.clip_grad, remat=not args.no_remat, remat_policy=args.remat_policy,
-        warmup_epochs=args.warmup_epochs)
+        warmup_epochs=args.warmup_epochs, debug_nans=args.debug_nans)
     stats["leaky_alpha"] = args.leaky_alpha  # the apply CLIs rebuild the net with it
-    model = build_model(args.model, leaky_slope=args.leaky_alpha, init=args.init,
-                        generator=torch.Generator().manual_seed(args.seed),
-                        conv=args.conv).to(device)
-    log.info("model %s: %d params", args.model, ckpt.param_count(model))
-    optimizer = make_optimizer(model, cfg)
-    ckpt.save_stats(args.tf, stats)
-
+    model, optimizer = prepare(args, stats, device, 3, cfg)
     train_step = make_karman_train_step(flow, model, optimizer, cfg)
-    schedule = EpochSchedule(args.nsims, args.simsteps, args.sbatch, seed=args.seed)
-    writer = MetricsWriter(args.tf)
-
-    def on_epoch_end(epoch):
-        if epoch % 10 == 9:
-            ckpt.save_checkpoint(args.tf, model, args.model, epoch=epoch + 1)
-
-    try:
-        result = run_training(train_step, optimizer, data_np.to_device(device), norm, schedule,
-                              cfg, on_epoch_end=on_epoch_end, metrics_writer=writer)
-    finally:
-        writer.close()
-    ckpt.save_checkpoint(args.tf, model, args.model)
-    log.info("final loss %.6f; %.4f sec/iter (best epoch), %.4f (median epoch); "
-             "%d non-finite update(s) skipped", result.losses[-1], result.sec_per_iter,
-             result.sec_per_iter_median, result.notfinite)
-    return result
+    return train(args, train_step, optimizer, model, data_np.to_device(device), norm, cfg,
+                 lambda epoch: epoch % 10 == 9)
 
 
 def main(argv=None):

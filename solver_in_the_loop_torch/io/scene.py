@@ -1,7 +1,9 @@
 """Scene on-disk I/O in the reference's legacy PhiFlow layout (numpy only).
 
 A copy of the parts of solver_in_the_loop_tpu/io/scene.py that the port's
-CLIs use, with numpy's npz reader and writer in place of the native ones:
+CLIs use. Frames are written at deflate level 1, the batches on a pool of
+threads (io/npz_pool.py, the port's counterpart of the JAX package's native
+writer), and read with numpy:
 
   <parent>/sim_%06d/
       params.pickle, params.json   run parameters
@@ -23,6 +25,8 @@ import re as _re
 from typing import Tuple
 
 import numpy as np
+
+from solver_in_the_loop_torch.io import npz_pool
 
 
 def staggered_to_legacy(u: np.ndarray, v: np.ndarray) -> np.ndarray:
@@ -50,13 +54,13 @@ def legacy_to_centered(arr: np.ndarray) -> np.ndarray:
 
 def read_array(path: str) -> np.ndarray:
     """Load an npz frame in the legacy layout (batch dim guaranteed)."""
-    with np.load(path) as f:
-        arr = f[f.files[-1]]
+    arr = npz_pool.read_npz(path)
     return arr[None] if arr.ndim < 4 else arr
 
 
 def write_array(path: str, arr: np.ndarray) -> None:
-    np.savez_compressed(path, np.asarray(arr, np.float32))
+    """Write one npz frame (float32, deflate level 1)."""
+    npz_pool.write_npz(path, arr)
 
 
 class scene_run_log:
@@ -135,20 +139,28 @@ class Scene:
         write_array(self.frame_path(name, frame), staggered_to_legacy(np.asarray(u), np.asarray(v)))
 
     def write_centered_batch(self, name: str, frame_ids, values: np.ndarray) -> None:
-        """values (N, Y, X): one legacy frame (1, Y, X, 1) per frame id."""
-        for f, fr in zip(frame_ids, values):
-            self.write_centered(name, f, fr[None])
+        """values (N, Y, X): one legacy frame (1, Y, X, 1) per frame id,
+        written on the frame writer's pool."""
+        legacy = np.asarray(values, np.float32)[:, None, :, :, None]
+        npz_pool.write_npz_batch([self.frame_path(name, f) for f in frame_ids], legacy)
 
     def write_staggered_batch(self, name: str, frame_ids, u: np.ndarray, v: np.ndarray) -> None:
-        """u (N, Y, X+1), v (N, Y+1, X): one legacy (1, Y+1, X+1, 2) frame per id."""
-        for f, fu, fv in zip(frame_ids, u, v):
-            self.write_staggered(name, f, fu[None], fv[None])
+        """u (N, Y, X+1), v (N, Y+1, X): one legacy (1, Y+1, X+1, 2) frame per
+        id (staggered_to_legacy with N as its batch), written on the pool."""
+        legacy = staggered_to_legacy(np.asarray(u, np.float32), np.asarray(v, np.float32))[:, None]
+        npz_pool.write_npz_batch([self.frame_path(name, f) for f in frame_ids], legacy)
 
     def read_centered(self, name: str, frame: int) -> np.ndarray:
         return legacy_to_centered(read_array(self.frame_path(name, frame)))
 
     def read_staggered(self, name: str, frame: int) -> Tuple[np.ndarray, np.ndarray]:
         return legacy_to_staggered(read_array(self.frame_path(name, frame)))
+
+    def read_batch(self, name: str, frames) -> np.ndarray:
+        """The legacy frames `frames` of `name` read on the pool, stacked:
+        (N, Y, X, 1) centered or (N, Y+1, X+1, 2) staggered."""
+        arrays = npz_pool.read_npz_batch([self.frame_path(name, f) for f in frames])
+        return np.stack([a[0] if a.ndim == 4 else a for a in arrays])
 
     def frames(self, name: str):
         """Sorted frame numbers of the <name>_%06d.npz files of this scene."""

@@ -33,6 +33,7 @@ SOURCES: Dict[str, list] = {
     "pcg": [],
     "cg": [],
     "conv": [],
+    "conv_bf16": [],
 }
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

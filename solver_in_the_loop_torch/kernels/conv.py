@@ -1,5 +1,6 @@
-"""Fused KxK SAME stride-1 convolution (NHWC, float32): CUDA kernels, their
-plain twins, and the differentiable op that the correction nets call.
+"""Fused KxK SAME stride-1 convolution (NHWC, float32 or bfloat16): CUDA
+kernels, their plain twins, and the differentiable op that the correction
+nets call.
 
 `conv_fwd` replaces the TPU kernels
 solver_in_the_loop_tpu/ops/pallas/conv_kernel.py `_fwd_kernel` and
@@ -26,13 +27,26 @@ rank order through distributed shared memory: one launch, no atomics, the
 same bits on every launch. Each wrapper call is one CUDA launch. What bounds
 them is in csrc/conv.cu.
 
+On bfloat16 tensors (the nets under --bf16, as the JAX package casts x, the
+kernel, the bias and the skip to bf16 before `conv_fused`) `conv_fwd` hands
+over to `conv_fwd_bf16` and `conv_wgrad` to `conv_wgrad_bf16`, the kernels of
+csrc/conv_bf16.cu: bf16 products summed in fp32 on the tensor cores
+(`mma.sync` m16n8k16), the forward's epilogue in fp32 and one rounding to
+bf16 at the store; the weight gradient in fp32. Their twins are the same
+plain functions, which compute in fp32 from the bf16 values and round the
+forward's output once.
+
 `conv` (`torch.ops.silt.conv`) is the op the nets call: the convolution with
 its epilogue fused (+bias, optional +skip, ReLU or LeakyReLU), as the JAX
 package's `conv_fused`. Its backward takes the activation's derivative from
 the saved output with JAX's conventions (`_act_grad`), then computes dX with
 `conv_fwd` on the flipped, channel-transposed kernel (skipped where the input
 needs no gradient), dW with `conv_wgrad`, and db and d(skip) in plain
-PyTorch. It is a registered custom op so that a selective-checkpoint policy
+PyTorch. In bf16 it rounds where the JAX VJP rounds (conv_kernel.py
+`_fused`): the LeakyReLU slope of the backward is bf16(slope) (0.30078125
+for 0.3) times a bf16 gradient, dX is bf16, dW is summed in fp32 and then
+rounded to bf16, db is the fp32 sum of dz rounded to bf16. It is a
+registered custom op so that a selective-checkpoint policy
 can save it (train/trainer.py), and it reaches each kernel only through the
 module-level wrapper, so replacing a wrapper here replaces the kernel
 everywhere.
@@ -63,11 +77,13 @@ def _activate(z: torch.Tensor, act: str, slope: float) -> torch.Tensor:
 def act_grad(act: str, slope: float, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d(activation)/dz times g, from the post-activation output y: both
     activations keep the sign, so sign(y) is sign(z). JAX's conventions at
-    z == 0: relu' = 0, leaky_relu' = 1 (conv_kernel.py `_act_grad`)."""
+    z == 0: relu' = 0, leaky_relu' = 1 (conv_kernel.py `_act_grad`), and its
+    slope is cast to g's dtype before the product, as `jnp.asarray(slope,
+    dy.dtype)` does: 0.30078125 for 0.3 in bf16."""
     if act == "relu":
         return torch.where(y > 0, g, 0.0)
     if act == "leaky_relu":
-        return torch.where(y >= 0, g, slope * g)
+        return torch.where(y >= 0, g, float(torch.tensor(slope, dtype=g.dtype)) * g)
     return g
 
 
@@ -75,58 +91,65 @@ def conv_fwd_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor
                    skip: Optional[torch.Tensor] = None, act: str = "none", slope: float = 0.3,
                    flip: bool = False) -> torch.Tensor:
     """act(sum_taps shift(x) @ w[tap] + bias + skip): x (B, H, W, Cin), w
-    (K, K, Cin, Cout), zeros outside the image; `flip` reads w[K-1-ky, K-1-kx]."""
+    (K, K, Cin, Cout), zeros outside the image; `flip` reads w[K-1-ky, K-1-kx].
+    Computed in fp32 (bf16 operands taken exactly), returned in x's dtype."""
     if flip:
         w = w.flip((0, 1))
     _, h, wd, _ = x.shape
     k = w.shape[0]
     r = k // 2
-    xp = F.pad(x, (0, 0, r, r, r, r))
-    acc = torch.zeros(x.shape[:3] + (w.shape[3],), dtype=x.dtype, device=x.device)
+    xp = F.pad(x.float(), (0, 0, r, r, r, r))
+    w = w.float()
+    acc = torch.zeros(x.shape[:3] + (w.shape[3],), dtype=torch.float32, device=x.device)
     for ky in range(k):
         for kx in range(k):
             acc = acc + xp[:, ky:ky + h, kx:kx + wd, :] @ w[ky, kx]
     if bias is not None:
-        acc = acc + bias
+        acc = acc + bias.float()
     if skip is not None:
-        acc = acc + skip
-    return _activate(acc, act, slope)
+        acc = acc + skip.float()
+    return _activate(acc, act, slope).to(x.dtype)
 
 
-def _weight_grad_buffer(k: int, cin: int, cout: int, like: torch.Tensor) -> torch.Tensor:
-    """A (K, K, Cin, Cout) view of a contiguous (Cout, Cin, K, K) tensor."""
-    return torch.empty((cout, cin, k, k), dtype=like.dtype, device=like.device).permute(2, 3, 1, 0)
+def _weight_grad_buffer(k: int, cin: int, cout: int, device) -> torch.Tensor:
+    """A (K, K, Cin, Cout) view of a contiguous float32 (Cout, Cin, K, K) tensor."""
+    return torch.empty((cout, cin, k, k), dtype=torch.float32, device=device).permute(2, 3, 1, 0)
 
 
 def conv_wgrad_plain(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
-    """dW[ky, kx] = shift(x)^T @ dz summed over all B*H*W rows, per tap.
-    Returned as conv_wgrad returns it."""
+    """dW[ky, kx] = shift(x)^T @ dz summed over all B*H*W rows, per tap, in
+    fp32 (bf16 operands taken exactly). Returned as conv_wgrad returns it."""
     _, h, wd, cin = x.shape
     cout = dz.shape[-1]
     r = k // 2
-    xp = F.pad(x, (0, 0, r, r, r, r))
-    rows = dz.reshape(-1, cout)
-    dw = _weight_grad_buffer(k, cin, cout, x)
+    xp = F.pad(x.float(), (0, 0, r, r, r, r))
+    rows = dz.float().reshape(-1, cout)
+    dw = _weight_grad_buffer(k, cin, cout, x.device)
     for ky in range(k):
         for kx in range(k):
             dw[ky, kx] = xp[:, ky:ky + h, kx:kx + wd, :].reshape(-1, cin).T @ rows
     return dw
 
 
-def _check(what: str, x: torch.Tensor, w: torch.Tensor, others: dict) -> None:
-    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be a contiguous float32 (B, H, W, C) tensor, "
+def _check(what: str, x: torch.Tensor, w: torch.Tensor, others: dict, dtype: torch.dtype,
+           w_dtype: torch.dtype) -> None:
+    """x, w and the `others` {name: (tensor or None, shape)} as the kernel
+    takes them: x contiguous (B, H, W, C) of `dtype`, w (K, K, C, Cout) of
+    `w_dtype` with odd K <= MAX_K, the others contiguous of `dtype`, all on
+    x's device."""
+    if x.dtype != dtype or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous {dtype} (B, H, W, C) tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
     k = w.shape[0]
-    if (w.dtype != torch.float32 or w.dim() != 4 or w.shape[1] != k or k % 2 == 0 or k > MAX_K
+    if (w.dtype != w_dtype or w.dim() != 4 or w.shape[1] != k or k % 2 == 0 or k > MAX_K
             or w.shape[2] != x.shape[3] or w.device != x.device):
-        raise ValueError(f"{what}: w must be a float32 (K, K, {x.shape[3]}, Cout) tensor "
+        raise ValueError(f"{what}: w must be a {w_dtype} (K, K, {x.shape[3]}, Cout) tensor "
                          f"with odd K <= {MAX_K} on {x.device}, got {w.dtype} "
                          f"{tuple(w.shape)} on {w.device}")
     for name, (t, shape) in others.items():
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
                               or not t.is_contiguous() or t.device != x.device):
-            raise ValueError(f"{what}: {name} must be a contiguous float32 {shape} tensor "
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {shape} tensor "
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -135,7 +158,8 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = No
              flip: bool = False) -> torch.Tensor:
     """KxK SAME stride-1 conv with the fused epilogue: x (B, H, W, Cin) ->
     (B, H, W, Cout); w (K, K, Cin, Cout), any strides; bias (Cout,) or None
-    (zero); skip (B, H, W, Cout) or None.
+    (zero); skip (B, H, W, Cout) or None; all float32, or all bfloat16
+    (`conv_fwd_bf16`).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel; anything
     else raises."""
@@ -145,9 +169,12 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = No
         return conv_fwd_plain(x, w, bias, skip, act, slope, flip)
     if x.device.type != "cuda":
         raise ValueError(f"conv_fwd: unsupported device {x.device}")
+    if x.dtype == torch.bfloat16:
+        return conv_fwd_bf16(x, w, bias, skip, act, slope, flip)
     b, h, wd, cin = x.shape
     cout = w.shape[3]
-    _check("conv_fwd", x, w, {"bias": (bias, (cout,)), "skip": (skip, (b, h, wd, cout))})
+    _check("conv_fwd", x, w, {"bias": (bias, (cout,)), "skip": (skip, (b, h, wd, cout))},
+           torch.float32, torch.float32)
     fn = build.function("conv", "silt_conv_fwd",
                         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
@@ -167,10 +194,49 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = No
 conv_fwd.launches = 0
 
 
+def conv_fwd_bf16(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  skip: Optional[torch.Tensor] = None, act: str = "none", slope: float = 0.3,
+                  flip: bool = False) -> torch.Tensor:
+    """conv_fwd on bfloat16 tensors (x, w, bias, skip): the products summed
+    in fp32, the epilogue in fp32 with the fp32 slope, the output rounded to
+    bfloat16 once.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel of
+    csrc/conv_bf16.cu; anything else raises."""
+    if act not in ACTS:
+        raise ValueError(f"conv_fwd_bf16: unknown activation '{act}'")
+    if x.device.type == "cpu":
+        return conv_fwd_plain(x, w, bias, skip, act, slope, flip)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_fwd_bf16: unsupported device {x.device}")
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    _check("conv_fwd_bf16", x, w, {"bias": (bias, (cout,)), "skip": (skip, (b, h, wd, cout))},
+           torch.bfloat16, torch.bfloat16)
+    fn = build.function("conv_bf16", "silt_conv_fwd_bf16",
+                        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_void_p])
+    y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), *w.stride(), int(flip),
+                 None if bias is None else bias.data_ptr(),
+                 None if skip is None else skip.data_ptr(), y.data_ptr(),
+                 b, h, wd, cin, cout, w.shape[0], ACTS[act], float(slope), stream)
+    build.check(err, "conv_fwd_bf16")
+    conv_fwd_bf16.launches += 1
+    return y
+
+
+conv_fwd_bf16.launches = 0
+
+
 def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
     """dW (K, K, Cin, Cout) of the SAME conv for the output cotangent dz
-    (B, H, W, Cout), laid out as a contiguous (Cout, Cin, K, K) tensor (the
-    PyTorch conv weight's layout) seen through a permuted view.
+    (B, H, W, Cout), float32, laid out as a contiguous (Cout, Cin, K, K)
+    tensor (the PyTorch conv weight's layout) seen through a permuted view.
+    x and dz float32, or both bfloat16 (`conv_wgrad_bf16`).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel; anything
     else raises."""
@@ -178,10 +244,12 @@ def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
         return conv_wgrad_plain(x, dz, k)
     if x.device.type != "cuda":
         raise ValueError(f"conv_wgrad: unsupported device {x.device}")
+    if x.dtype == torch.bfloat16:
+        return conv_wgrad_bf16(x, dz, k)
     b, h, wd, cin = x.shape
     cout = dz.shape[-1]
-    dw = _weight_grad_buffer(k, cin, cout, x)
-    _check("conv_wgrad", x, dw, {"dz": (dz, (b, h, wd, cout))})
+    dw = _weight_grad_buffer(k, cin, cout, x.device)
+    _check("conv_wgrad", x, dw, {"dz": (dz, (b, h, wd, cout))}, torch.float32, torch.float32)
     fn = build.function("conv", "silt_conv_wgrad",
                         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p])
@@ -197,12 +265,43 @@ def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
 conv_wgrad.launches = 0
 
 
+def conv_wgrad_bf16(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
+    """conv_wgrad of bfloat16 x and dz: the products summed and returned in
+    float32, as conv_wgrad returns its result (the VJP rounds it to bf16).
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel of
+    csrc/conv_bf16.cu; anything else raises."""
+    if x.device.type == "cpu":
+        return conv_wgrad_plain(x, dz, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_wgrad_bf16: unsupported device {x.device}")
+    b, h, wd, cin = x.shape
+    cout = dz.shape[-1]
+    dw = _weight_grad_buffer(k, cin, cout, x.device)
+    _check("conv_wgrad_bf16", x, dw, {"dz": (dz, (b, h, wd, cout))}, torch.bfloat16,
+           torch.float32)
+    fn = build.function("conv_bf16", "silt_conv_wgrad_bf16",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), dz.data_ptr(), dw.data_ptr(), *dw.stride(), b, h, wd, cin, cout,
+                 k, stream)
+    build.check(err, "conv_wgrad_bf16")
+    conv_wgrad_bf16.launches += 1
+    return dw
+
+
+conv_wgrad_bf16.launches = 0
+
+
 @torch.library.custom_op(
     "silt::conv", mutates_args=(),
     schema="(Tensor x, Tensor weight, Tensor bias, Tensor? skip, str act, float slope) -> Tensor")
 def conv(x, weight, bias, skip, act, slope):
     """act(conv(x, weight) + bias + skip): x (B, H, W, Cin) contiguous,
-    weight the PyTorch (Cout, Cin, K, K) parameter, K odd."""
+    weight the PyTorch (Cout, Cin, K, K) parameter, K odd; all float32, or
+    all bfloat16."""
     return conv_fwd(x, weight.permute(2, 3, 1, 0), bias, skip, act, slope)
 
 
@@ -220,8 +319,10 @@ def _conv_backward(ctx, g):
     if ctx.needs_input_grad[0]:
         # the flipped, channel-transposed kernel, zero bias, no activation
         dx = conv_fwd(dz, w.transpose(2, 3), flip=True)
-    dw = conv_wgrad(x, dz, w.shape[0]).permute(3, 2, 0, 1)
-    db = dz.sum((0, 1, 2))
+    # dW summed in fp32 and then rounded to the weight's dtype; db the fp32
+    # sum of dz, rounded likewise (no-ops in float32)
+    dw = conv_wgrad(x, dz, w.shape[0]).permute(3, 2, 0, 1).to(weight.dtype)
+    db = dz.sum((0, 1, 2), dtype=torch.float32).to(weight.dtype)
     return dx, dw, db, (dz if ctx.with_skip else None), None, None
 
 

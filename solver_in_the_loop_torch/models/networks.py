@@ -20,7 +20,17 @@ form of the JAX package's `SILT_PALLAS_CONV` gate (networks.py `Conv`):
   activation fused, as `Conv.__call__` sends it to `conv_fused`.
 
 The parameters are the same `nn.Conv2d` ones either way, so a checkpoint
-loads unchanged under both. The weights come from a JAX checkpoint
+loads unchanged under both.
+
+`compute_dtype` (the trainers' --bf16; the JAX package's MarsMoon and
+Mercury `compute_dtype`, networks.py:127-188) casts the input to bfloat16
+and each conv's float32 kernel and bias to bfloat16 where the conv reads
+them, and the output back to float32; the parameters and their gradients
+stay float32. Under "library" each conv then rounds where flax's bf16
+`nn.Conv` does: the conv's output in bf16, + bias, + skip and the
+activation each in bf16 (LeakyReLU's slope taken as bf16(slope)); under
+"kernel" `silt::conv` runs the bf16 kernels with the JAX Pallas conv's
+fp32 epilogue. The weights come from a JAX checkpoint
 (train/checkpoint.py) or from `init_weights`, the JAX package's init modes
 (solver_in_the_loop_tpu/models/networks.py:112-124) drawn from an explicit
 generator:
@@ -56,34 +66,49 @@ def _conv5(cin: int, cout: int) -> nn.Conv2d:
 
 
 CONV_IMPLS = ("library", "kernel")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _apply(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool, act: str = "none",
            slope: float = 0.0, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """act(conv(x) + skip): NHWC through the fused op when `nhwc` (the
-    "kernel" implementation), else NCHW through the module and separate ops."""
+    """act(conv(x) + skip) in x's dtype: NHWC through the fused op when
+    `nhwc` (the "kernel" implementation), else NCHW through the module and
+    separate ops (in bf16 as flax's nn.Conv and activations round)."""
+    dtype = x.dtype
     if nhwc:
-        return silt_conv(x, conv.weight, conv.bias, skip, act, slope)
-    y = conv(x)
+        return silt_conv(x, conv.weight.to(dtype), conv.bias.to(dtype), skip, act, slope)
+    if dtype == torch.float32:
+        y = conv(x)
+    else:
+        y = F.conv2d(x, conv.weight.to(dtype), None, padding=conv.padding)
+        y = y + conv.bias.to(dtype)[:, None, None]
     if skip is not None:
         y = y + skip
     if act == "relu":
         return F.relu(y)
     if act == "leaky_relu":
-        return F.leaky_relu(y, slope)
+        if dtype == torch.float32:
+            return F.leaky_relu(y, slope)
+        # jnp.where(y >= 0, y, slope * y) with the slope cast to y's dtype
+        return torch.where(y >= 0, y, float(torch.tensor(slope, dtype=dtype)) * y)
     return y
 
 
 class _Net(nn.Module):
     """Runs `body` NHWC under the "kernel" conv implementation, NCHW under
-    "library", with the features and the output NHWC either way."""
+    "library", with the features and the output NHWC either way, in
+    `compute_dtype`; the output is float32."""
 
     conv_impl = "library"
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
         if self.conv_impl == "kernel":
-            return self.body(x.contiguous(), True)
-        return self.body(x.permute(0, 3, 1, 2), False).permute(0, 2, 3, 1)
+            y = self.body(x.contiguous(), True)
+        else:
+            y = self.body(x.permute(0, 3, 1, 2), False).permute(0, 2, 3, 1)
+        return y.to(torch.float32)
 
 
 class Mercury(_Net):
@@ -168,19 +193,23 @@ def init_weights(model: nn.Module, mode: str, generator: torch.Generator) -> nn.
 def build_model(name: str, in_channels: int = 3, leaky_slope: float = 0.3,
                 init: Optional[str] = None,
                 generator: Optional[torch.Generator] = None,
-                conv: str = "library") -> nn.Module:
+                conv: str = "library", compute_dtype: torch.dtype = torch.float32) -> nn.Module:
     """Registry lookup; also turns TF32 off (see disable_tf32). With `init`,
     the weights are drawn by `init_weights` from `generator` (a fresh one
     seeded 0 if none is given); without, they are left for a checkpoint.
-    `conv` picks the convolution implementation (CONV_IMPLS)."""
+    `conv` picks the convolution implementation (CONV_IMPLS), `compute_dtype`
+    the convolutions' dtype (COMPUTE_DTYPES; the parameters stay float32)."""
     if name not in MODELS:
         raise KeyError(f"unknown model '{name}'; available: {sorted(MODELS)}")
     if conv not in CONV_IMPLS:
         raise KeyError(f"unknown conv implementation '{conv}'; use one of {CONV_IMPLS}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise KeyError(f"unsupported compute dtype {compute_dtype}; use one of {COMPUTE_DTYPES}")
     disable_tf32()
     model = Mercury(in_channels) if name == "mercury" else MarsMoon(in_channels,
                                                                    leaky_slope=leaky_slope)
     model.conv_impl = conv
+    model.compute_dtype = compute_dtype
     if init is not None:
         init_weights(model, init, generator or torch.Generator().manual_seed(0))
     return model

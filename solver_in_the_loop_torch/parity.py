@@ -82,6 +82,38 @@ TRAIN_PARITY_TOL = {"loss": 1e-4, "step_losses": 1e-4, "grad_norms": 1e-3, "head
 # meet either (tests/test_torch_conv.py).
 CONV_FWD_REL_TOL = 1e-5
 CONV_WGRAD_REL_TOL = 1e-4
+# The bf16 conv kernels against their twins (and the twins against the JAX
+# Pallas conv on bf16 inputs). Both sum exact bf16 products in fp32, in
+# another order (the kernel on the tensor cores, whose fp32 sums truncate),
+# and round the forward's output (and the VJP's dX, dW and db) to bf16 once.
+# The two fp32 sums differ by a few fp32 roundings of the partial sums, at
+# most CONV_FWD_REL_TOL of the output's max as for the fp32 kernels; where
+# they straddle a rounding boundary the bf16 values land one ulp apart. So
+# each bf16 output element is held to CONV_BF16_ULPS bf16 ulp (2^-7 of its
+# binade) of its magnitude plus CONV_FWD_REL_TOL of the output's max
+# (`bf16_errors`): the second term matters only for elements that cancel to
+# near 0, whose bf16 ulp is below the fp32 sums' own rounding. The weight
+# gradient's fp32 sum, before its rounding, is held to
+# CONV_WGRAD_BF16_REL_TOL of its max: M = B*H*W exact products summed in
+# fp32 in another order.
+CONV_BF16_ULPS = 1
+CONV_WGRAD_BF16_REL_TOL = 1e-5
+# One SOL-04 train step with --bf16 against the JAX package's --bf16 step.
+# bf16 keeps 8 bits, so a value rounds to 2^-9 of itself; wherever the two
+# sides' fp32 sums land on either side of a rounding boundary, a conv's
+# output, and then everything downstream in the 4-step unroll, moves by
+# such a step. Measured on the CPU (the kernel's twin against the JAX Pallas
+# conv in interpret mode, tests/test_torch_burgers_golden.py): loss 2.2e-5,
+# step losses 4.2e-5, gradient norms 5.6e-3 (a bias: db is a sum of 5,120
+# bf16 values), head gradient 2.2e-3; the bounds leave about 4x for the
+# card's summation order.
+TRAIN_PARITY_TOL_BF16 = {"loss": 2e-4, "step_losses": 2e-4, "grad_norms": 2e-2, "head_grad": 2e-2}
+# Under --conv library the biases' gradients are left out of that
+# comparison: XLA on the CPU sums the broadcast bias's cotangent in bf16 (on
+# a (5, 32, 32, 32) cotangent 22 % of the sum's max off the exact sum, where
+# jnp.sum, which accumulates in fp32, is within 0.24 %), torch in fp32
+# (tests/test_torch_bf16.py `test_xla_cpu_sums_a_bias_cotangent_in_bf16`).
+# The weights' gradient norms agree within 1.9e-3 there.
 
 # Burgers: the trained SOL-04 MarsMoon (32x5, 4 input channels) and the JAX
 # golden of its apply (frames of the Makefile's test sim seed 100) and of one
@@ -89,6 +121,8 @@ CONV_WGRAD_REL_TOL = 1e-4
 BURGERS_CKPT = os.path.join(REPO, "artifacts", "a3_b_sol04")
 BURGERS_APPLY_GOLDEN = os.path.join(DATA, "burgers_apply_sol04_r32.npz")
 BURGERS_TRAIN_GOLDEN = os.path.join(DATA, "burgers_train_step_sol04.npz")
+# the same step with --bf16 and the JAX Pallas conv (interpret mode)
+BURGERS_TRAIN_GOLDEN_BF16 = os.path.join(DATA, "burgers_train_step_sol04_bf16.npz")
 # the Makefile's test-set command (burgers-fdt-hires-testset) for seed 100
 BURGERS_GEN_ARGV = ["-r", "128", "-l", "32", "--dt", "0.1", "-s", "30", "--seed", "100"]
 BURGERS_GOLDEN_STEPS = 20  # frames of the apply golden, and forces it replays
@@ -124,7 +158,9 @@ def plain_path():
             mock.patch.object(cg, "pcg_solve", cg.pcg_solve_plain), \
             mock.patch.object(cg, "cg_solve", cg.cg_solve_plain), \
             mock.patch.object(conv, "conv_fwd", conv.conv_fwd_plain), \
-            mock.patch.object(conv, "conv_wgrad", conv.conv_wgrad_plain):
+            mock.patch.object(conv, "conv_wgrad", conv.conv_wgrad_plain), \
+            mock.patch.object(conv, "conv_fwd_bf16", conv.conv_fwd_plain), \
+            mock.patch.object(conv, "conv_wgrad_bf16", conv.conv_wgrad_plain):
         yield
 
 
@@ -180,15 +216,17 @@ def train_parity_inputs():
     return data, idx, stats
 
 
-def parity_model(device, conv: str = "library", ckpt_dir: str = CKPT, in_channels: int = 3):
+def parity_model(device, conv: str = "library", ckpt_dir: str = CKPT, in_channels: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
     """A trained MarsMoon (default the SOL-32 karman one, artifacts/a3_k_sol32)
-    on `device`, its convolutions run as `conv` says."""
+    on `device`, its convolutions run as `conv` says in `compute_dtype`."""
     from solver_in_the_loop_torch.models.networks import build_model
     from solver_in_the_loop_torch.train import checkpoint as ckpt
 
     with open(os.path.join(ckpt_dir, "dataStats.json")) as f:
         slope = json.load(f)["leaky_alpha"]
-    model = build_model("mars_moon", in_channels=in_channels, leaky_slope=slope, conv=conv)
+    model = build_model("mars_moon", in_channels=in_channels, leaky_slope=slope, conv=conv,
+                        compute_dtype=compute_dtype)
     ckpt.load_model_weights(model, os.path.join(ckpt_dir, "model.msgpack"), "mars_moon")
     return model.to(device)
 
@@ -200,16 +238,18 @@ def _loss_and_grads(model, loss_fn):
     return (loss.item(), step_losses.detach().cpu(), *(r.cpu() for r in rest), grads)
 
 
-def parity_step(device, conv: str = "library", precon: str = "fd"):
+def parity_step(device, conv: str = "library", precon: str = "fd",
+                compute_dtype: torch.dtype = torch.float32):
     """One SOL-32 train step's loss and gradients on `device` (no update),
-    its pressure solves preconditioned as `precon` says: (loss, step_losses
-    (32,), forward CG iterations, {param name: grad})."""
+    its pressure solves preconditioned as `precon` says, the net computing
+    in `compute_dtype`: (loss, step_losses (32,), forward CG iterations,
+    {param name: grad})."""
     from solver_in_the_loop_torch.models.features import Normalization
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, karman_loss
 
     data, idx, stats = train_parity_inputs()
-    model = parity_model(device, conv)
+    model = parity_model(device, conv, compute_dtype=compute_dtype)
     flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, pressure_precon=precon,
                       device=device)
     norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
@@ -256,16 +296,17 @@ def burgers_train_parity_inputs():
     return data, idx, stats
 
 
-def burgers_parity_step(device, conv: str = "library", remat_policy: str = "pressure+conv"):
+def burgers_parity_step(device, conv: str = "library", remat_policy: str = "pressure+conv",
+                        compute_dtype: torch.dtype = torch.float32):
     """One SOL-04 train step's loss and gradients on `device` (no update), from
-    the trained artifacts/a3_b_sol04 net: (loss, step_losses (4,), {param
-    name: grad})."""
+    the trained artifacts/a3_b_sol04 net computing in `compute_dtype`:
+    (loss, step_losses (4,), {param name: grad})."""
     from solver_in_the_loop_torch.models.features import Normalization
     from solver_in_the_loop_torch.physics.burgers import BurgersFlow, burgers_domain
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, burgers_loss
 
     data, idx, stats = burgers_train_parity_inputs()
-    model = parity_model(device, conv, BURGERS_CKPT, in_channels=4)
+    model = parity_model(device, conv, BURGERS_CKPT, in_channels=4, compute_dtype=compute_dtype)
     flow = BurgersFlow(burgers_domain(32), advection="shift", max_shift=2)
     norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
                                  stats["std.fu"], device)
@@ -323,13 +364,26 @@ def train_golden_summary(path: str = TRAIN_GOLDEN):
                 g["head_weight_grad"])
 
 
-def parity_errors(got, want):
+def parity_errors(got, want, params=None):
     """Relative errors of one parity summary against another: the loss, the
-    worst step loss, the worst per-parameter gradient norm, and the head
-    conv's whole gradient as a share of its max."""
+    worst step loss, the worst per-parameter gradient norm (of the
+    parameters named by `params`, default all), and the head conv's whole
+    gradient as a share of its max."""
     loss, steps, norms, head = got
     w_loss, w_steps, w_norms, w_head = want
+    names = w_norms if params is None else params
     return {"loss": abs(loss - w_loss) / abs(w_loss),
             "step_losses": float(np.max(np.abs(steps - w_steps) / np.abs(w_steps))),
-            "grad_norms": max(abs(norms[n] - w) / w for n, w in w_norms.items()),
+            "grad_norms": max(abs(norms[n] - w_norms[n]) / w_norms[n] for n in names),
             "head_grad": float(np.abs(head - w_head).max() / np.abs(w_head).max())}
+
+
+def bf16_errors(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of two bf16 tensors over its allowance: one
+    bf16 ulp of the element's magnitude (max(|got|, |want|)) plus
+    CONV_FWD_REL_TOL of want's max. Held to CONV_BF16_ULPS."""
+    got, want = got.float(), want.float()
+    sums = CONV_FWD_REL_TOL * float(want.abs().max())
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / (ulp + sums)).max())

@@ -1,5 +1,5 @@
-"""Read and write the JAX package's checkpoints (`model.msgpack` +
-`dataStats.json`).
+"""Read and write the JAX package's checkpoints (`model.msgpack`,
+`model_epoch%04d.msgpack` with the optimizer state, and `dataStats.json`).
 
 The JAX package writes `flax.serialization.to_bytes({"params": params})`:
 msgpack maps of maps whose leaves are ndarrays, each a msgpack ext value of
@@ -12,6 +12,19 @@ module names. The writer emits the bytes flax's `to_bytes` emits for the same
 tree (maps in insertion order, flax's construction order of the modules), so
 a checkpoint of the port is one the JAX package reads
 (solver_in_the_loop_tpu/train/checkpoint.py:23-73).
+
+An epoch checkpoint also holds the optimizer state, as the JAX trainer
+saves it: the state of `apply_if_finite(chain(clip_by_leaf_norm,
+inject_hyperparams(adam)))` (solver_in_the_loop_tpu/train/trainer.py
+`make_optimizer`; without the clip the chain has only the Adam) in flax's
+layout, where a named tuple is a map of its fields and a tuple a map "0",
+"1", ...: the guard's `notfinite_count`, `last_finite` and
+`total_notfinite`; the clip's empty state; the injected hyperparameters
+(`learning_rate`, b1, b2, eps, eps_root) with their step count; and Adam's
+`count`, `mu` and `nu`, each moment a tree of the parameters' layout.
+`opt_state_to_jax` and `opt_state_from_jax` map that state onto the port's
+GuardedAdam and back: optax's count is torch's Adam step (both bias-correct
+step t with b^t), mu and nu are exp_avg and exp_avg_sq.
 """
 
 from __future__ import annotations
@@ -24,6 +37,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from solver_in_the_loop_torch.train.trainer import ADAM_BETAS, ADAM_EPS
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -165,19 +180,103 @@ def _nest(flat: Dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def params_to_jax(model: nn.Module, arch: str) -> dict:
-    """The model's parameters as the flax params dict (`Conv_0`, ...): the
-    inverse of params_from_jax, OIHW kernels back to HWIO, float32 numpy."""
+def _flax_flat(tensors: Dict[str, torch.Tensor], arch: str,
+               model: nn.Module) -> Dict[str, np.ndarray]:
+    """{port parameter name: tensor} -> {flax path: float32 array}, OIHW
+    kernels back to HWIO."""
     prefix_to_flax = {v: k for k, v in _flax_names(arch, model).items()}
     flat = {}
-    for name, t in model.state_dict().items():
+    for name, t in tensors.items():
         prefix, leaf = name.rsplit(".", 1)
         arr = t.detach().cpu().numpy().astype(np.float32)
         if leaf == "weight":
             flat[f"{prefix_to_flax[prefix]}/kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
         else:
             flat[f"{prefix_to_flax[prefix]}/bias"] = arr
-    return _nest(flat)
+    return flat
+
+
+def params_to_jax(model: nn.Module, arch: str) -> dict:
+    """The model's parameters as the flax params dict (`Conv_0`, ...): the
+    inverse of params_from_jax, OIHW kernels back to HWIO, float32 numpy."""
+    return _nest(_flax_flat(model.state_dict(), arch, model))
+
+
+ADAM_EPS_ROOT = 0.0
+
+
+def opt_state_to_jax(optimizer, model: nn.Module, arch: str) -> dict:
+    """The GuardedAdam's state as the JAX trainer's optax state in flax's
+    layout (the module docstring); its moments' trees in sorted key order,
+    as jax.tree_util rebuilds them."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    state = optimizer.adam.state
+    steps = {int(state[p]["step"]) for p in optimizer.params if p in state}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters' Adam steps differ: {sorted(steps)}")
+    count = steps.pop() if steps else 0
+
+    def moment(key):
+        tensors = {names[id(p)]: state[p][key] if p in state else torch.zeros_like(p)
+                   for p in optimizer.params}
+        return {"params": _nest(dict(sorted(_flax_flat(tensors, arch, model).items())))}
+
+    adam = {"count": np.asarray(count, np.int32), "mu": moment("exp_avg"),
+            "nu": moment("exp_avg_sq")}
+    inject = {"count": np.asarray(count, np.int32),
+              "hyperparams": {"learning_rate": np.asarray(optimizer.adam.param_groups[0]["lr"],
+                                                       np.float32),
+                              "b1": np.asarray(ADAM_BETAS[0], np.float32),
+                              "b2": np.asarray(ADAM_BETAS[1], np.float32),
+                              "eps": np.asarray(ADAM_EPS, np.float32),
+                              "eps_root": np.asarray(ADAM_EPS_ROOT, np.float32)},
+              "hyperparams_states": {}, "inner_state": {"0": adam, "1": {}}}
+    chain = {"0": {}, "1": inject} if optimizer.clip is not None else {"0": inject}
+    return {"notfinite_count": np.asarray(optimizer.notfinite_count, np.int32),
+            "last_finite": np.asarray(optimizer.last_finite, np.bool_),
+            "total_notfinite": np.asarray(optimizer.total_notfinite, np.int32),
+            "inner_state": chain}
+
+
+def _keys(tree: dict, where: str, want) -> None:
+    if not isinstance(tree, dict) or set(tree) != set(want):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"optimizer state {where}: keys {got}, expected {sorted(want)}")
+
+
+def opt_state_from_jax(tree: dict, optimizer, model: nn.Module, arch: str) -> None:
+    """Load the JAX trainer's optax state (flax's layout, as read_msgpack
+    decodes it) into the GuardedAdam: Adam's step, moments and learning
+    rate, and the guard's counters. The chain must match the optimizer's
+    (with or without the clip)."""
+    _keys(tree, "", ("notfinite_count", "last_finite", "total_notfinite", "inner_state"))
+    chain = tree["inner_state"]
+    _keys(chain, "inner_state", ("0", "1") if optimizer.clip is not None else ("0",))
+    inject = chain[str(len(chain) - 1)]
+    _keys(inject, "of inject_hyperparams",
+          ("count", "hyperparams", "hyperparams_states", "inner_state"))
+    adam = inject["inner_state"]["0"]
+    _keys(adam, "of adam", ("count", "mu", "nu"))
+    hyper = {k: float(v) for k, v in inject["hyperparams"].items()}
+    want = {"b1": ADAM_BETAS[0], "b2": ADAM_BETAS[1], "eps": ADAM_EPS, "eps_root": ADAM_EPS_ROOT}
+    for key, value in want.items():
+        if hyper.get(key) != value:
+            raise ValueError(f"optimizer state: {key} {hyper.get(key)}, the port's Adam has "
+                             f"{value}")
+    mu = params_from_jax(adam["mu"]["params"], arch, model)
+    nu = params_from_jax(adam["nu"]["params"], arch, model)
+    count = int(adam["count"])
+    for name, p in model.named_parameters():
+        if count == 0:
+            optimizer.adam.state.pop(p, None)
+            continue
+        optimizer.adam.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                                   "exp_avg": mu[name].to(p.device, p.dtype),
+                                   "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    optimizer.set_learning_rate(hyper["learning_rate"])
+    optimizer.notfinite_count = int(tree["notfinite_count"])
+    optimizer.last_finite = bool(tree["last_finite"])
+    optimizer.total_notfinite = int(tree["total_notfinite"])
 
 
 def _pack_len(out: bytearray, n: int, fix_base: Optional[int], fix_max: int, codes) -> None:
@@ -239,18 +338,38 @@ def pack_msgpack(tree: Any) -> bytes:
     return bytes(out)
 
 
-def save_checkpoint(ckpt_dir: str, model: nn.Module, arch: str,
+def epoch_path(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, f"model_epoch{epoch:04d}.msgpack")
+
+
+def save_checkpoint(ckpt_dir: str, model: nn.Module, arch: str, optimizer=None,
                     epoch: Optional[int] = None) -> str:
-    """Write the model's parameters as the JAX package's `model.msgpack`
-    (`model_epoch%04d.msgpack` for an epoch), readable by both packages'
-    karman-apply. The optimizer state is not written (its resume is not
-    ported)."""
+    """Write the model's parameters, and the optimizer's state if one is
+    given, as the JAX package's `model.msgpack` (`model_epoch%04d.msgpack`
+    for an epoch): {"params": {"params": ...}, "opt_state": ...}, readable
+    by both packages' apply CLIs and resumable by both trainers."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    name = "model.msgpack" if epoch is None else f"model_epoch{epoch:04d}.msgpack"
-    path = os.path.join(ckpt_dir, name)
+    path = os.path.join(ckpt_dir, "model.msgpack") if epoch is None else epoch_path(ckpt_dir, epoch)
+    payload = {"params": {"params": params_to_jax(model, arch)}}
+    if optimizer is not None:
+        payload["opt_state"] = opt_state_to_jax(optimizer, model, arch)
     with open(path, "wb") as f:
-        f.write(pack_msgpack({"params": {"params": params_to_jax(model, arch)}}))
+        f.write(pack_msgpack(payload))
     return path
+
+
+def load_epoch_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module, arch: str,
+                          optimizer) -> bool:
+    """Load `model_epoch%04d.msgpack` of either package into the model and
+    the optimizer; returns whether the file held an optimizer state (without
+    one the optimizer is left as it is, as the JAX loader keeps its
+    template)."""
+    tree = read_msgpack(epoch_path(ckpt_dir, epoch))
+    model.load_state_dict(params_from_jax(tree["params"]["params"], arch, model), strict=True)
+    if "opt_state" not in tree:
+        return False
+    opt_state_from_jax(tree["opt_state"], optimizer, model, arch)
+    return True
 
 
 def save_stats(ckpt_dir: str, stats: Dict) -> None:

@@ -27,23 +27,22 @@ from solver_in_the_loop_torch.utils.stats import abs_std
 log = logging.getLogger(__name__)
 
 
-def _ds_path(path: str) -> str:
-    """Downsampled-cache filename next to the original ('ds_' prefix,
-    reference karman_train.py:258-259)."""
-    d, b = os.path.split(path)
-    return os.path.join(d, "ds_" + b)
-
-
-def _downsample_centered_file(src: str, dst: str, scale: int) -> None:
-    arr = scene_io.read_array(src)  # (1, Y, X, 1)
-    lo = downsample_centered(torch.from_numpy(np.ascontiguousarray(arr[..., 0])), scale)
-    scene_io.write_array(dst, lo.numpy()[..., None])
-
-
-def _downsample_staggered_file(src: str, dst: str, scale: int) -> None:
-    u, v = scene_io.legacy_to_staggered(scene_io.read_array(src))
-    u_lo, v_lo = downsample_staggered(torch.from_numpy(u), torch.from_numpy(v), scale)
-    scene_io.write_array(dst, scene_io.staggered_to_legacy(u_lo.numpy(), v_lo.numpy()))
+def write_ds_cache(sc: Scene, name: str, frames, scale: int, staggered: bool) -> None:
+    """The `ds_` cache of frames `frames` of `name` (reference
+    karman_train.py:258-259: a 'ds_'-prefixed file beside each hi-res one):
+    the frames without one are read, downsampled by `scale` and written on
+    the frame writer's pool."""
+    todo = [f for f in frames if not os.path.isfile(sc.frame_path("ds_" + name, f))]
+    if not todo:
+        return
+    hi = sc.read_batch(name, todo)
+    if staggered:
+        u, v = (torch.from_numpy(a) for a in scene_io.legacy_to_staggered(hi))
+        u_lo, v_lo = downsample_staggered(u, v, scale)
+        sc.write_staggered_batch("ds_" + name, todo, u_lo.numpy(), v_lo.numpy())
+    else:
+        lo = downsample_centered(torch.from_numpy(np.ascontiguousarray(hi[..., 0])), scale)
+        sc.write_centered_batch("ds_" + name, todo, lo.numpy())
 
 
 @dataclasses.dataclass
@@ -92,14 +91,8 @@ def load_karman_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] =
 
     if not skip_preprocessing:
         for sc in scenes:
-            for frame in sc.frames("dens")[:num_frames]:
-                src = sc.frame_path("dens", frame)
-                if not os.path.isfile(_ds_path(src)):
-                    _downsample_centered_file(src, _ds_path(src), scale)
-            for frame in sc.frames("velo")[:num_frames]:
-                src = sc.frame_path("velo", frame)
-                if not os.path.isfile(_ds_path(src)):
-                    _downsample_staggered_file(src, _ds_path(src), scale)
+            write_ds_cache(sc, "dens", sc.frames("dens")[:num_frames], scale, staggered=False)
+            write_ds_cache(sc, "velo", sc.frames("velo")[:num_frames], scale, staggered=True)
 
     dens, us, vs, res = [], [], [], []
     for sc in scenes:
@@ -108,10 +101,10 @@ def load_karman_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] =
         if len(d_frames) < num_frames or len(v_frames) < num_frames:
             raise ValueError(f"{sc.path}: need {num_frames} cached frames, found "
                              f"{len(d_frames)} ds_dens and {len(v_frames)} ds_velo")
-        dens.append(np.stack([sc.read_centered("ds_dens", f)[0] for f in d_frames]))
-        uv = [sc.read_staggered("ds_velo", f) for f in v_frames]
-        us.append(np.stack([x[0][0] for x in uv]))
-        vs.append(np.stack([x[1][0] for x in uv]))
+        dens.append(sc.read_batch("ds_dens", d_frames)[..., 0])
+        u, v = scene_io.legacy_to_staggered(sc.read_batch("ds_velo", v_frames))
+        us.append(u)
+        vs.append(v)
         res.append(float(sc.read_params()["re"]))
 
     data = KarmanDataset(dens=np.stack(dens), u=np.stack(us), v=np.stack(vs),
@@ -168,10 +161,7 @@ def load_burgers_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] 
     if not skip_preprocessing:
         for sc in scenes:
             for name in ("velo", "forc"):
-                for frame in sc.frames(name)[:num_frames]:
-                    src = sc.frame_path(name, frame)
-                    if not os.path.isfile(_ds_path(src)):
-                        _downsample_staggered_file(src, _ds_path(src), scale)
+                write_ds_cache(sc, name, sc.frames(name)[:num_frames], scale, staggered=True)
 
     fields = {k: [] for k in ("u", "v", "fu", "fv")}
     for sc in scenes:
@@ -180,9 +170,9 @@ def load_burgers_dataset(dirpath: str, num_frames: int, num_sims: Optional[int] 
             if len(frames) < num_frames:
                 raise ValueError(f"{sc.path}: need {num_frames} cached frames, found "
                                  f"{len(frames)} {name}")
-            uv = [sc.read_staggered(name, f) for f in frames]
-            fields[ku].append(np.stack([x[0][0] for x in uv]))
-            fields[kv].append(np.stack([x[1][0] for x in uv]))
+            u, v = scene_io.legacy_to_staggered(sc.read_batch(name, frames))
+            fields[ku].append(u)
+            fields[kv].append(v)
 
     data = BurgersDataset(**{k: np.stack(v) for k, v in fields.items()}, stats={})
     data.stats = {

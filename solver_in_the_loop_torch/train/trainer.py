@@ -23,10 +23,17 @@ What differs from the JAX package, and why:
   `set_learning_rate` does.
 * The non-finite test reads one flag from the device per iteration, which
   is also where the loop synchronizes to time the iteration.
+* `debug_nans` (the CLIs' --debug-nans, the JAX package's jax_debug_nans)
+  raises FloatingPointError at the first NaN: each unrolled step's state
+  and loss are checked as they are made, and the backward pass runs under
+  autograd's anomaly mode, whose NaN check on every backward function's
+  output is turned into that error. An inf alone passes, as it does under
+  jax_debug_nans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -60,6 +67,11 @@ MAX_CONSECUTIVE_ERRORS = 100  # optax.apply_if_finite's limit in make_optimizer
 # iterations without it (solver_in_the_loop_tpu/train/trainer.py:100-108)
 WARMUP_LR_SCALE = 0.1
 LOG_EVERY = 50  # iterations between loss log lines and per-step loss records
+# optax's defaults. inject_hyperparams holds b1, b2 and eps as float32
+# arrays, so the JAX trainer's Adam blends with 1 - float32(0.999) =
+# 0.00099998713, not 0.001: torch's Adam is given the same float32 values
+ADAM_BETAS = (float(np.float32(0.9)), float(np.float32(0.999)))
+ADAM_EPS = float(np.float32(1e-8))
 
 
 def lr_schedule_step(epoch: int, current_lr: float) -> float:
@@ -98,22 +110,27 @@ class SolTrainConfig:
     remat: bool = True
     remat_policy: str = "pressure+conv"  # pressure | pressure+conv | pressure+advect
     warmup_epochs: int = 0  # at lr * WARMUP_LR_SCALE; the karman CLI defaults it to 1
+    debug_nans: bool = False  # raise FloatingPointError at the first NaN (see the module doc)
 
 
 class GuardedAdam:
     """`optax.apply_if_finite(chain(clip_by_leaf_norm(0.001), adam), 100)` on
-    torch.optim.Adam (b1 0.9, b2 0.999, eps 1e-8, as optax's defaults).
+    torch.optim.Adam (ADAM_BETAS, ADAM_EPS: optax's defaults in float32).
 
     `step` applies the update unless a raw gradient is not finite. A skipped
     update leaves the parameters and Adam's moments untouched; after more than
     `MAX_CONSECUTIVE_ERRORS` non-finite gradients in a row it applies anyway.
-    `total_notfinite` counts every non-finite gradient, applied or not."""
+    `notfinite_count` counts the non-finite gradients in a row,
+    `last_finite` says whether the last one was finite and `total_notfinite`
+    counts every non-finite gradient, applied or not: optax's three counters,
+    which an epoch checkpoint keeps (train/checkpoint.py)."""
 
     def __init__(self, params, cfg: SolTrainConfig):
         self.params = list(params)
-        self.adam = torch.optim.Adam(self.params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        self.adam = torch.optim.Adam(self.params, lr=cfg.lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self.clip = CLIP_NORM if cfg.clip_grad else None
         self.notfinite_count = 0
+        self.last_finite = True
         self.total_notfinite = 0
 
     def set_learning_rate(self, lr: float) -> None:
@@ -127,6 +144,7 @@ class GuardedAdam:
         """Update from the parameters' .grad; returns whether it applied."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        self.last_finite = finite
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
         if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
@@ -176,6 +194,37 @@ def _checkpointed(step: Callable, cfg: SolTrainConfig) -> Callable:
                              context_fn=context_fn)
 
 
+def _check_nan(cfg: SolTrainConfig, step: int, **tensors: torch.Tensor) -> None:
+    """Under cfg.debug_nans, raise FloatingPointError if a tensor holds a NaN."""
+    if not cfg.debug_nans:
+        return
+    for name, t in tensors.items():
+        if bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in {name} of unrolled step {step} (--debug-nans)")
+
+
+def _backward(loss: torch.Tensor, cfg: SolTrainConfig) -> None:
+    """loss.backward(); under cfg.debug_nans in anomaly mode, its NaN check
+    raised as FloatingPointError."""
+    if not cfg.debug_nans:
+        loss.backward()
+        return
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            loss.backward()
+    except RuntimeError as err:
+        if "nan" not in str(err).lower():
+            raise
+        raise FloatingPointError(f"NaN in the backward pass (--debug-nans): {err}") from err
+
+
+def _forward_context(cfg: SolTrainConfig):
+    """Anomaly mode over the forward pass under cfg.debug_nans, so that a NaN
+    found in the backward is reported with the forward op that made it."""
+    return torch.autograd.detect_anomaly(check_nan=True) if cfg.debug_nans \
+        else contextlib.nullcontext()
+
+
 def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
                 data: Dict[str, torch.Tensor], idx: torch.Tensor, cfg: SolTrainConfig,
                 wgt: Optional[torch.Tensor] = None):
@@ -219,6 +268,7 @@ def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
         dens, u, v, p, iters = run_step(dens, u, v, x0)
         step_losses.append(torch.sum(w * (l2_loss_rows((gt_v[k] - v) / std_v)
                                           + l2_loss_rows((gt_u[k] - u) / std_u))))
+        _check_nan(cfg, k, density=dens, u=u, v=v, pressure=p, loss=step_losses[-1])
         p1, p2, p3 = p.detach(), p1, p2
         cg_iters.append(iters)
     step_losses = torch.stack(step_losses)
@@ -232,8 +282,9 @@ def make_karman_train_step(flow: KarmanFlow, model: nn.Module, optimizer: Guarde
 
     def train_step(data, norm, idx, wgt=None):
         optimizer.zero_grad()
-        loss, step_losses, cg_iters = karman_loss(flow, model, norm, data, idx, cfg, wgt)
-        loss.backward()
+        with _forward_context(cfg):
+            loss, step_losses, cg_iters = karman_loss(flow, model, norm, data, idx, cfg, wgt)
+        _backward(loss, cfg)
         applied = optimizer.step()
         return loss.detach(), step_losses.detach(), cg_iters, applied
 
@@ -280,6 +331,7 @@ def burgers_loss(flow: BurgersFlow, model: nn.Module, norm: Normalization,
         u, v = run_step(u, v, f_u[k], f_v[k])
         step_losses.append(torch.sum(w * (l2_loss_rows((gt_v[k] - v) / std_v)
                                           + l2_loss_rows((gt_u[k] - u) / std_u))))
+        _check_nan(cfg, k, u=u, v=v, loss=step_losses[-1])
     step_losses = torch.stack(step_losses)
     return torch.sum(step_losses) / msteps, step_losses
 
@@ -293,8 +345,10 @@ def make_burgers_train_step(flow: BurgersFlow, model: nn.Module, optimizer: Guar
 
     def train_step(data, norm, idx, wgt=None):
         optimizer.zero_grad()
-        loss, step_losses = burgers_loss(flow, model, norm, data, idx, cfg, dt, use_force, wgt)
-        loss.backward()
+        with _forward_context(cfg):
+            loss, step_losses = burgers_loss(flow, model, norm, data, idx, cfg, dt, use_force,
+                                             wgt)
+        _backward(loss, cfg)
         applied = optimizer.step()
         return loss.detach(), step_losses.detach(), None, applied
 
@@ -313,19 +367,28 @@ class TrainResult:
 
 def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tensor],
                  norm: Normalization, schedule: EpochSchedule, cfg: SolTrainConfig,
-                 on_epoch_end: Optional[Callable] = None, metrics_writer=None) -> TrainResult:
+                 start_epoch: int = 0, on_epoch_end: Optional[Callable] = None,
+                 metrics_writer=None) -> TrainResult:
     """Epoch loop of solver_in_the_loop_tpu/train/trainer.py `run_training`
     (reference karman_train.py:483-514): the epoch's learning rate (the
     --adplr schedule, times WARMUP_LR_SCALE in warm-up epochs), one train step
     per index row, the loss logged every LOG_EVERY iterations and written
     to the metrics writer. Timing: each iteration ends when its loss has been
-    read from the device, after the guard has read its gradients' flag."""
+    read from the device, after the guard has read its gradients' flag.
+
+    A resumed run (`start_epoch` N > 0) skips epochs 0..N-1 as the JAX loop
+    does: each still draws its shuffle, so the data order stays that of an
+    uninterrupted run, and advances the metrics' step; the --adplr schedule
+    is not stepped for them (the reference's own behaviour, kept)."""
     device = data["u"].device
     current_lr = cfg.lr
     losses, iter_seconds, epoch_means, cg_iters = [], [], [], []
     global_step = 0
     for epoch in range(cfg.epochs):
         idx_epoch = torch.from_numpy(schedule.epoch_indices(cfg.msteps).astype(np.int64))
+        if epoch < start_epoch:
+            global_step += idx_epoch.shape[0]
+            continue
         current_lr = lr_schedule_step(epoch, current_lr) if cfg.adplr else cfg.lr
         eff_lr = current_lr * (WARMUP_LR_SCALE if epoch < cfg.warmup_epochs else 1.0)
         optimizer.set_learning_rate(eff_lr)

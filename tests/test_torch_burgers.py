@@ -168,9 +168,13 @@ def test_gen_cli_replay_matches_jax(tmp_path):
         assert _rel(a, b) <= 1e-5
 
 
-def test_gen_refuses_thumbnails(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_cli.main(["burgers-gen", "-o", str(tmp_path), "--thumb", "--device", "cpu"])
+def test_gen_writes_thumbnails(tmp_path):
+    """--thumb writes the four fields' PNGs of every frame, frame 0 included
+    (the JAX app's files and pixels: tests/test_torch_npz_thumbs.py)."""
+    torch_cli.main(["burgers-gen", "-o", str(tmp_path), "-r", "8", "-t", "2", "--thumb",
+                    "--device", "cpu"])
+    assert sorted(os.listdir(tmp_path / "thumb" / "sim_000000")) == [
+        f"{name}_{t:06d}.png" for name in ("frcU", "frcV", "velU", "velV") for t in (0, 1)]
 
 
 def test_dataset_matches_jax(tmp_path):

@@ -11,8 +11,11 @@ held to them.
   pressure+conv) on the inputs of `parity.burgers_train_parity_inputs`: the
   loss, the 4 step losses, every parameter's gradient norm and the head
   conv's gradient.
+* `burgers_train_step_sol04_bf16.npz`: the same step with the net in
+  bfloat16 (`--bf16`) and its convs in the JAX Pallas conv (interpret mode),
+  the path the port's `--bf16 --conv kernel` takes.
 
-Regenerate both with
+Regenerate all three with
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_burgers_golden.py
 
@@ -39,6 +42,7 @@ from solver_in_the_loop_tpu.core.resample import downsample_staggered as jax_dow
 from solver_in_the_loop_tpu.io import scene as jax_scene
 from solver_in_the_loop_tpu.models.features import Normalization as JNormalization
 from solver_in_the_loop_tpu.models.networks import build_model as jax_build_model
+from solver_in_the_loop_tpu.ops.pallas import conv_kernel as ck
 from solver_in_the_loop_tpu.physics import burgers as jb
 from solver_in_the_loop_tpu.train import checkpoint as jax_ckpt
 from solver_in_the_loop_tpu.train import trainer as jtrainer
@@ -89,13 +93,15 @@ def make_apply_golden():
             "u": np.asarray(frames["u"])[:, 0], "v": np.asarray(frames["v"])[:, 0]}
 
 
-def make_train_golden():
+def make_train_golden(bf16: bool = False):
     """The JAX package's Burgers parity step, as parity.parity_summary lays
-    out the port's."""
+    out the port's; with `bf16` the net computes in bfloat16 on the Pallas
+    conv in interpret mode (the caller sets conv_kernel._INTERPRET)."""
     data, idx, stats = parity.burgers_train_parity_inputs()
     dom = jb.burgers_domain(32)
     flow = jb.BurgersFlow(dom, advection="shift", max_shift=2)
-    model = jax_build_model("mars_moon", leaky_slope=stats["leaky_alpha"])
+    model = jax_build_model("mars_moon", leaky_slope=stats["leaky_alpha"],
+                            compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
     params = model.init(jax.random.PRNGKey(0), jnp.zeros((len(idx), dom.ny, dom.nx, 4)))
     params, _ = jax_ckpt.load_checkpoint(os.path.join(CKPT, "model.msgpack"), params)
     cfg = jtrainer.SolTrainConfig(msteps=parity.BURGERS_PARITY_MSTEPS, batch_size=len(idx),
@@ -107,8 +113,8 @@ def make_train_golden():
                                        {k: jnp.asarray(a) for k, a in data.items()}, norm,
                                        jnp.asarray(idx, jnp.int32))
     port = build_model("mars_moon", in_channels=4)
-    grads = params_from_jax(jax.tree_util.tree_map(np.asarray, grads["params"]), "mars_moon",
-                            port)
+    grads = params_from_jax(jax.tree_util.tree_map(lambda g: np.asarray(g, np.float32),
+                                                   grads["params"]), "mars_moon", port)
     names = list(port.state_dict())
     return {"loss": np.float64(loss), "step_losses": np.asarray(step_losses),
             "grad_names": np.asarray(names),
@@ -174,3 +180,6 @@ if __name__ == "__main__":
     print(f"wrote {parity.BURGERS_APPLY_GOLDEN}", file=sys.stderr)
     np.savez_compressed(parity.BURGERS_TRAIN_GOLDEN, **make_train_golden())
     print(f"wrote {parity.BURGERS_TRAIN_GOLDEN}", file=sys.stderr)
+    ck._INTERPRET = True
+    np.savez_compressed(parity.BURGERS_TRAIN_GOLDEN_BF16, **make_train_golden(bf16=True))
+    print(f"wrote {parity.BURGERS_TRAIN_GOLDEN_BF16}", file=sys.stderr)

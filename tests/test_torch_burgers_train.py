@@ -190,10 +190,10 @@ def test_train_cli_end_to_end(tmp_path):
     assert bool(torch.isfinite(frames["u"]).all())
 
 
-@pytest.mark.parametrize("flag", [["--resume", "3"], ["--inittf", "x"], ["--pretf", "x"],
-                                  ["--bf16"], ["--dp"], ["--profile", "x"], ["--debug-nans"]])
-def test_train_cli_refuses_flags_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+@pytest.mark.parametrize("flag,item", [(["--pretf", "x"], "A4"), (["--dp"], "A5")])
+def test_train_cli_refuses_flags_not_ported(tmp_path, flag, item):
+    """The flags still to port; the others work (tests/test_torch_resume.py)."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         torch_cli.main(["burgers-train", "--train", str(tmp_path), *flag, "--device", "cpu"])
 
 

@@ -12,8 +12,10 @@ card to: the tap-sum forward and backward bit for bit on the
 offsets the solver passes, the PCG within one iteration and 1e-4 of the
 solution's max, the unpreconditioned CG within one iteration and 5e-6, both
 bit-equal across launches, the conv forward within 1e-5 and its weight gradient within
-1e-4 of the output's max, a 10-step rollout within 1e-3, one SOL-32 and one
-SOL-04 train step's losses within 1e-4 and gradients within 1e-3.
+1e-4 of the output's max, the bf16 conv forward within one bf16 ulp beyond
+that and its fp32 weight gradient within 1e-5, a 10-step rollout within
+1e-3, one SOL-32 and one SOL-04 train step's losses within 1e-4 and
+gradients within 1e-3, and a bf16 SOL-04 step within TRAIN_PARITY_TOL_BF16.
 """
 
 from __future__ import annotations
@@ -350,6 +352,70 @@ def test_burgers_train_step_with_kernels_matches_plain(device):
     errors = parity.parity_errors(kernel, plain)
     for key, tol in parity.TRAIN_PARITY_TOL.items():
         assert errors[key] <= tol, (key, errors)
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("act,with_skip", [("none", False), ("relu", True), ("leaky_relu", False),
+                                           ("leaky_relu", True)])
+def test_conv_fwd_bf16_kernel_matches_plain(device, shape, act, with_skip):
+    """The bf16 forward kernel (csrc/conv_bf16.cu) within one bf16 ulp of its
+    twin beyond the fp32 sums' tolerance (parity.bf16_errors), one launch."""
+    x, wt, bias, skip = (t.to(torch.bfloat16) for t in _conv_inputs(device, shape))
+    w = wt.permute(2, 3, 1, 0)
+    skip = skip if with_skip else None
+    launches = (kconv.conv_fwd_bf16.launches, kconv.conv_fwd.launches)
+    got = kconv.conv_fwd(x, w, bias, skip, act, 0.3)
+    assert (kconv.conv_fwd_bf16.launches, kconv.conv_fwd.launches) == (launches[0] + 1,
+                                                                       launches[1])
+    assert got.dtype == torch.bfloat16
+    want = kconv.conv_fwd_plain(x, w, bias, skip, act, 0.3)
+    assert parity.bf16_errors(got, want) <= parity.CONV_BF16_ULPS
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_dgrad_and_wgrad_bf16_kernels_match_plain(device, shape):
+    x, wt, _, dz = (t.to(torch.bfloat16) for t in _conv_inputs(device, shape, seed=1))
+    w = wt.permute(2, 3, 1, 0)
+    got = kconv.conv_fwd_bf16(dz, w.transpose(2, 3), flip=True)
+    assert parity.bf16_errors(got, kconv.conv_fwd_plain(dz, w.transpose(2, 3), flip=True)) \
+        <= parity.CONV_BF16_ULPS
+    launches = kconv.conv_wgrad_bf16.launches
+    dw = kconv.conv_wgrad(x, dz, shape[5])
+    assert kconv.conv_wgrad_bf16.launches == launches + 1
+    assert dw.dtype == torch.float32 and dw.permute(3, 2, 0, 1).is_contiguous()
+    assert _rel(dw, kconv.conv_wgrad_plain(x, dz, shape[5])) <= parity.CONV_WGRAD_BF16_REL_TOL
+    assert torch.equal(dw, kconv.conv_wgrad_bf16(x, dz, shape[5]))  # no atomics: the same bits
+
+
+def test_conv_bf16_rejects_bad_input(device):
+    x, wt, bias, _ = (t.to(torch.bfloat16) for t in _conv_inputs(device, (1, 8, 8, 4, 4, 3)))
+    w = wt.permute(2, 3, 1, 0)
+    with pytest.raises(ValueError):
+        kconv.conv_fwd_bf16(x, w.float(), bias)  # mixed dtypes
+    with pytest.raises(ValueError):
+        kconv.conv_fwd_bf16(x.permute(0, 2, 1, 3), w, bias)
+    with pytest.raises(ValueError):
+        kconv.conv_wgrad_bf16(x, x.float(), 3)
+
+
+def test_burgers_bf16_train_step_with_kernels_matches_golden(device):
+    """One SOL-04 step with --bf16 on the bf16 kernels: their launches, and
+    the JAX golden (the Pallas conv in interpret mode) and the plain path
+    within TRAIN_PARITY_TOL_BF16."""
+    launches = (kconv.conv_fwd_bf16.launches, kconv.conv_wgrad_bf16.launches,
+                kconv.conv_fwd.launches)
+    kernel = parity.parity_summary(parity.burgers_parity_step(device, "kernel",
+                                                              compute_dtype=torch.bfloat16))
+    assert (kconv.conv_fwd_bf16.launches, kconv.conv_wgrad_bf16.launches,
+            kconv.conv_fwd.launches) == (launches[0] + 95, launches[1] + 48, launches[2])
+    with parity.plain_path():
+        plain = parity.parity_summary(parity.burgers_parity_step(device, "kernel",
+                                                                 compute_dtype=torch.bfloat16))
+    golden = parity.train_golden_summary(parity.BURGERS_TRAIN_GOLDEN_BF16)
+    for against in (plain, golden):
+        errors = parity.parity_errors(kernel, against)
+        for key, tol in parity.TRAIN_PARITY_TOL_BF16.items():
+            assert errors[key] <= tol, (key, errors)
 
 
 def _cg_problem(device, batch, dom=None, seed=0):

@@ -7,7 +7,8 @@
   downsampled), the Makefile's lo-res source runs at a small size, with the
   FD preconditioner and without it (the JAX side solves with its XLA FD-PCG
   either way): frames 0..4;
-* the rollout's `collect_from`, the refusals (`--thumb`, one init file).
+* the rollout's `collect_from`, the refusals (one init file, unstable
+  diffusion); `--thumb` is held to the JAX app in tests/test_torch_npz_thumbs.py.
 
 Tolerances. Diffusion, advection and downsampling are the same float32
 formulas; the pressure solves stop at the CG tolerance 1e-5 of ||b||, an
@@ -102,9 +103,7 @@ def test_rollout_collect_from_keeps_the_warm_start_history():
         assert val.shape[0] == 3 and torch.equal(val, full[key][4:]), key
 
 
-def test_gen_refuses_thumbnails_and_one_init_file(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        torch_cli.main(["karman-gen", "-o", str(tmp_path), "--thumb", "--device", "cpu"])
+def test_gen_refuses_one_init_file(tmp_path):
     with pytest.raises(ValueError, match="both"):
         torch_cli.main(["karman-gen", "-o", str(tmp_path), "--initdH", "x.npz",
                         "--device", "cpu"])

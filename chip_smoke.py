@@ -105,7 +105,12 @@ line; without CUDA, or outside a checkout, it exits 1 at once.
     python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]
 
 runs only the CG kernels' fixed-iteration timing, built from each DIR (see
-`cg_split`). """
+`cg_split`), and
+
+    python3 chip_smoke.py --conv-split LABEL=DIR [LABEL=DIR ...]
+
+only the bf16 weight gradient's, at every CONV_BF16_GRAD_CASES shape beside
+cuDNN's, built from each DIR (see `conv_split`). """
 
 from __future__ import annotations
 
@@ -835,13 +840,17 @@ CONV_BF16_GRAD_CASES = [
     (5, 32, 32, 32, 2, 5, "burgers train: head"),
     (3, 64, 32, 32, 32, 5, "karman train: block"),
     (5, 32, 32, 32, 32, 3, "3x3"),
+    (3, 64, 32, 3, 32, 5, "karman train: stem"),
+    (3, 64, 32, 32, 2, 5, "karman train: head"),
 ]
 
 
 def conv_bf16_launch(shape, dgrad: bool = False):
     """The launch configuration csrc/conv_bf16.cu takes for a conv of `shape`
     (B, H, W, Cin, Cout, K): the forward's grid, block and shared memory, and
-    the weight gradient's cluster."""
+    the weight gradient's plan (kernels/conv.py `wgrad_bf16_plan`)."""
+    from solver_in_the_loop_torch.kernels.conv import wgrad_bf16_plan
+
     b, h, w, cin, cout, k = shape
     if dgrad:
         cin, cout = cout, cin
@@ -851,14 +860,7 @@ def conv_bf16_launch(shape, dgrad: bool = False):
            "smem_bytes": 2 * ((4 + k - 1) * (16 + k - 1) * cs + k * k * 16 * cs)}
     if dgrad:
         return fwd
-    seg = min(-(-w // 16) * 16, 64)
-    per_stage = max(1, 256 // seg)
-    units = b * h * -(-w // seg)
-    ranks = max(1, min(8, -(-units // per_stage)))
-    wgrad = {"grid": [ranks, k * -(-cin // 16) * -(-cout // 16)], "cluster": ranks,
-             "block": 64 * k, "pixels_per_unit": seg, "units": units,
-             "smem_bytes": max(2 * per_stage * (seg + k - 1 + seg) * 24, 4 * 2 * k * 256)}
-    return fwd, wgrad
+    return fwd, wgrad_bf16_plan(*shape)
 
 
 def conv_bf16_kernel_cases(device):
@@ -2126,6 +2128,77 @@ def cg_split(specs) -> int:
     return 0
 
 
+def conv_split(specs) -> int:
+    """`python3 chip_smoke.py --conv-split LABEL=DIR [LABEL=DIR ...]`: only the
+    weight-gradient kernel of conv_bf16.cu, built from each DIR (csrc/ or a
+    copy of it, an earlier version or a variant), one nvcc per DIR, all
+    started together. Each CONV_BF16_GRAD_CASES shape is timed for every
+    label in turn, the labels in order and then in reverse, beside cuDNN's
+    bf16 weight gradient; one JSON line per label with its ptxas report, its
+    ms per shape (both passes), its error against the twin and whether a
+    second launch gives the same bits."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from solver_in_the_loop_torch.kernels import build, conv
+
+    device = torch.device("cuda", 0)
+    libs = {}
+    for spec in specs:  # each label's library, named as build.py names it
+        label, src = spec.split("=", 1)
+        build.CSRC = Path(src).resolve()
+        build.BUILD_DIR = Path(REPO, "build", "kernels_split", label)
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = build._lib_path("conv_bf16")
+        cmd = [build.nvcc_path(), *build.COMMON_FLAGS, *build.SOURCES["conv_bf16"], "-o",
+               str(out), str(build.CSRC / "conv_bf16.cu")]
+        libs[label] = (src, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True))
+    fns, lines = {}, {}
+    for label, (src, out, proc) in libs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc failed for {src}:\n{log}")
+        fn = ctypes.CDLL(str(out)).silt_conv_wgrad_bf16
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+        lines[label] = {"phase": "conv_split", "label": label, "csrc": src,
+                        "ptxas": [ln for ln in log.splitlines()
+                                  if "wgrad" in ln or "spill" in ln or "Used" in ln],
+                        "cases": []}
+    key = ("conv_bf16", "silt_conv_wgrad_bf16")
+    gen = torch.Generator(device=device).manual_seed(2)
+    for *shape, where in CONV_BF16_GRAD_CASES:
+        b, h, wd, cin, cout, k = shape
+        x = torch.randn((b, h, wd, cin), generator=gen, device=device).to(torch.bfloat16)
+        dz = torch.randn((b, h, wd, cout), generator=gen, device=device).to(torch.bfloat16)
+        wt = torch.zeros((cout, cin, k, k), device=device, dtype=torch.bfloat16)
+        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+        want = conv.conv_wgrad_plain(x, dz, k)
+        cases = {}
+        for label in list(fns) + list(fns)[::-1]:
+            build._functions[key] = fns[label]
+            got = conv.conv_wgrad_bf16(x, dz, k)
+            torch.cuda.synchronize()
+            case = cases.setdefault(label, {
+                "shape": shape, "where": where, "rel_err": rel_err(got, want),
+                "deterministic": bool(torch.equal(got, conv.conv_wgrad_bf16(x, dz, k))),
+                "ms": [], "bound_ms": conv_wgrad_bf16_bound_ms(shape)[0]})
+            case["ms"].append(time_ms(lambda: conv.conv_wgrad_bf16(x, dz, k), 200))
+        library_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
+            [False, True, False]), 200)
+        for label, case in cases.items():
+            lines[label]["cases"].append({**case, "library_ms": library_ms})
+    build._functions.pop(key, None)
+    for line in lines.values():
+        emit(line)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "solver_in_the_loop_torch")):
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -2141,6 +2214,8 @@ def main() -> int:
     disable_tf32()
     if sys.argv[1:2] == ["--cg-split"]:
         return cg_split(sys.argv[2:])
+    if sys.argv[1:2] == ["--conv-split"]:
+        return conv_split(sys.argv[2:])
     device = torch.device("cuda", 0)
     seconds = {}
 

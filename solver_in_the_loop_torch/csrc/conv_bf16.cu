@@ -42,23 +42,47 @@
 // where Cin is a multiple of 8. The epilogue runs on the accumulators and
 // stores bf16 directly.
 //
-// Weight-gradient design (the layout of csrc/conv.cu's): the B*H*W pixel
-// rows are split over a thread-block cluster of up to 8 blocks, whose
-// partial sums are added through distributed shared memory in rank order:
-// one launch, no atomics, the same bits on every launch. A block owns one
-// tap row ky, 16 input and 16 output channels; its warps are the K taps kx,
-// twice (two groups that take alternate row segments). Rows are staged one
-// stage of up to 256 pixels at a time, [pixel][16 channels], 16 bytes per
-// load where the channel counts are multiples of 8; each fragment pairs two
-// pixels of one channel, loaded as two 16-bit words.
+// Weight-gradient design. dW for one tap row ky is the product of the
+// shifted input rows (K*Cin x M) with dz (M x Cout) over all M = B*H*W
+// pixels. A block owns one tap row ky, one tile of 16 input channels and
+// one of 16 outputs; the M pixels, in units of one image row (segments of
+// at most 64 pixels), are split over a thread-block cluster of up to 8
+// blocks in contiguous shares. A block stages its share WG_PIXELS pixels at
+// a time, both stages in flight at once (cp.async, 16 bytes per copy where
+// the channel count allows), each unit by its own 16 threads: the dz rows
+// [pixel][16 outputs] and the input rows [pixel][16 channels] with their
+// +-r halo, zeros outside the image, at a stride of 48 bytes. Its 8 warps
+// take the 16-pixel slices in turn; per slice a warp loads the dz tile (B)
+// and each tap's input tile (A = x^T) with one `ldmatrix.x4.trans` each and
+// runs both 8-output products per tap, every fragment of the slice loaded
+// before its first product. Where Cin < 16 (the stems) the 16 rows of an
+// A tile are taps/channel pairs, 16 / Cin taps of all Cin channels, so one
+// product covers 4 taps at Cin = 4 and 5 at Cin = 3 where one product per
+// tap would leave 12-13 of its 16 rows zero; those rows are built in shared
+// memory from the image row, copied once as it lies. At the end the warps'
+// sums are added in warp order, and each block writes them, 16 bytes at a
+// time, into the shared memory of the rank that owns them; after one
+// cluster barrier each rank adds its share in rank order and stores it: one
+// launch, no atomics, the same bits on every launch.
 //
 // What bounds them on the H100. The MarsMoon 32->32 conv at the Burgers
 // training shape (5, 32, 32) is 2*M*K*K*Cin*Cout = 262 MFLOP, 0.27 us at
 // 989 TFLOP/s, over about 1 MB of bf16 operands, 0.3 us at 3.35 TB/s: the
 // bytes bound it, barely. `mma.sync` from four warps per block over
-// 160 blocks reaches neither; a block's time is its staged loads' latency
-// and the chain of its warps' products (a first version read the weight 2
-// bytes at a time and took 2.6x as long). No cp.async pipeline, no `wgmma`.
+// 160 blocks reaches neither; a forward block's time is its staged loads'
+// latency and the chain of its warps' products (a first version read the
+// weight 2 bytes at a time and took 2.6x as long). The weight gradient's
+// 160 blocks (Burgers block conv) take about 10 us: the launch and an empty
+// cluster of the same shape about 2.3, the end (partial sums, the cluster
+// barrier, the sums through distributed shared memory) about 2.3, the
+// staging about 3 and the products about 1.5 (chip_smoke.py --conv-split on
+// variants with a part taken out). Each tap row and output tile stages the
+// input rows again, each tap row and channel tile the dz rows: 10x the
+// unique bytes through L2 at 32->32, K = 5; a
+// block that owned all K tap rows (tried) stages each row once but leaves
+// 32 blocks for 132 SMs and sums 5x as many partials per block through
+// distributed shared memory: 25.4 us where this layout then took 14.9.
+// No `wgmma`: the tiles are 16 channels wide.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -99,12 +123,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 
 __device__ __forceinline__ unsigned word(const bf16* p) {
     return *reinterpret_cast<const unsigned*>(p);
-}
-
-// two bf16 from separate addresses as one register, lo in the lower half
-__device__ __forceinline__ unsigned pack(const bf16* lo, const bf16* hi) {
-    return static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(lo))
-           | (static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(hi)) << 16);
 }
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
@@ -348,165 +366,306 @@ int launch_fwd(const bf16* x, const Weight& w, const bf16* bias, const bf16* ski
 
 // -------------------------------------------------------- weight gradient
 
-// A staged pixel holds 16 channels (x) or 16 outputs (dz) at a stride of 24
-// bf16 elements.
-constexpr int WG_CS = 24;
+// The weight gradient's tiling. kernels/conv.py `WGRAD_BF16` holds the same
+// constants and `wgrad_bf16_plan` the same plan (WgPlan, launch_wgrad);
+// tests/test_torch_conv_wgrad_bf16_tiles.py checks the two against each other
+// and walks the partition on the CPU.
+constexpr int WG_RS = 24;       // bf16 elements per staged row (16 used): 48 bytes,
+                                // so 8 rows of an ldmatrix fall on 8 bank groups
 constexpr int WG_SEG = 64;      // pixels of an image row per unit, at most
-constexpr int WG_PIXELS = 256;  // pixels staged per stage
-constexpr int WG_GROUPS = 2;    // warp groups, each taking alternate units
-constexpr int WG_CLUSTER = 8;   // blocks that split the rows, at most
+constexpr int WG_PIXELS = 512;  // pixels per stage
+constexpr int WG_STAGES = 2;    // stages in the ring, all in flight at once
+constexpr int WG_WARPS = 8;     // warps of a block, which take the slices in turn
+constexpr int WG_CLUSTER = 8;   // blocks of a cluster, which split the units
 
-struct WgShape {  // units are (image row, segment) pairs of seg pixels
-    int seg, pw, per_stage, xunit, dunit;
+// A unit is `seg` pixels of one image row. A staged input row s of a unit
+// holds `taps` taps of `cin` channels, [tap * cin + c] = x(row y+ky-r, pixel
+// x0 + s + tap - r, c), or (taps = 1) the 16 channels of the block's tile, so
+// the 16 rows of an A tile are `taps` taps at once where cin < 16, and tap
+// group q's A tile for the slice at pixel p0 is rows p0 + q * taps + [0, 16).
+// Where cin < 16 a stage also has room for each unit's image row as it lies
+// in memory (`raw`), which is copied once and spread into the tap rows.
+struct WgPlan {
+    int seg, segs, units, per_stage, taps, groups, pw, raw, stage_elems;
 
-    __host__ __device__ WgShape(int seg_, int k)
-        : seg(seg_), pw(seg_ + k - 1), per_stage(max(1, WG_PIXELS / seg_)), xunit(pw * WG_CS),
-          dunit(seg_ * WG_CS) {}
-
-    __host__ __device__ int stage_elems() const { return per_stage * (xunit + dunit); }
-    // bytes: the stage's bf16 rows, or the fp32 sums of the end, if more
-    __host__ int bytes(int k) const { return max(2 * stage_elems(), 4 * WG_GROUPS * k * 256); }
+    __host__ __device__ WgPlan(int batch, int h, int wd, int cin, int k)
+        : seg(wd > 0 ? min(round_up(wd, 16), WG_SEG) : 16),
+          segs((wd + seg - 1) / seg),
+          units(batch * h * segs),
+          per_stage(max(1, WG_PIXELS / seg)),
+          taps(cin < 16 ? 16 / cin : 1),
+          groups((k + taps - 1) / taps),
+          pw(seg + (groups - 1) * taps),
+          raw(taps > 1 ? seg * cin : 0),
+          stage_elems(per_stage * ((pw + seg) * WG_RS + raw)) {}
 };
 
+// cp.async of 4, 8 or 16 bytes (v = 2, 4 or 8 bf16); when !valid nothing is
+// read and zeros are written. v = 1 is a plain load and store.
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src, int v, bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    switch (v) {
+        case 8:
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                         :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+            break;
+        case 4:
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                         :: "r"(d), "l"(src), "r"(valid ? 8 : 0) : "memory");
+            break;
+        case 2:
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                         :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+            break;
+        default:
+            *dst = valid ? *src : __float2bfloat16(0.f);
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: lane l gives the address of row l % 8
+// of matrix l / 8, and register i receives matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// log2 of the chunks of one staged row rounded up to a power of two (n <= 16):
+// chunk k of a unit's rows is chunk k % 2^result of row k >> result
+__device__ __forceinline__ int lanes_log2(int n) { return n <= 1 ? 0 : 32 - __clz(n - 1); }
+
+// One slice's products for G tap groups: the dz tile (B, 16 pixels x 16
+// outputs) at db, the A tile of group q at xa + q * step; every fragment
+// loaded before the first product. TWO: outputs 8..15 too.
+template <int K, int G, bool TWO>
+__device__ __forceinline__ void slice_products(float (&acc)[K][2][4], const bf16* xa, int step,
+                                               const bf16* db) {
+    unsigned b[4];
+    unsigned a[G][4];
+    ldmatrix_x4_trans(b, db);
+#pragma unroll
+    for (int q = 0; q < G; ++q) ldmatrix_x4_trans(a[q], xa + q * step);
+    const unsigned b0[2] = {b[0], b[1]};
+    const unsigned b1[2] = {b[2], b[3]};
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+        mma_bf16(acc[q][0], a[q], b0);
+        if (TWO) mma_bf16(acc[q][1], a[q], b1);
+    }
+}
+
+// slice_products for the block's `groups` (1 <= groups <= K), chosen at run time
+template <int K, int G = K>
+__device__ __forceinline__ void products(float (&acc)[K][2][4], const bf16* xa, int step,
+                                         const bf16* db, int groups, bool two) {
+    if constexpr (G > 1) {
+        if (groups < G) {
+            products<K, G - 1>(acc, xa, step, db, groups, two);
+            return;
+        }
+    }
+    if (two) slice_products<K, G, true>(acc, xa, step, db);
+    else slice_products<K, G, false>(acc, xa, step, db);
+}
+
 template <int K>
-__global__ void __launch_bounds__(32 * K * WG_GROUPS)
+__global__ void __launch_bounds__(32 * WG_WARPS)
 conv_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dz,
                        float* __restrict__ dw, long long s_ky, long long s_kx, long long s_c,
-                       long long s_o, int h, int wd, int cin, int cout, int seg, int units,
-                       int vec_x, int vec_dz) {
+                       long long s_o, int batch, int h, int wd, int cin, int cout, int vx,
+                       int vd) {
+    // this block has started: peers may write into its shared memory once
+    // every block of the cluster has arrived here (the wait before the sums)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     extern __shared__ __align__(16) unsigned char wg_smem_raw[];
-    bf16* stage = reinterpret_cast<bf16*>(wg_smem_raw);
-    constexpr int THREADS = 32 * K * WG_GROUPS;
+    bf16* ring = reinterpret_cast<bf16*>(wg_smem_raw);
+    constexpr int THREADS = 32 * WG_WARPS;
+    constexpr int r = K / 2;
     cg::cluster_group cluster = cg::this_cluster();
-    const WgShape s(seg, K);
+    const WgPlan p(batch, h, wd, cin, K);
     const int rank = static_cast<int>(cluster.block_rank());
     const int ranks = static_cast<int>(cluster.num_blocks());
     const int ky = blockIdx.y % K;
     const int cin_tiles = (cin + 15) / 16;
     const int ci0 = (blockIdx.y / K % cin_tiles) * 16;
     const int co0 = (blockIdx.y / K / cin_tiles) * 16;
-    const int r = K / 2;
-    const int warp = threadIdx.x / 32;
-    const int kx = warp % K;     // warp (group, kx) owns tap (ky, kx)
-    const int group = warp / K;  // and the units j of a stage with j % WG_GROUPS == group
-    const int g = (threadIdx.x % 32) / 4;
-    const int t = threadIdx.x % 4;
-    const int segs = (wd + seg - 1) / seg;
-    const int u0 = static_cast<int>(static_cast<long long>(units) * rank / ranks);
-    const int u1 = static_cast<int>(static_cast<long long>(units) * (rank + 1) / ranks);
-    const bf16 zero = __float2bfloat16(0.f);
-    bf16* xs = stage;
-    bf16* ds = stage + s.per_stage * s.xunit;
+    const int tid = static_cast<int>(threadIdx.x);
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int u0 = static_cast<int>(static_cast<long long>(p.units) * rank / ranks);
+    const int u1 = static_cast<int>(static_cast<long long>(p.units) * (rank + 1) / ranks);
+    const int n_st = (u1 - u0 + p.per_stage - 1) / p.per_stage;
+    // Packed tap rows (cin < 16) repeat each pixel `taps` times: where each
+    // image row is whole in one unit and 16-byte aligned, the row is copied
+    // once as it lies, 16 bytes at a time, into the stage's `raw` room and
+    // spread into the tap rows there; otherwise tap by tap, in chunks of vx
+    // elements (plain loads for odd cin, vx = 1).
+    const bool xraw = p.taps > 1 && p.segs == 1 && (wd * cin) % 8 == 0 &&
+                      reinterpret_cast<unsigned long long>(x) % 16 == 0;
+    const int xv = xraw ? 1 : vx;
+    // The staged input and dz rows come in chunks of xv and vd elements,
+    // xsubs and dsubs of them per row; the slots beyond are never written,
+    // and only feed the rows and columns of products that are not stored
+    // (channels >= cin, outputs >= cout). Each unit of a stage is staged by
+    // its own 2^ush threads, chunk k of the unit's rows by thread k % 2^ush.
+    const int xsubs = (p.taps > 1 ? p.taps * cin : min(16, cin - ci0)) / xv;
+    const int dsubs = min(16, cout - co0) / vd;
+    const int xsh = lanes_log2(xsubs);
+    const int dsh = lanes_log2(dsubs);
+    const int ush = 31 - __clz(THREADS / p.per_stage);
+    const int uj = tid >> ush;  // this thread's unit of each stage
+    const int uk = tid & ((1 << ush) - 1);
 
-    float acc[2][4] = {};  // dw(ky, kx, ci0 + [0, 16), co0 + [0, 8) and [8, 16))
-    for (int u = u0; u < u1; u += s.per_stage) {
-        const int n = min(s.per_stage, u1 - u);
-        __syncthreads();  // the previous stage's readers are done
-        // per unit: the input row y+ky-r from the segment's first pixel - r
-        // (with the halo) and the dz row, 16 channels each, zeros outside;
-        // 8 channels (16 bytes) per load where the channel counts allow
-        if (vec_x) {
-            for (int i = threadIdx.x; i < n * s.pw * 2; i += THREADS) {
-                const int j = i / (s.pw * 2);
-                const int p = (i / 2) % s.pw;
-                const int c = (i % 2) * 8;
-                const long long q = (u + j) / segs;
-                const int yy = static_cast<int>(q % h) + ky - r;
-                const int gx = ((u + j) % segs) * seg + p - r;
-                uint4 v = make_uint4(0, 0, 0, 0);
-                if (yy >= 0 && yy < h && gx >= 0 && gx < wd && ci0 + c < cin)
-                    v = *reinterpret_cast<const uint4*>(
-                        x + ((q + ky - r) * wd + gx) * cin + ci0 + c);
-                *reinterpret_cast<uint4*>(xs + j * s.xunit + p * WG_CS + c) = v;
-            }
-        } else {
-            for (int i = threadIdx.x; i < n * s.pw * 16; i += THREADS) {
-                const int j = i / (s.pw * 16);
-                const int p = (i / 16) % s.pw;
-                const int c = i % 16;
-                const long long q = (u + j) / segs;  // image row b*h + y
-                const int yy = static_cast<int>(q % h) + ky - r;
-                const int gx = ((u + j) % segs) * seg + p - r;
-                const bool ok = yy >= 0 && yy < h && gx >= 0 && gx < wd && ci0 + c < cin;
-                xs[j * s.xunit + p * WG_CS + c] =
-                    ok ? x[((q + ky - r) * wd + gx) * cin + ci0 + c] : zero;
+    // stage st into ring slot st % WG_STAGES
+    auto stage_in = [&](int st) {
+        const int u = u0 + st * p.per_stage + uj;
+        if (uj >= p.per_stage || u >= u1) return;
+        bf16* xs = ring + (st % WG_STAGES) * p.stage_elems + uj * p.pw * WG_RS;
+        bf16* ds = ring + (st % WG_STAGES) * p.stage_elems + (p.per_stage * p.pw + uj * p.seg) * WG_RS;
+        bf16* raw = ring + (st % WG_STAGES) * p.stage_elems + p.per_stage * (p.pw + p.seg) * WG_RS +
+                    uj * p.raw;
+        const int q = u / p.segs;  // image row b * h + y
+        const int x0 = (u - q * p.segs) * p.seg;
+        const int yy = q % h + ky - r;
+        const bool row_ok = yy >= 0 && yy < h;
+        const bf16* xrow = x + static_cast<long long>(q + ky - r) * wd * cin;
+        if (xraw) {  // the image row, zeros outside the image
+            for (int i = uk; i < wd * cin / 8; i += 1 << ush)
+                stage_chunk(raw + 8 * i, row_ok ? xrow + 8 * i : x, 8, row_ok);
+        } else {  // the tap rows, zeros outside the image
+            for (int k = uk; k < p.pw << xsh; k += 1 << ush) {
+                const int sub = k & ((1 << xsh) - 1);
+                if (sub >= xsubs) continue;
+                const int s = k >> xsh;
+                const int e = sub * xv;  // the chunk's first slot, its tap and channel
+                const int tap = p.taps > 1 ? e / cin : 0;
+                const int gx = x0 + s + tap - r;
+                const bool ok = row_ok && gx >= 0 && gx < wd;
+                stage_chunk(xs + s * WG_RS + e,
+                            ok ? xrow + gx * cin + (p.taps > 1 ? e - tap * cin : ci0 + e) : x, xv, ok);
             }
         }
-        if (vec_dz) {
-            for (int i = threadIdx.x; i < n * seg * 2; i += THREADS) {
-                const int j = i / (seg * 2);
-                const int p = (i / 2) % seg;
-                const int o = (i % 2) * 8;
-                const long long q = (u + j) / segs;
-                const int gx = ((u + j) % segs) * seg + p;
-                uint4 v = make_uint4(0, 0, 0, 0);
-                if (gx < wd && co0 + o < cout)
-                    v = *reinterpret_cast<const uint4*>(dz + (q * wd + gx) * cout + co0 + o);
-                *reinterpret_cast<uint4*>(ds + j * s.dunit + p * WG_CS + o) = v;
-            }
-        } else {
-            for (int i = threadIdx.x; i < n * seg * 16; i += THREADS) {
-                const int j = i / (seg * 16);
-                const int p = (i / 16) % seg;
-                const int o = i % 16;
-                const long long q = (u + j) / segs;
-                const int gx = ((u + j) % segs) * seg + p;
-                const bool ok = gx < wd && co0 + o < cout;
-                ds[j * s.dunit + p * WG_CS + o] = ok ? dz[(q * wd + gx) * cout + co0 + o] : zero;
-            }
+        const bf16* drow = dz + static_cast<long long>(q) * wd * cout + co0;
+        for (int k = uk; k < p.seg << dsh; k += 1 << ush) {
+            const int sub = k & ((1 << dsh) - 1);
+            if (sub >= dsubs) continue;
+            const int s = k >> dsh;
+            const bool ok = x0 + s < wd;
+            stage_chunk(ds + s * WG_RS + sub * vd, ok ? drow + (x0 + s) * cout + sub * vd : dz, vd, ok);
         }
+    };
+
+    // ldmatrix rows of this lane: A (x^T, 16 channels x 16 pixels) from rows
+    // [pixel][channel], B (16 pixels x 16 outputs) from rows [pixel][output]
+    const int a_off = ((lane & 7) + (lane >> 4) * 8) * WG_RS + ((lane >> 3) & 1) * 8;
+    const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * WG_RS + (lane >> 4) * 8;
+    const int spu = p.seg / 16;  // slices per unit
+    const bool two = cout - co0 > 8;
+    float acc[K][2][4] = {};  // tap group q, outputs co0 + [0, 8) and [8, 16)
+
+    for (int st = 0; st < WG_STAGES - 1; ++st) {
+        if (st < n_st) stage_in(st);
+        cp_async_commit();
+    }
+    for (int st = 0; st < n_st; ++st) {
+        if (st + WG_STAGES - 1 < n_st) stage_in(st + WG_STAGES - 1);
+        cp_async_commit();
+        cp_async_wait<WG_STAGES - 1>();  // stage st has landed
         __syncthreads();
-        for (int j = group; j < n; j += WG_GROUPS) {
-            // A (16 channels x 16 pixels): x(pixel p + kx - r, channel c) at
-            // a + p*WG_CS + c; B (16 pixels x 8 outputs): dz(p, o) at bm + p*WG_CS + o
-            const bf16* a = xs + j * s.xunit + (kx + 2 * t) * WG_CS + g;
-            const bf16* bm = ds + j * s.dunit + 2 * t * WG_CS + g;
-            for (int p = 0; p < seg; p += 16) {
-                unsigned af[4];
-                af[0] = pack(a + p * WG_CS, a + (p + 1) * WG_CS);
-                af[1] = pack(a + p * WG_CS + 8, a + (p + 1) * WG_CS + 8);
-                af[2] = pack(a + (p + 8) * WG_CS, a + (p + 9) * WG_CS);
-                af[3] = pack(a + (p + 8) * WG_CS + 8, a + (p + 9) * WG_CS + 8);
+        const int n = min(p.per_stage, u1 - u0 - st * p.per_stage);
+        bf16* xs = ring + (st % WG_STAGES) * p.stage_elems;
+        const bf16* ds = xs + p.per_stage * p.pw * WG_RS;
+        if (xraw) {  // spread each raw image row into its tap rows, a row per thread
+            const bf16* raw = ds + p.per_stage * p.seg * WG_RS;
+            for (int i = tid; i < n * p.pw; i += THREADS) {
+                const int j = i / p.pw;
+                const int g0 = i - j * p.pw - r;  // the row's first pixel
+                const bf16* src = raw + j * p.raw + g0 * cin;
+                unsigned short v[16];
+                int gx = g0;  // the pixel of slot e: tap e / cin
+                int c = 0;
 #pragma unroll
-                for (int nt = 0; nt < 2; ++nt) {
-                    const bf16* bq = bm + p * WG_CS + 8 * nt;
-                    const unsigned bf[2] = {pack(bq, bq + WG_CS),
-                                            pack(bq + 8 * WG_CS, bq + 9 * WG_CS)};
-                    mma_bf16(acc[nt], af, bf);
+                for (int e = 0; e < 16; ++e) {
+                    v[e] = e < p.taps * cin && gx >= 0 && gx < wd
+                               ? *reinterpret_cast<const unsigned short*>(src + e) : 0;
+                    if (++c == cin) {
+                        c = 0;
+                        ++gx;
+                    }
                 }
+                uint4* dst = reinterpret_cast<uint4*>(xs + i * WG_RS);
+                dst[0] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                                    v[6] | v[7] << 16);
+                dst[1] = make_uint4(v[8] | v[9] << 16, v[10] | v[11] << 16, v[12] | v[13] << 16,
+                                    v[14] | v[15] << 16);
             }
+            __syncthreads();
         }
+        for (int sl = warp; sl < n * spu; sl += WG_WARPS) {
+            const int j = sl / spu;
+            const int p0 = (sl - j * spu) * 16;
+            products<K>(acc, xs + (j * p.pw + p0) * WG_RS + a_off, p.taps * WG_RS,
+                        ds + (j * p.seg + p0) * WG_RS + b_off, p.groups, two);
+        }
+        if (st + WG_STAGES < n_st) __syncthreads();  // slot st % WG_STAGES is staged again
     }
 
-    // the two groups' sums, then the cluster's, added in a fixed order; the
-    // cluster's through distributed shared memory in rank order, each block
-    // adding and writing its share of the K*256 sums
-    __syncthreads();  // every warp is done with the staged rows
-    float* part = reinterpret_cast<float*>(wg_smem_raw);  // [WG_GROUPS][K][16 c][16 o]
-    float* mine = part + warp * 256;
+    // the warps' sums added in warp order, then the cluster's in rank order:
+    // each block writes its sums into the shared memory of the rank that owns
+    // them (a contiguous share, four at a time), past the ring, which a peer
+    // may still be using; the owner adds them after one cluster barrier
+    __syncthreads();  // every warp is done with the ring
+    const int total = p.groups * 256;
+    float* part = reinterpret_cast<float*>(wg_smem_raw);  // [WG_WARPS][group q][2 nt][4][32 lanes]
+    float* recv = reinterpret_cast<float*>(
+        wg_smem_raw + max(2 * WG_STAGES * p.stage_elems, 4 * WG_WARPS * total));  // [ranks][share]
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-        const int o = 8 * nt + 2 * t;
-        mine[g * 16 + o] = acc[nt][0];
-        mine[g * 16 + o + 1] = acc[nt][1];
-        mine[(g + 8) * 16 + o] = acc[nt][2];
-        mine[(g + 8) * 16 + o + 1] = acc[nt][3];
+    for (int q = 0; q < K; ++q) {
+        if (q < p.groups) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                part[warp * total + (q * 8 + i) * 32 + lane] = acc[q][i / 4][i % 4];
+        }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < K * 256; e += THREADS) part[e] += part[K * 256 + e];
-    cluster.sync();
-    const int total = K * 256;
-    const int e0 = total * rank / ranks;
-    const int e1 = total * (rank + 1) / ranks;
-    for (int e = e0 + static_cast<int>(threadIdx.x); e < e1; e += THREADS) {
-        float v = *cluster.map_shared_rank(part + e, 0);
-        for (int q = 1; q < ranks; ++q) v += *cluster.map_shared_rank(part + e, q);
-        const int tx = e / 256;
-        const int c = ci0 + (e / 16) % 16;
-        const int o = co0 + e % 16;
-        if (c < cin && o < cout) dw[ky * s_ky + tx * s_kx + c * s_c + o * s_o] = v;
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer has started
+    const int share = round_up((total + ranks - 1) / ranks, 4);
+    for (int e = 4 * tid; e < total; e += 4 * THREADS) {
+        float4 v = *reinterpret_cast<const float4*>(part + e);
+        for (int w = 1; w < WG_WARPS; ++w) {
+            const float4 u = *reinterpret_cast<const float4*>(part + w * total + e);
+            v.x += u.x;
+            v.y += u.y;
+            v.z += u.z;
+            v.w += u.w;
+        }
+        const int owner = e / share;
+        *reinterpret_cast<float4*>(
+            cluster.map_shared_rank(recv + rank * share + e - owner * share, owner)) = v;
     }
-    cluster.sync();  // no block leaves while a peer may still read its sums
+    cluster.sync();
+    const int e0 = rank * share;
+    const int e1 = min(total, e0 + share);
+    for (int e = e0 + tid; e < e1; e += THREADS) {
+        float v = recv[e - e0];
+        for (int q = 1; q < ranks; ++q) v += recv[q * share + e - e0];
+        // element (group, nt, i, lane) of the accumulators: A row d, output o
+        const int i = (e / 32) % 8;
+        const int d = (e % 32) / 4 + (i % 4 >= 2 ? 8 : 0);
+        const int o = co0 + 8 * (i / 4) + 2 * (e % 4) + i % 2;
+        const int tap = p.taps > 1 ? d / cin : 0;
+        const int kx = (e / 256) * p.taps + tap;
+        const int c = p.taps > 1 ? d - tap * cin : ci0 + d;
+        if (tap < p.taps && kx < K && c < cin && o < cout)
+            dw[ky * s_ky + kx * s_kx + c * s_c + o * s_o] = v;
+    }
 }
 
 struct WgradTag {};
@@ -514,19 +673,19 @@ struct WgradTag {};
 template <int K>
 int launch_wgrad(const bf16* x, const bf16* dz, float* dw, long long s_ky, long long s_kx,
                  long long s_c, long long s_o, int batch, int h, int wd, int cin, int cout,
-                 int vec_x, int vec_dz, cudaStream_t stream) {
-    const int seg = wd > 0 ? min(round_up(wd, 16), WG_SEG) : 16;
-    const int units = wd > 0 ? batch * h * ((wd + seg - 1) / seg) : 0;
-    const WgShape s(seg, K);
-    const int smem = s.bytes(K);
+                 int vx, int vd, cudaStream_t stream) {
+    const WgPlan p(batch, h, wd, cin, K);
+    // at least one stage of units per block
+    const int ranks = max(1, min(WG_CLUSTER, (p.units + p.per_stage - 1) / p.per_stage));
+    const int total = p.groups * 256;
+    const int smem = max(2 * WG_STAGES * p.stage_elems, 4 * WG_WARPS * total) +
+                     4 * ranks * round_up((total + ranks - 1) / ranks, 4);
     cudaError_t err = allow_smem(conv_wgrad_bf16_kernel<K>, smem, smem_allowed<WgradTag, K>());
     if (err != cudaSuccess) return static_cast<int>(err);
-    // at least one stage of rows per block
-    const int ranks = max(1, min(WG_CLUSTER, (units + s.per_stage - 1) / s.per_stage));
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(ranks),
                        static_cast<unsigned>(K * ((cin + 15) / 16) * ((cout + 15) / 16)), 1);
-    cfg.blockDim = dim3(32 * K * WG_GROUPS, 1, 1);
+    cfg.blockDim = dim3(32 * WG_WARPS, 1, 1);
     cfg.dynamicSmemBytes = static_cast<size_t>(smem);
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -536,13 +695,21 @@ int launch_wgrad(const bf16* x, const bf16* dz, float* dw, long long s_ky, long 
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, conv_wgrad_bf16_kernel<K>, x, dz, dw, s_ky, s_kx, s_c, s_o, h,
-                             wd, cin, cout, seg, units, vec_x, vec_dz);
+    err = cudaLaunchKernelEx(&cfg, conv_wgrad_bf16_kernel<K>, x, dz, dw, s_ky, s_kx, s_c, s_o,
+                             batch, h, wd, cin, cout, vx, vd);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+// The widest chunk, in bf16 elements (8, 4, 2 or 1), that divides n and
+// keeps every chunk of a tensor of rows of n elements at p aligned to its size.
+int chunk_width(int n, const void* p) {
+    for (int v = 8; v > 1; v /= 2)
+        if (n % v == 0 && reinterpret_cast<std::uintptr_t>(p) % (2 * v) == 0) return v;
+    return 1;
+}
 
 }  // namespace
 
@@ -590,8 +757,8 @@ extern "C" int silt_conv_wgrad_bf16(const void* x, const void* dz, float* dw, lo
     if (cin == 0 || cout == 0) return 0;
     const auto* xb = static_cast<const bf16*>(x);
     const auto* db = static_cast<const bf16*>(dz);
-    const int vx = cin % 8 == 0 && aligned16(x);
-    const int vd = cout % 8 == 0 && aligned16(dz);
+    const int vx = chunk_width(cin, x);
+    const int vd = chunk_width(cout, dz);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SILT_WGRAD(K) \
     launch_wgrad<K>(xb, db, dw, s_ky, s_kx, s_c, s_o, batch, h, wd, cin, cout, vx, vd, st)

@@ -265,6 +265,45 @@ def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
 conv_wgrad.launches = 0
 
 
+# The tiling constants of csrc/conv_bf16.cu's weight gradient, by their names
+# there (tests/test_torch_conv_wgrad_bf16_tiles.py holds the two to each other).
+WGRAD_BF16 = {"WG_RS": 24, "WG_SEG": 64, "WG_PIXELS": 512, "WG_STAGES": 2, "WG_WARPS": 8,
+              "WG_CLUSTER": 8}
+
+
+def wgrad_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> dict:
+    """The partition `conv_wgrad_bf16` launches for x (b, h, w, cin), dz (b,
+    h, w, cout) and a KxK kernel, as csrc/conv_bf16.cu `WgPlan` and
+    `launch_wgrad` compute it. Units of `seg` pixels of one image row are
+    split over a cluster of `ranks` blocks in contiguous shares, `per_stage`
+    units per stage. A block owns one tap row ky, one tile of input channels
+    and one of 16 outputs; where cin < 16 the 16 rows of an A tile are `taps`
+    taps of `cin` channels (else one tap of a 16-channel tile), `groups` such
+    tiles per tap row; `pw` staged input rows per unit, `raw` elements of
+    room per unit for an image row as it lies in memory (cin < 16). Also the
+    grid (ranks, K x channel tiles x output tiles), the block's threads and
+    its shared memory in bytes: the ring of stages, or the warps' sums if
+    more, then the cluster's receiving room, `share` sums per rank."""
+    c = WGRAD_BF16
+    seg = min(-(-w // 16) * 16, c["WG_SEG"]) if w > 0 else 16
+    segs = -(-w // seg)
+    units = b * h * segs
+    per_stage = max(1, c["WG_PIXELS"] // seg)
+    taps = 16 // cin if cin < 16 else 1
+    groups = -(-k // taps)
+    pw = seg + (groups - 1) * taps
+    raw = seg * cin if taps > 1 else 0
+    stage_elems = per_stage * ((pw + seg) * c["WG_RS"] + raw)
+    ranks = max(1, min(c["WG_CLUSTER"], -(-units // per_stage)))
+    total = groups * 256
+    share = -(-(-(-total // ranks)) // 4) * 4
+    smem = max(2 * c["WG_STAGES"] * stage_elems, 4 * c["WG_WARPS"] * total) + 4 * ranks * share
+    return {"seg": seg, "segs": segs, "units": units, "per_stage": per_stage, "taps": taps,
+            "groups": groups, "pw": pw, "raw": raw, "ranks": ranks, "share": share,
+            "grid": [ranks, k * -(-cin // 16) * -(-cout // 16)], "cluster": ranks,
+            "block": 32 * c["WG_WARPS"], "smem_bytes": smem}
+
+
 def conv_wgrad_bf16(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
     """conv_wgrad of bfloat16 x and dz: the products summed and returned in
     float32, as conv_wgrad returns its result (the VJP rounds it to bf16).

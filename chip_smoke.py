@@ -18,8 +18,13 @@ each printing one JSON line:
                   max_shift 1 and 3, with each launch's grid and block; the
                   CG kernels also at a shape off their 16x8 tiles, with a
                   second launch's bits), with its time, the twin's and its
-                  bound; and both CG kernels at fixed iteration counts, the
-                  time of one iteration and of the set-up
+                  bound; both CG kernels at fixed iteration counts, the
+                  time of one iteration and of the set-up; and
+                  solve_pressure where its route is not the 64x32 kernel
+                  (the plain FD-PCG loop at a batch above 128, the CG
+                  kernels' general layouts at -r 48, -r 65 and 128x64),
+                  against the CPU, with its time per solve and the plain
+                  loop's iterations in float32 and float64 on both devices
 4. apply        — `karman-apply` through the CLI entry point at the full width
                   of the SOL-32 MarsMoon checkpoint (artifacts/a3_k_sol32), 500
                   steps at batch 1 and at batch 5, each after a one-step
@@ -56,7 +61,11 @@ each printing one JSON line:
                   (tests/data/torch_port/burgers_train_step_sol04_bf16.npz),
                   the plain path and cuDNN's bf16 conv; a SOL-32 step's
                   bf16 launches
-11c. resume     — `burgers-train --conv kernel` for 11 epochs, and for 10
+11c. karman_train_bf16 — `karman-train --bf16 --conv kernel` through the CLI
+                  on the train phase's set cut to 8 iterations: finite
+                  losses, an update applied, 767 bf16 convs and 384 bf16
+                  weight gradients per iteration
+11d. resume     — `burgers-train --conv kernel` for 11 epochs, and for 10
                   then `--resume 10 --epochs 11`: the same parameters, bit
                   for bit
 12. burgers_apply — `burgers-apply --conv kernel` through the CLI: the
@@ -107,13 +116,16 @@ line; without CUDA, or outside a checkout, it exits 1 at once.
 runs only the CG kernels' fixed-iteration timing, built from each DIR (see
 `cg_split`), and
 
-    python3 chip_smoke.py --conv-split LABEL=DIR [LABEL=DIR ...]
+    python3 chip_smoke.py --conv-split [fwd] LABEL=DIR [LABEL=DIR ...]
 
 only the bf16 weight gradient's, at every CONV_BF16_GRAD_CASES shape beside
-cuDNN's, built from each DIR (see `conv_split`). """
+cuDNN's, or with `fwd` the bf16 forward's at every CONV_BF16_CASES shape and
+as the input gradient at every CONV_BF16_GRAD_CASES shape, built from each
+DIR (see `conv_split`). """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -206,15 +218,19 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def time_ms(fn, n: int) -> float:
-    """Mean device time of fn over n back-to-back calls, by CUDA events.
+def time_ms(fn, n: int, reps: int = 3) -> float:
+    """Mean device time of fn over n back-to-back calls, by CUDA events; the
+    least of `reps` such runs.
 
     The calls are queued behind a spin kernel that outlasts their host-side
     issue time, so for a function that does not synchronize, the events see
     the device run the n calls back to back and not the host's issue rate (a
-    kernel of a few microseconds is shorter than its Python wrapper). A
-    function that synchronizes (the plain PCG's .item() stop checks) is timed
-    as it runs, host time included."""
+    kernel of a few microseconds is shorter than its Python wrapper). Where
+    the host is held up beyond the spin (its cores are shared), a run sees
+    the issue rate instead: 34 us for a 7 us kernel once in a run of the
+    whole script; the least of the runs is the device's. A function that
+    synchronizes (the plain PCG's .item() stop checks) is timed as it runs,
+    host time included."""
     import torch
 
     fn()
@@ -225,13 +241,16 @@ def time_ms(fn, n: int) -> float:
     torch.cuda.synchronize()
     issue_s = (time.perf_counter() - t0) / 3 * n
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(1.5 * issue_s, 0.5) * 2e9))  # ~2 GHz SM clock
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(min(1.5 * issue_s, 0.5) * 2e9))  # ~2 GHz SM clock
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / n)
+    return min(runs)
 
 
 def rel_err(a, b) -> float:
@@ -537,6 +556,98 @@ def cg_problems(device):
             + [karman_rhs(RE_B5[:2], device, res=ODD_RES)])
 
 
+# (Re values, res, precon) beside the 64x32 kernel cases: a batch above
+# MAX_BATCH at 64x32, the plain FD-PCG loop with either precon; off
+# multigrid's sizes at -r 48 and -r 65, and at 128x64, the kernels' general
+# layouts (the PCG's three or six tiles a warp, the plain CG's 12 cells a
+# thread)
+ROUTE_CASES = [(RE_B8 * 16 + RE_B1, 32, "fd"), (RE_B8 * 16 + RE_B1, 32, "none"),
+               (RE_B1, 48, "fd"), (RE_B1, 65, "fd"), (RE_B1, 65, "none"), (RE_B5[:2], 64, "fd")]
+
+
+def pressure_route_cases(device):
+    """solve_pressure at ROUTE_CASES on real karman right-hand sides, cold,
+    under autograd (the adjoint is a cold solve by the same solver): the
+    route and its launches (two of the kernel the route names, none on the
+    plain route), the iterations, solution and gradient of a random
+    cotangent against the CPU's with the same precon, and the wall ms of one
+    solve, host included (the plain loop reads the host once per iteration),
+    beside multigrid's where the card took it before the PCG kernel did.
+    The iterations are held to those of the route's function in the plain
+    loop (FD-PCG, or CG without the preconditioner) on the CPU; as a
+    witness, that loop runs in float32 and in float64 on the card and on
+    the CPU: where float64 agrees on both and float32 does not, the gap is
+    rounding near the stop threshold."""
+    import torch
+
+    from solver_in_the_loop_torch.kernels import cg
+    from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
+    from solver_in_the_loop_torch.ops.poisson import (
+        ProjectionMasks,
+        _mg_applicable,
+        fd_factors,
+        pressure_route,
+        solve_pressure,
+    )
+    from solver_in_the_loop_torch.parity import (
+        CG_ITER_TOL,
+        PCG_ITER_TOL,
+        PCG_REL_TOL,
+        TRAIN_PARITY_TOL,
+    )
+
+    cases = []
+    for batch_re, res, precon in ROUTE_CASES:
+        rhs, _, masks = karman_rhs(batch_re, device, res=res)
+        route = pressure_route(rhs.shape, device, precon=precon)
+        cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(3),
+                          device=device)
+        reset_launches()
+        div = (-rhs).requires_grad_()
+        p, iters = solve_pressure(div, masks, precon=precon)
+        (grad,) = torch.autograd.grad(p, div, cot)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        cpu_masks = ProjectionMasks(*(m.cpu() for m in (masks.fluid, masks.face_u, masks.face_v)))
+        div_cpu = (-rhs).cpu().requires_grad_()
+        p_cpu, iters_cpu = solve_pressure(div_cpu, cpu_masks, precon=precon)
+        (grad_cpu,) = torch.autograd.grad(p_cpu, div_cpu, cot.cpu())
+        witness = {}
+        fd = precon == "fd" or route == "pcg_plain"
+        for dtype in (torch.float32, torch.float64):
+            for where, ms in (("card", masks), ("cpu", cpu_masks)):
+                b = rhs.to(where if where == "cpu" else device, dtype)
+                ops = [b, torch.zeros_like(b)] + [m.to(b) for m in (ms.fluid, ms.face_u,
+                                                                      ms.face_v)]
+                if fd:
+                    ops += [f.to(b) for f in fd_factors(rhs.shape[1], rhs.shape[2], b.device)]
+                solve = cg.pcg_solve_plain if fd else cg.cg_solve_plain
+                witness[f"{where}_{str(dtype)[6:]}"] = int(solve(*ops, 1e-5, 1000)[1])
+        kernel = {"pcg": "pcg_solve", "cg": "cg_solve"}.get(route)
+        case = {"shape": list(rhs.shape), "precon": precon, "route": route, "iters": int(iters),
+                "cpu_iters": int(iters_cpu), "plain_loop_iters": witness,
+                "rel_err": rel_err(p.detach().cpu(), p_cpu.detach()),
+                "grad_rel_err": rel_err(grad.cpu(), grad_cpu),
+                "kernel_launches": {k: v for k, v in launches.items() if v},
+                "ms": time_ms(lambda: solve_pressure(-rhs, masks, precon=precon), 3)}
+        if _mg_applicable(rhs.shape):  # the route the card took there before the kernel did
+            fluid, face_u, face_v = masks.fluid, masks.face_u, masks.face_v
+            case["multigrid_ms"] = time_ms(lambda: mg_solve_op(
+                -rhs, torch.zeros_like(rhs), fluid, face_u, face_v, 1e-5, 1000), 3)
+        cases.append(case)
+        expect = "pcg_plain" if len(batch_re) > cg.MAX_BATCH else "pcg" if fd else "cg"
+        require(route == expect and case["kernel_launches"] == ({kernel: 2} if kernel else {}),
+                f"pressure route {case}")
+        # the iterations against the route's plain loop on the CPU (at 128x64
+        # the CPU takes multigrid, another algorithm)
+        iter_tol = CG_ITER_TOL if route == "cg" else PCG_ITER_TOL
+        require(abs(case["iters"] - witness["cpu_float32"]) <= iter_tol
+                and case["rel_err"] <= PCG_REL_TOL
+                and case["grad_rel_err"] <= TRAIN_PARITY_TOL["head_grad"],
+                f"pressure route against the CPU {case}")
+    return cases
+
+
 def fixed_iter_cases(device):
     """Both CG kernels at fixed iteration counts: tol 0 makes the threshold 0,
     so each runs exactly max_iter iterations. Cold starts on karman
@@ -612,6 +723,7 @@ def phase_kernels(device):
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
             require(case["deterministic"], f"pcg_solve is not deterministic {case}")
     cg_cases = cg_kernel_cases(device)
+    routes = pressure_route_cases(device)
     fixed_iter = fixed_iter_cases(device)
     conv_cases, wgrad_cases = conv_kernel_cases(device)
     bf16_cases, bf16_wgrad_cases = conv_bf16_kernel_cases(device)
@@ -627,7 +739,7 @@ def phase_kernels(device):
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
           "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
           "conv_fwd_bf16": bf16_cases, "conv_wgrad_bf16": bf16_wgrad_cases,
-          "fixed_iter": fixed_iter,
+          "fixed_iter": fixed_iter, "pressure_route": routes,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
                          "pcg_rel": PCG_REL_TOL, "pcg_iters": PCG_ITER_TOL,
                          "cg_rel": CG_REL_TOL, "cg_iters": CG_ITER_TOL,
@@ -847,17 +959,13 @@ CONV_BF16_GRAD_CASES = [
 
 def conv_bf16_launch(shape, dgrad: bool = False):
     """The launch configuration csrc/conv_bf16.cu takes for a conv of `shape`
-    (B, H, W, Cin, Cout, K): the forward's grid, block and shared memory, and
-    the weight gradient's plan (kernels/conv.py `wgrad_bf16_plan`)."""
-    from solver_in_the_loop_torch.kernels.conv import wgrad_bf16_plan
+    (B, H, W, Cin, Cout, K): the forward's plan (kernels/conv.py
+    `fwd_bf16_plan`; with `dgrad`, of the input gradient's conv) and the
+    weight gradient's (`wgrad_bf16_plan`)."""
+    from solver_in_the_loop_torch.kernels.conv import fwd_bf16_plan, wgrad_bf16_plan
 
     b, h, w, cin, cout, k = shape
-    if dgrad:
-        cin, cout = cout, cin
-    cc = min(-(-cin // 16) * 16, 32)
-    cs = cc + 8
-    fwd = {"grid": [b * -(-h // 4) * -(-w // 16), -(-cout // 16)], "block": 128,
-           "smem_bytes": 2 * ((4 + k - 1) * (16 + k - 1) * cs + k * k * 16 * cs)}
+    fwd = fwd_bf16_plan(b, h, w, *((cout, cin) if dgrad else (cin, cout)), k)
     if dgrad:
         return fwd
     return fwd, wgrad_bf16_plan(*shape)
@@ -927,6 +1035,7 @@ def conv_bf16_kernel_cases(device):
                 "dgrad": True, "launch": conv_bf16_launch(shape, dgrad=True),
                 "max_abs_err": float((got.float() - want.float()).abs().max()),
                 "bf16_err": bf16_errors(got, want),
+                "deterministic": bool(torch.equal(got, conv_fwd_bf16(dz, w, flip=True))),
                 "ms": time_ms(lambda: conv_fwd_bf16(dz, w, flip=True), 200),
                 "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10),
                 "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
@@ -935,6 +1044,7 @@ def conv_bf16_kernel_cases(device):
         case["bound_ms"], case["bound_by"] = conv_bf16_bound_ms(case["shape"], False)
         fwd_cases.append(case)
         require(case["bf16_err"] <= CONV_BF16_ULPS, f"conv_fwd_bf16 (dgrad) {case} differs")
+        require(case["deterministic"], f"conv_fwd_bf16 (dgrad) {case} is not deterministic")
 
         got = conv_wgrad_bf16(x, dz, k)
         want = conv_wgrad_plain(x, dz, k)
@@ -1230,6 +1340,58 @@ def phase_train():
     for name in ("model.msgpack", "dataStats.json"):
         require(os.path.isfile(os.path.join(TRAIN_OUT, name)), f"{name} was not written")
     require(apply_finite, "karman-apply from the trained checkpoint gave non-finite frames")
+    return launches
+
+
+KARMAN_BF16_OUT = os.path.join(REPO, "build", "smoke_karman_bf16")
+KARMAN_BF16_FRAMES = 36  # (6 sims / batch 3) x (36 - msteps 32) = 8 iterations
+
+
+def phase_karman_train_bf16():
+    """`karman-train --bf16 --conv kernel` through the CLI on the train
+    phase's set, its first KARMAN_BF16_FRAMES frames, `--seed 1`, every
+    launch count set to 0 just before it: finite losses, an update applied,
+    and each kernel's launches per iteration, the nets' 767 convs (384
+    forward, 383 input gradients: not the step-0 stem, whose input is data)
+    and 384 weight gradients on the bf16 kernels."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+
+    args = train_argv()
+    args[args.index("-t") + 1] = str(KARMAN_BF16_FRAMES)
+    args[args.index("--tf") + 1] = KARMAN_BF16_OUT
+    argv = ["karman-train", *args, "--bf16", "--conv", "kernel"]
+    shutil.rmtree(KARMAN_BF16_OUT, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    iters = len(result.losses)
+    msteps = 32
+    # as the train phase counts them, and the nets' convs on the bf16 kernels
+    per_iter = counts(tap_sum_fwd=2 * 3 * msteps, tap_sum_bwd=2 * (msteps - 1),
+                      pcg_solve=msteps + (msteps - 1), conv_fwd_bf16=2 * 12 * msteps - 1,
+                      conv_wgrad_bf16=12 * msteps)
+    line = {"phase": "karman_train_bf16", "argv": argv,
+            "reduced": {**TRAIN_REDUCED, "simsteps": f"500 -> {KARMAN_BF16_FRAMES} frames per "
+                        f"sim (1000..{999 + KARMAN_BF16_FRAMES}): "
+                        f"{2 * (KARMAN_BF16_FRAMES - msteps)} iterations"},
+            "iterations": iters, "seconds": seconds,
+            "sec_per_iter_median_after_first": float(np.median(result.iter_seconds[1:])),
+            "first_loss": result.losses[0], "last_loss": result.losses[-1],
+            "losses": result.losses, "guard_skipped": result.notfinite,
+            "updates_applied": iters - result.notfinite, "launches": launches,
+            "predicted_per_iter": per_iter}
+    emit(line)
+    require(iters == 2 * (KARMAN_BF16_FRAMES - msteps), f"{iters} bf16 karman iterations")
+    require(all(np.isfinite(result.losses)), "a bf16 karman training loss is not finite")
+    require(iters - result.notfinite >= 1, "the non-finite guard skipped every bf16 karman update")
+    require(launches == {k: v * iters for k, v in per_iter.items()},
+            f"bf16 karman launch counts {launches} != {per_iter} per iteration x {iters}")
     return launches
 
 
@@ -2129,21 +2291,34 @@ def cg_split(specs) -> int:
 
 
 def conv_split(specs) -> int:
-    """`python3 chip_smoke.py --conv-split LABEL=DIR [LABEL=DIR ...]`: only the
-    weight-gradient kernel of conv_bf16.cu, built from each DIR (csrc/ or a
-    copy of it, an earlier version or a variant), one nvcc per DIR, all
-    started together. Each CONV_BF16_GRAD_CASES shape is timed for every
-    label in turn, the labels in order and then in reverse, beside cuDNN's
-    bf16 weight gradient; one JSON line per label with its ptxas report, its
-    ms per shape (both passes), its error against the twin and whether a
-    second launch gives the same bits."""
+    """`python3 chip_smoke.py --conv-split [fwd] LABEL=DIR [LABEL=DIR ...]`:
+    only one kernel of conv_bf16.cu, built from each DIR (csrc/ or a copy of
+    it, an earlier version or a variant), one nvcc per DIR, all started
+    together: the weight gradient at every CONV_BF16_GRAD_CASES shape beside
+    cuDNN's bf16 weight gradient, or with `fwd` the forward at every
+    CONV_BF16_CASES shape beside F.conv2d and as the input gradient at every
+    CONV_BF16_GRAD_CASES shape beside convolution_backward. Each shape is
+    timed for every label in turn, the labels in order and then in reverse;
+    one JSON line per label with its ptxas report, its ms per shape (both
+    passes), its error against the twin and whether a second launch gives
+    the same bits."""
     import ctypes
     from pathlib import Path
 
     import torch
+    import torch.nn.functional as F
 
     from solver_in_the_loop_torch.kernels import build, conv
+    from solver_in_the_loop_torch.parity import bf16_errors
 
+    fwd = specs[:1] == ["fwd"]
+    specs = specs[1:] if fwd else specs
+    symbol = "silt_conv_fwd_bf16" if fwd else "silt_conv_wgrad_bf16"
+    argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+                if fwd else
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
     device = torch.device("cuda", 0)
     libs = {}
     for spec in specs:  # each label's library, named as build.py names it
@@ -2157,40 +2332,78 @@ def conv_split(specs) -> int:
         libs[label] = (src, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True))
     fns, lines = {}, {}
+    entry = "fwd_bf16" if fwd else "wgrad"
     for label, (src, out, proc) in libs.items():
         log, _ = proc.communicate()
         require(proc.returncode == 0, f"nvcc failed for {src}:\n{log}")
-        fn = ctypes.CDLL(str(out)).silt_conv_wgrad_bf16
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(out)), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[label] = fn
-        lines[label] = {"phase": "conv_split", "label": label, "csrc": src,
+        lines[label] = {"phase": "conv_split", "kernel": "conv_fwd_bf16" if fwd
+                        else "conv_wgrad_bf16", "label": label, "csrc": src,
                         "ptxas": [ln for ln in log.splitlines()
-                                  if "wgrad" in ln or "spill" in ln or "Used" in ln],
+                                  if entry in ln or "spill" in ln or "Used" in ln],
                         "cases": []}
-    key = ("conv_bf16", "silt_conv_wgrad_bf16")
+    key = ("conv_bf16", symbol)
     gen = torch.Generator(device=device).manual_seed(2)
-    for *shape, where in CONV_BF16_GRAD_CASES:
-        b, h, wd, cin, cout, k = shape
-        x = torch.randn((b, h, wd, cin), generator=gen, device=device).to(torch.bfloat16)
-        dz = torch.randn((b, h, wd, cout), generator=gen, device=device).to(torch.bfloat16)
-        wt = torch.zeros((cout, cin, k, k), device=device, dtype=torch.bfloat16)
-        xn, dzn = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
-        want = conv.conv_wgrad_plain(x, dz, k)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(bf16)
+
+    # (shape, where, the kernel's call, its twin's, the library's, bound, the
+    # error against the twin by its name)
+    runs = []
+    if fwd:
+        for *shape, act, with_skip, where in CONV_BF16_CASES:
+            b, h, wd, cin, cout, k = shape
+            x, wt, bias = randn(b, h, wd, cin), randn(cout, cin, k, k, scale=0.1), \
+                randn(cout, scale=0.1)
+            skip = randn(b, h, wd, cout) if with_skip else None
+            w = wt.permute(2, 3, 1, 0)
+            runs.append((shape, where, functools.partial(
+                conv.conv_fwd_bf16, x, w, bias, skip, act, 0.3),
+                functools.partial(conv.conv_fwd_plain, x, w, bias, skip, act, 0.3),
+                functools.partial(F.conv2d, x.permute(0, 3, 1, 2), wt, bias, padding=k // 2),
+                conv_bf16_bound_ms(shape, with_skip)[0], ("bf16_err", bf16_errors)))
+        for *shape, where in CONV_BF16_GRAD_CASES:
+            b, h, wd, cin, cout, k = shape
+            x, wt, dz = randn(b, h, wd, cin), randn(cout, cin, k, k, scale=0.1), \
+                randn(b, h, wd, cout)
+            w = wt.permute(2, 3, 1, 0).transpose(2, 3)
+            runs.append(([b, h, wd, cout, cin, k], f"dX {where}", functools.partial(
+                conv.conv_fwd_bf16, dz, w, flip=True),
+                functools.partial(conv.conv_fwd_plain, dz, w, flip=True),
+                functools.partial(torch.ops.aten.convolution_backward, dz.permute(0, 3, 1, 2),
+                                  x.permute(0, 3, 1, 2), wt, None, [1, 1], [k // 2, k // 2],
+                                  [1, 1], False, [0, 0], 1, [True, False, False]),
+                conv_bf16_bound_ms([b, h, wd, cout, cin, k], False)[0],
+                ("bf16_err", bf16_errors)))
+    else:
+        for *shape, where in CONV_BF16_GRAD_CASES:
+            b, h, wd, cin, cout, k = shape
+            x, dz = randn(b, h, wd, cin), randn(b, h, wd, cout)
+            wt = torch.zeros((cout, cin, k, k), device=device, dtype=bf16)
+            runs.append((shape, where, functools.partial(conv.conv_wgrad_bf16, x, dz, k),
+                         functools.partial(conv.conv_wgrad_plain, x, dz, k),
+                         functools.partial(torch.ops.aten.convolution_backward,
+                                           dz.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wt,
+                                           None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0],
+                                           1, [False, True, False]),
+                         conv_wgrad_bf16_bound_ms(shape)[0], ("rel_err", rel_err)))
+    for shape, where, run, plain, library, bound, (err_name, err) in runs:
+        want = plain()
         cases = {}
         for label in list(fns) + list(fns)[::-1]:
             build._functions[key] = fns[label]
-            got = conv.conv_wgrad_bf16(x, dz, k)
+            got = run()
             torch.cuda.synchronize()
             case = cases.setdefault(label, {
-                "shape": shape, "where": where, "rel_err": rel_err(got, want),
-                "deterministic": bool(torch.equal(got, conv.conv_wgrad_bf16(x, dz, k))),
-                "ms": [], "bound_ms": conv_wgrad_bf16_bound_ms(shape)[0]})
-            case["ms"].append(time_ms(lambda: conv.conv_wgrad_bf16(x, dz, k), 200))
-        library_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
-            dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
-            [False, True, False]), 200)
+                "shape": shape, "where": where, err_name: err(got, want),
+                "deterministic": bool(torch.equal(got, run())), "ms": [], "bound_ms": bound})
+            case["ms"].append(time_ms(run, 200))
+        library_ms = time_ms(library, 200)
         for label, case in cases.items():
             lines[label]["cases"].append({**case, "library_ms": library_ms})
     build._functions.pop(key, None)
@@ -2239,6 +2452,7 @@ def main() -> int:
     burgers_train_launches = timed("burgers_train", phase_burgers_train)
     bf16_launches, karman_bf16_launches = timed("burgers_train_bf16", phase_burgers_train_bf16,
                                                 device)
+    karman_train_bf16_launches = timed("karman_train_bf16", phase_karman_train_bf16)
     timed("resume", phase_resume)
     burgers_apply_launches = timed("burgers_apply", phase_burgers_apply)
     timed("burgers_parity", phase_burgers_parity)
@@ -2298,7 +2512,8 @@ def main() -> int:
                               "karman_apply_b9_fd": b9_fd_launches[name],
                               "karman_apply_b9_cg": b9_cg_launches[name],
                               "burgers_train_bf16": bf16_launches[name],
-                              "karman_train_step_bf16": karman_bf16_launches[name]},
+                              "karman_train_step_bf16": karman_bf16_launches[name],
+                              "karman_train_bf16": karman_train_bf16_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -70,7 +70,8 @@ def add_pressure_precon(p: argparse.ArgumentParser) -> None:
     """--pressure-precon, shared by the karman CLIs."""
     p.add_argument("--pressure-precon", choices=list(PRECONS), default="fd",
                    help="the pressure CG's preconditioner: fast diagonalization ('fd', "
-                        "default) or none (plain CG, the JAX package's SILT_PALLAS_FDPCG=0)")
+                        "default) or none (plain CG, the JAX package's SILT_PALLAS_FDPCG=0); "
+                        "a batch above 128 takes 'fd' either way, as the JAX package does")
 
 
 def resolve_device(name: str) -> torch.device:

@@ -25,24 +25,25 @@
 //
 // Design. Without a preconditioner an iteration is one stencil, two dot
 // products and three vector updates, about 26 operations per cell: at 64x32
-// an element is 2,048 cells, 53 kFLOP per iteration, so neither HBM bytes
-// nor FP32 peak bound it. What bounds it is the chain of each iteration
-// times its ~110 cold iterations (about 4x the PCG's): three barriers (the
-// block reduction of p.Ap, that of r.r, and the cluster or grid barrier of
-// the stop test, which also publishes the new p), the shuffle trees of the
-// two reductions, and each thread's stencil. So each thread owns up to 8
-// cells (k = tid + threads * c) and keeps their x, r, p and A p in
-// registers; only p, which the stencil reads across threads, lives in shared
-// memory, in a halo of zeros so that the ghosts need no test. The block is
-// fitted to the field: up to 2,048 cells (the karman 64x32) 256 threads,
-// which also keep each cell's operator coefficients in registers, read once;
-// up to 8,192 cells (CG_MAX_CELLS in kernels/cg.py) 1,024 threads, which
-// read them from global memory (L1) each iteration, as 64 registers a thread
-// do not hold them. The two reductions alternate two scratch buffers, so no
-// barrier only guards their reuse. On an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py `kernels` and `--cg-split`, PERF.md) an iteration at
-// (3,64,32) takes 1.4 us, the two reductions about 0.4 of it; as a
-// cooperative grid (batch 9) 2.1 us.
+// an element is 2,048 cells, 53 kFLOP per iteration, so neither HBM bytes nor
+// FP32 peak bound it. What bounds it is the chain of each iteration times its
+// ~110 cold iterations (about 4x the PCG's): three barriers (the block
+// reduction of p.Ap, that of r.r, and the cluster or grid barrier of the stop
+// test, which also publishes the new p), the shuffle trees of the two
+// reductions, and each thread's stencil. So each thread owns a few cells (k =
+// tid + threads * c) and keeps their x, r, p and A p in registers; only p,
+// which the stencil reads across threads, lives in shared memory, in a halo
+// of zeros so that the ghosts need no test. The block is fitted to the field:
+// up to 2,048 cells (the karman 64x32) 256 threads, which also keep each
+// cell's operator coefficients in registers, read once; up to 8,192 cells
+// 1,024 threads, which read them from global memory (L1) each iteration, as
+// 64 registers a thread do not hold them; up to 12,288 (CG_MAX_CELLS in
+// kernels/cg.py; (130, 65) has 8,450) the same 1,024 threads with 12 cells
+// each, which spill 384 bytes (about 7 us an iteration at (130, 65)). The two
+// reductions alternate two scratch buffers, so no barrier only guards their
+// reuse. On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py `kernels` and
+// `--cg-split`, PERF.md) an iteration at (3,64,32) takes 1.4 us, the two
+// reductions about 0.4 of it; as a cooperative grid (batch 9) 2.1 us.
 
 #include <cuda_runtime.h>
 
@@ -52,10 +53,11 @@ namespace {
 
 using silt::Cell;
 
-constexpr int kCells = 8;  // per thread, at most
+constexpr int kThreadCells = 8;  // per thread, at most, up to 1,024 * kThreadCells cells
+constexpr int kBigCells = 12;  // per thread, at most, beyond
 constexpr int kSmallCells = 2048;  // fields up to this many cells take 256 threads
 
-template <int kThreads, bool kRegCells>
+template <int kThreads, bool kRegCells, int kCells>
 __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict__ b_all,
                                                         const float* __restrict__ x0_all,
                                                         const float* __restrict__ fluid,
@@ -176,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
 }
 
 // the dynamic shared memory each instantiation is allowed so far, per device
-int g_smem_allowed[2][silt::kMaxDevices] = {};
+int g_smem_allowed[3][silt::kMaxDevices] = {};
 
 }  // namespace
 
@@ -190,18 +192,22 @@ extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid
                              const float* face_u, const float* face_v, float* x, int* iters,
                              int* flags, int batch, int h, int w, float tol2, int max_iter,
                              int smem_bytes, void* stream) {
-    if (h < 1 || w < 1 || batch < 1 || h * w > 1024 * kCells ||
+    if (h < 1 || w < 1 || batch < 1 || h * w > 1024 * kBigCells ||
         smem_bytes < 4 * (h + 2) * (w + 1))
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     int* kflags = batch > silt::kMaxCluster ? flags : nullptr;
     const cudaError_t err =
         h * w <= kSmallCells
-            ? silt::launch_batch(cg_kernel<256, true>, g_smem_allowed[0], batch, 256, smem_bytes,
-                                 stream, b, x0, fluid, face_u, face_v, x, iters, kflags, batch, h,
-                                 w, tol2, max_iter)
-            : silt::launch_batch(cg_kernel<1024, false>, g_smem_allowed[1], batch, 1024,
-                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
+            ? silt::launch_batch(cg_kernel<256, true, kThreadCells>, g_smem_allowed[0], batch,
+                                 256, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
+                                 kflags, batch, h, w, tol2, max_iter)
+        : h * w <= 1024 * kThreadCells
+            ? silt::launch_batch(cg_kernel<1024, false, kThreadCells>, g_smem_allowed[1], batch,
+                                 1024, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
+                                 kflags, batch, h, w, tol2, max_iter)
+            : silt::launch_batch(cg_kernel<1024, false, kBigCells>, g_smem_allowed[2], batch,
+                                 1024, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
                                  kflags, batch, h, w, tol2, max_iter);
     return static_cast<int>(err);
 }

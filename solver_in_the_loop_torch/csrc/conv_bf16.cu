@@ -29,18 +29,29 @@
 // fp32; only the order of the fp32 sum differs from the plain twin).
 //
 // Forward design. An implicit GEMM: rows are output pixels, depth is (tap,
-// input channel), columns are output channels. A block owns FWD_TH image
-// rows x 16 pixels and 16 output channels (two 8-wide mma tiles) and has one
-// warp per image row, which runs every tap. The block stages the input patch
-// (the tile and its K-1 halo, 32 input channels at a time, zeros outside the
-// image and beyond Cin) as [pixel][channel] and the weight of all K*K taps
-// as [tap][output][channel], so each lane's A and B fragments are 32-bit
-// words (two neighbouring channels), and a pixel or output stride of 4 mod 8
-// words puts the 32 lanes of a load on 32 banks. The weight is read 16 bytes
-// at a time where its taps and inner channel axis are contiguous (the
-// PyTorch parameter, and the input gradient's transposed view), the patch
-// where Cin is a multiple of 8. The epilogue runs on the accumulators and
-// stores bf16 directly.
+// input channel), columns are output channels. A block owns FWD_TH = 8
+// image rows x 16 pixels and 16 output channels (two 8-wide mma tiles) and
+// has 8 warps. Where Cin >= 16 it stages the input patch (the tile and its
+// K-1 halo, 32 channels at a time, zeros outside the image and beyond Cin)
+// as [pixel][channel] with 16-byte cp.async, and the weight of every tap as
+// [tap][output][channel]: the weight's runs, [outer][inner][tap] as the
+// PyTorch parameter and the input gradient's transposed view lie in
+// memory, are copied as they lie (the forward's in one copy by the tensor
+// memory accelerator, the input gradient's by cp.async) and turned into
+// 32-bit words of two channels in shared memory while the patch lands.
+// Where Cin < 16 (the stems; the heads' input gradients) the 16 slots of an
+// A row are packed taps, 16 / Cin taps of all Cin channels, as the weight
+// gradient packs them, so one product covers 5 taps at Cin = 3 where one
+// product per tap would leave 13 of its 16 channels zero. A warp owns two
+// image rows and every other k-step column (a tap, or tap group, and a
+// 16-channel half) over all tap rows, its partner warp the others: the A
+// tile of row 2 rp + 1 at tap row ky is that of row 2 rp at ky + 1, so a
+// column's K tap rows take K + 1 A tiles and K B tiles (`ldmatrix.x4`, rows
+// of 80 or 48 bytes: 8 rows on 8 bank groups) for 4K products, whose sums
+// (two rows, two output tiles, two tap-row parities) are eight independent
+// chains. The partners add their sums through shared memory, half 0's plus
+// half 1's, and the epilogue runs in fp32 on them with the bias and skip
+// loaded before the staging; it stores two outputs per 32-bit store.
 //
 // Weight-gradient design. dW for one tap row ky is the product of the
 // shifted input rows (K*Cin x M) with dz (M x Cout) over all M = B*H*W
@@ -68,10 +79,14 @@
 // What bounds them on the H100. The MarsMoon 32->32 conv at the Burgers
 // training shape (5, 32, 32) is 2*M*K*K*Cin*Cout = 262 MFLOP, 0.27 us at
 // 989 TFLOP/s, over about 1 MB of bf16 operands, 0.3 us at 3.35 TB/s: the
-// bytes bound it, barely. `mma.sync` from four warps per block over
-// 160 blocks reaches neither; a forward block's time is its staged loads'
-// latency and the chain of its warps' products (a first version read the
-// weight 2 bytes at a time and took 2.6x as long). The weight gradient's
+// bytes bound it, barely. `mma.sync` reaches neither. The forward's 80
+// blocks take about 7.2 us launch to launch: an empty launch of the same
+// grid 1.7, the staging (25.6 KB of weight per block from L2) about 1.5,
+// the products about 2.3, their `ldmatrix` traffic 0.55 loads per product
+// (chip_smoke.py --conv-split fwd on variants with a part taken out); a
+// version with one row per warp and the weight restaged through registers
+// in 2-byte stores took 13.6, one that loaded both layouts' runs through a
+// select (16 lanes on one bank) 11.2. The weight gradient's
 // 160 blocks (Burgers block conv) take about 10 us: the launch and an empty
 // cluster of the same shape about 2.3, the end (partial sums, the cluster
 // barrier, the sums through distributed shared memory) about 2.3, the
@@ -121,10 +136,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ unsigned word(const bf16* p) {
-    return *reinterpret_cast<const unsigned*>(p);
-}
-
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // Raises a kernel's dynamic shared memory limit when a launch needs more than
@@ -148,110 +159,353 @@ int* smem_allowed() {
     return allowed;
 }
 
+// cp.async of 4, 8 or 16 bytes (v = 2, 4 or 8 bf16) of which the first
+// `bytes` are read, the rest zeros
+__device__ __forceinline__ void cp_async_part(bf16* dst, const bf16* src, int v, int bytes) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if (v == 8)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(d), "l"(src), "r"(bytes) : "memory");
+    else if (v == 4)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(d), "l"(src), "r"(bytes) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// cp.async of v = 2, 4 or 8 bf16; when !valid nothing is read and zeros are
+// written. v = 1 is a plain load and store.
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src, int v, bool valid) {
+    if (v == 1)
+        *dst = valid ? *src : __float2bfloat16(0.f);
+    else
+        cp_async_part(dst, src, v, valid ? 2 * v : 0);
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: lane l gives the address of row l % 8
+// of matrix l / 8, and register i receives matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// Four 8x8 bf16 matrices: lane l gives the address of row l % 8 of matrix
+// l / 8, and register i receives matrix i.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// two bf16 in one 32-bit word, `lo` in the lower half
+__device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
+           static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The tensor memory accelerator's copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_copy(bf16* dst, const bf16* src, int bytes,
+                                          unsigned long long* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until phase `parity` of the mbarrier `bar` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
 // ---------------------------------------------------------------- forward
 
-constexpr int FWD_TH = 4;   // image rows per block, one warp each
+// The forward's tiling. kernels/conv.py `FWD_BF16` holds the same constants
+// and `fwd_bf16_plan` the same plan (FwdPlan, launch_fwd);
+// tests/test_torch_conv_fwd_bf16_tiles.py checks the two against each other
+// and walks the partition on the CPU.
+constexpr int FWD_TH = 8;   // image rows per block (and warps: two rows, half the k-steps each)
 constexpr int FWD_TW = 16;  // pixels per row: the 16 rows of an A tile
 constexpr int FWD_NT = 16;  // output channels per block: two 8-wide mma tiles
 constexpr int FWD_CC = 32;  // input channels staged at once, at most
+constexpr int FWD_RS = 24;  // bf16 elements per packed row (16 used): 48 bytes
 
-// Shared-memory geometry of one block, in bf16 elements: the patch
-// [PH][PW][cs] and the weight [K*K][FWD_NT][cs], cs the chunk's channels
-// (a multiple of 16) plus 8, so a pixel's or an output's stride is 4 mod 8
-// 32-bit words.
-template <int K>
-struct FwdShape {
-    static constexpr int THREADS = 32 * FWD_TH;
-    static constexpr int PH = FWD_TH + K - 1;
-    static constexpr int PW = FWD_TW + K - 1;
-    static constexpr int KK = K * K;
-    int cc, cs, patch, weight;
+// A block's shared memory, in bf16 elements, and its k-steps. Where cin >=
+// 16 ("wide"): the patch [ph][pw][cs] (the tile and its K-1 halo, the cc
+// channels of a chunk, then 8 of padding, so 8 pixels of an ldmatrix fall
+// on 8 bank groups), the weight [K*K taps][FWD_NT outputs][cs] and room
+// (`raw`) for the weight's runs as they lie in memory. Where cin < 16
+// ("packed"): the A rows [ph][groups][FWD_TW][FWD_RS], row (ry, q, px)
+// holding `taps` taps of all cin channels, [tap * cin + c] = x(row ry,
+// pixel px + q * taps + tap, c), zero beyond taps * cin and beyond K, and
+// the weight [K][groups][FWD_NT][FWD_RS] in the same order; so one product
+// covers 5 taps at cin = 3 and 4 at cin = 4, where one product per tap
+// would leave 12-13 of its 16 channels zero. A tap row has `nkx` columns of
+// k-steps (taps, or tap groups) and `per_ky` k-steps (two per column where
+// a wide chunk has 32 channels).
+struct FwdPlan {
+    int packed, taps, groups, cc, cs, ph, pw, nkx, per_ky, patch, weight, raw;
 
-    __host__ __device__ explicit FwdShape(int cin)
-        : cc(min(round_up(cin, 16), FWD_CC)), cs(cc + 8), patch(PH * PW * cs),
-          weight(KK * FWD_NT * cs) {}
-
-    __host__ __device__ int elems() const { return patch + weight; }
+    __host__ __device__ FwdPlan(int cin, int k)
+        : packed(cin < 16),
+          taps(cin < 16 ? 16 / max(cin, 1) : 1),
+          groups((k + taps - 1) / taps),
+          cc(cin < 16 ? 16 : min(round_up(cin, 16), FWD_CC)),
+          cs(cin < 16 ? FWD_RS : cc + 8),
+          ph(FWD_TH + k - 1),
+          pw(cin < 16 ? groups * FWD_TW : FWD_TW + k - 1),
+          nkx(cin < 16 ? groups : k),
+          per_ky(cin < 16 ? groups : k * (cc / 16)),
+          patch(ph * pw * cs),
+          weight(k * nkx * FWD_NT * cs),
+          raw(cin < 16 ? 0 : max(FWD_NT * round_up(cc * k * k, 8), cc * round_up(FWD_NT * k * k, 8))) {}
 };
 
-// Stage the weight of every tap for outputs co0 + [0, 16) and channels
-// [c0, c0 + cc) into ws[(tap * FWD_NT + o) * cs + c], zeros beyond cin and
-// cout. With `wvec` the weight is [outer][inner][tap] in memory, the taps
-// and the inner channel axis contiguous (the PyTorch parameter, and the
-// input gradient's transposed view), each outer index's run 16-byte aligned:
-// the runs are read 8 elements at a time. Otherwise element by element, in
-// memory order (the taps, then whichever channel axis has the smaller
-// stride) so that neighbouring threads read neighbouring elements.
-template <int K>
-__device__ __forceinline__ void stage_weight(bf16* ws, const Weight& w, const FwdShape<K>& s,
-                                             int c0, int co0, int cin, int cout, bool c_inner,
-                                             int wvec) {
-    constexpr int KK = K * K;
-    constexpr int THREADS = FwdShape<K>::THREADS;
+// The bytes of a block's tiles, at least the room where the two halves of
+// its warps exchange their sums; its mbarrier lies past them.
+__host__ __device__ inline int fwd_smem_bytes(const FwdPlan& p) {
+    return max(2 * (p.patch + p.weight + p.raw), 4 * FWD_TH * 8 * 32);
+}
+
+// The wide weight ws[(tap * FWD_NT + o) * cs + c] for the chunk's channels
+// c < cc and the block's outputs o, in 32-bit words of channels (c, c + 1),
+// zeros where c >= cin_left or o >= cout_left. elem(c, o, tap) is the
+// weight element of tap `tap` (as the products read it: flipped already),
+// channel c and output o of the chunk and block. A thread takes one (output,
+// channel pair) at a time, over every tap, a tap row's loads before its
+// stores; neighbouring threads take neighbouring inner indices of the
+// source (`inner_c`: channel pairs, else outputs).
+template <int K, class Elem>
+__device__ __forceinline__ void weight_words(bf16* ws, int cs, int cc, int cin_left,
+                                             int cout_left, bool inner_c, Elem elem) {
+    constexpr int THREADS = 32 * FWD_TH;
     const bf16 zero = __float2bfloat16(0.f);
-    if (wvec) {
-        const int n_in = c_inner ? s.cc : FWD_NT;  // the chunk's inner extent
-        const int n_out = c_inner ? FWD_NT : s.cc;
-        const int in0 = c_inner ? c0 : co0;
-        const int out0 = c_inner ? co0 : c0;
-        const int valid_in = min(n_in, (c_inner ? cin : cout) - in0);
-        const int valid_out = min(n_out, (c_inner ? cout : cin) - out0);
-        const long long s_out = c_inner ? w.s_o : w.s_c;
-        if (valid_in < n_in || valid_out < n_out) {  // padding: zeros first
-            for (int i = threadIdx.x; i < KK * FWD_NT * s.cs / 8; i += THREADS)
-                reinterpret_cast<uint4*>(ws)[i] = make_uint4(0, 0, 0, 0);
-            __syncthreads();
-        }
-        const int run = valid_in * KK;  // elements of one outer index's run
-        const int vecs = (run + 7) / 8;
-        for (int i = threadIdx.x; i < valid_out * vecs; i += THREADS) {
-            const int q = i / vecs;
-            const int e0 = (i % vecs) * 8;
-            const bf16* src = w.p + (out0 + q) * s_out + static_cast<long long>(in0) * KK + e0;
-            // element e of the run (inner e / KK, tap e % KK) to its place
-            auto put = [&](int e, bf16 value) {
-                const int t = e % KK;
-                const int tap = w.flip ? KK - 1 - t : t;
-                const int c = c_inner ? e / KK : q;
-                const int o = c_inner ? q : e / KK;
-                ws[(tap * FWD_NT + o) * s.cs + c] = value;
-            };
-            if (e0 + 8 <= run) {
-                const uint4 raw = *reinterpret_cast<const uint4*>(src);
-                const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
+    const int pairs = cc / 2;
+    unsigned* wsw = reinterpret_cast<unsigned*>(ws);
+    for (int task = threadIdx.x; task < FWD_NT * pairs; task += THREADS) {
+        const int o = inner_c ? task / pairs : task % FWD_NT;
+        const int c = 2 * (inner_c ? task % pairs : task / FWD_NT);
+        const bool ok0 = c < cin_left && o < cout_left;
+        const bool ok1 = c + 1 < cin_left && o < cout_left;
+        for (int ky = 0; ky < K; ++ky) {
+            bf16 lo[K], hi[K];
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    put(e0 + j, __ushort_as_bfloat16(
-                                    static_cast<unsigned short>(words[j / 2] >> (16 * (j % 2)))));
-            } else {
-                for (int j = 0; j < run - e0; ++j) put(e0 + j, src[j]);
+            for (int kx = 0; kx < K; ++kx) {
+                lo[kx] = ok0 ? elem(c, o, ky * K + kx) : zero;
+                hi[kx] = ok1 ? elem(c + 1, o, ky * K + kx) : zero;
+            }
+#pragma unroll
+            for (int kx = 0; kx < K; ++kx)
+                wsw[(((ky * K + kx) * FWD_NT + o) * cs + c) / 2] = pack2(lo[kx], hi[kx]);
+        }
+    }
+}
+
+// Stages one chunk of a wide block: the patch (channels [c0, c0 + cc),
+// zeros outside the image and beyond cin), 16 bytes per cp.async with
+// `vec`, and the weight of every tap for those channels and the block's
+// outputs. Where the weight is [outer][inner][tap] in memory (the PyTorch
+// parameter, and the input gradient's transposed view) and `wv` elements
+// divide each outer index's run and its alignment, its runs are copied as
+// they lie before the patch: in one copy by the tensor memory accelerator
+// where they lie one after another, as the forward's do (phase `chunk` % 2
+// of the mbarrier `bar`), else by cp.async; they are turned into words of
+// two channels while the patch lands. Otherwise (wv = 1) the weight is read
+// through its strides. Ends with both in place (the caller syncs).
+template <int K>
+__device__ __forceinline__ void stage_wide(bf16* xs, bf16* ws, bf16* raw,
+                                           unsigned long long* bar, int chunk, const FwdPlan& p,
+                                           const bf16* xb, const Weight& w, int h, int wd,
+                                           int cin, int cout, int y0, int x0, int c0, int co0,
+                                           int vec, int wv) {
+    constexpr int KK = K * K;
+    constexpr int R = K / 2;
+    constexpr int PH = FWD_TH + K - 1;
+    constexpr int PW = FWD_TW + K - 1;
+    constexpr int THREADS = 32 * FWD_TH;
+    const bf16 zero = __float2bfloat16(0.f);
+    const bool c_inner = w.s_c <= w.s_o;
+    const int n_in = c_inner ? p.cc : FWD_NT;  // the inner extent of a run
+    const int stride = round_up(n_in * KK, 8);  // a run's room in `raw`
+    const int in0 = c_inner ? c0 : co0;
+    const int out0 = c_inner ? co0 : c0;
+    const int run = min(n_in, (c_inner ? cin : cout) - in0) * KK;
+    const int n_out = min(c_inner ? FWD_NT : p.cc, (c_inner ? cout : cin) - out0);
+    const long long s_out = c_inner ? w.s_o : w.s_c;
+    // the runs one after another in memory, 16-byte aligned, as they lie in `raw`
+    const bool bulk = wv == 8 && run == stride && s_out == run;
+    if (bulk) {  // one copy by the tensor memory accelerator, issued by one thread
+        if (threadIdx.x == 0) {
+            asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                         :: "r"(smem_u32(bar)), "r"(2 * n_out * run) : "memory");
+            bulk_copy(raw, w.p + out0 * s_out + static_cast<long long>(in0) * KK, 2 * n_out * run,
+                      bar);
+        }
+    } else if (wv > 1) {
+        const int vecs = (run + wv - 1) / wv;
+        for (int i = threadIdx.x; i < n_out * vecs; i += THREADS) {
+            const int q = i / vecs;
+            const int e = (i - q * vecs) * wv;
+            cp_async_part(raw + q * stride + e,
+                          w.p + (out0 + q) * s_out + static_cast<long long>(in0) * KK + e, wv,
+                          2 * min(wv, run - e));
+        }
+    }
+    cp_async_commit();
+    if (vec) {  // cin is a multiple of 8
+        const int sh = p.cc == 32 ? 2 : 1;  // log2 of the 16-byte copies per pixel
+        for (int i = threadIdx.x; i < PH * PW << sh; i += THREADS) {
+            const int pos = i >> sh;
+            const int c = (i & ((1 << sh) - 1)) * 8;
+            const int gy = y0 + pos / PW - R;
+            const int gx = x0 + pos % PW - R;
+            const bool ok = c0 + c < cin && gy >= 0 && gy < h && gx >= 0 && gx < wd;
+            stage_chunk(xs + pos * p.cs + c,
+                        ok ? xb + (static_cast<long long>(gy) * wd + gx) * cin + c0 + c : xb, 8, ok);
+        }
+    } else {  // element by element, each thread's 8 loads in flight before its stores
+        const int n = PH * PW * p.cc;
+        for (int i0 = threadIdx.x; i0 < n; i0 += 8 * THREADS) {
+            bf16 v[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const int i = i0 + u * THREADS;
+                const int pos = i / p.cc;
+                const int c = i - pos * p.cc;
+                const int gy = y0 + pos / PW - R;
+                const int gx = x0 + pos % PW - R;
+                const bool ok = i < n && c0 + c < cin && gy >= 0 && gy < h && gx >= 0 && gx < wd;
+                v[u] = ok ? __ldg(xb + (static_cast<long long>(gy) * wd + gx) * cin + c0 + c) : zero;
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const int i = i0 + u * THREADS;
+                if (i < n) xs[i / p.cc * p.cs + i % p.cc] = v[u];
             }
         }
-        return;
     }
-    for (int i = threadIdx.x; i < KK * FWD_NT * s.cc; i += THREADS) {
-        const int tap = i % KK;
-        const int pair = i / KK;
-        const int c = c_inner ? pair % s.cc : pair / FWD_NT;
-        const int o = c_inner ? pair / s.cc : pair % FWD_NT;
-        const int ky = w.flip ? K - 1 - tap / K : tap / K;
-        const int kx = w.flip ? K - 1 - tap % K : tap % K;
-        const bool ok = c0 + c < cin && co0 + o < cout;
-        ws[(tap * FWD_NT + o) * s.cs + c] =
-            ok ? w.p[ky * w.s_ky + kx * w.s_kx + (c0 + c) * w.s_c + (co0 + o) * w.s_o] : zero;
+    cp_async_commit();
+    if (wv == 1) {
+        weight_words<K>(ws, p.cs, p.cc, cin - c0, cout - co0, c_inner, [&](int c, int o, int t) {
+            const int tap = w.flip ? KK - 1 - t : t;
+            return __ldg(w.p + (tap / K) * w.s_ky + (tap % K) * w.s_kx + (c0 + c) * w.s_c +
+                         (co0 + o) * w.s_o);
+        });
+    } else {
+        if (bulk)
+            mbar_wait(bar, chunk & 1);
+        else
+            cp_async_wait<1>();
+        __syncthreads();  // the runs have landed
+        // one accessor per layout: a select of the two would load both
+        if (c_inner)
+            weight_words<K>(ws, p.cs, p.cc, cin - c0, cout - co0, true, [&](int c, int o, int t) {
+                return raw[o * stride + c * KK + (w.flip ? KK - 1 - t : t)];
+            });
+        else
+            weight_words<K>(ws, p.cs, p.cc, cin - c0, cout - co0, false, [&](int c, int o, int t) {
+                return raw[c * stride + o * KK + (w.flip ? KK - 1 - t : t)];
+            });
+    }
+    cp_async_wait<0>();
+}
+
+// Stages a packed block (cin < 16): its A rows and its weight, element by
+// element through the strides, each thread's loads in flight together.
+template <int K>
+__device__ __forceinline__ void stage_packed(bf16* xs, bf16* ws, const FwdPlan& p, const bf16* xb,
+                                             const Weight& w, int h, int wd, int cin, int cout,
+                                             int y0, int x0, int co0) {
+    constexpr int R = K / 2;
+    constexpr int THREADS = 32 * FWD_TH;
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int row = threadIdx.x; row < p.ph * p.pw; row += THREADS) {
+        const int px = row % FWD_TW;
+        const int q = (row / FWD_TW) % p.groups;
+        const int gy = y0 + row / p.pw - R;
+        const bool row_ok = gy >= 0 && gy < h;
+        const bf16* src = xb + static_cast<long long>(row_ok ? gy : 0) * wd * cin;
+        unsigned v[16];
+        int tap = 0;
+        int c = 0;
+#pragma unroll
+        for (int d = 0; d < 16; ++d) {  // slot d: tap d / cin, channel d % cin
+            const int kx = q * p.taps + tap;
+            const int gx = x0 + px + kx - R;
+            const bool ok = row_ok && tap < p.taps && kx < K && gx >= 0 && gx < wd;
+            v[d] = ok ? __bfloat16_as_ushort(__ldg(src + gx * cin + c)) : 0u;
+            if (++c == cin) {
+                c = 0;
+                ++tap;
+            }
+        }
+        uint4* dst = reinterpret_cast<uint4*>(xs + row * FWD_RS);
+        dst[0] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                            v[6] | v[7] << 16);
+        dst[1] = make_uint4(v[8] | v[9] << 16, v[10] | v[11] << 16, v[12] | v[13] << 16,
+                            v[14] | v[15] << 16);
+    }
+    // the weight [ky][q][o][d] in words of slots (d, d + 1)
+    unsigned* wsw = reinterpret_cast<unsigned*>(ws);
+    for (int i = threadIdx.x; i < K * p.groups * FWD_NT * 8; i += THREADS) {
+        const int dp = i % 8;
+        const int o = (i / 8) % FWD_NT;
+        const int kq = i / (8 * FWD_NT);  // ky * groups + q
+        const int ky = kq / p.groups;
+        const int q = kq - ky * p.groups;
+        bf16 e[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int tap = (2 * dp + u) / cin;
+            const int c = 2 * dp + u - tap * cin;
+            const int kx = q * p.taps + tap;
+            const bool ok = tap < p.taps && kx < K && co0 + o < cout;
+            const int wy = w.flip ? K - 1 - ky : ky;
+            const int wx = w.flip ? K - 1 - kx : kx;
+            e[u] = ok ? __ldg(w.p + wy * w.s_ky + wx * w.s_kx + c * w.s_c + (co0 + o) * w.s_o)
+                      : zero;
+        }
+        wsw[(kq * FWD_NT + o) * FWD_RS / 2 + dp] = pack2(e[0], e[1]);
     }
 }
 
 template <int K>
-__global__ void __launch_bounds__(FwdShape<K>::THREADS)
+__global__ void __launch_bounds__(32 * FWD_TH, 1)
 conv_fwd_bf16_kernel(const bf16* __restrict__ x, Weight w, const bf16* __restrict__ bias,
                      const bf16* __restrict__ skip, bf16* __restrict__ y, int h, int wd,
-                     int cin, int cout, int act, float slope, int vec, int wvec) {
-    using S = FwdShape<K>;
+                     int cin, int cout, int act, float slope, int vec, int wv) {
     extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
+    const FwdPlan p(cin, K);
     bf16* xs = reinterpret_cast<bf16*>(fwd_smem_raw);
-    const S s(cin);
-    bf16* ws = xs + s.patch;
+    bf16* ws = xs + p.patch;
+    bf16* raw = ws + p.weight;
+    // the mbarrier of the weight's bulk copies, past everything else
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+        fwd_smem_raw + fwd_smem_bytes(p));
+    if (!p.packed) {
+        if (threadIdx.x == 0) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)) : "memory");
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        }
+        __syncthreads();
+    }
 
     const int tiles_x = (wd + FWD_TW - 1) / FWD_TW;
     const int tiles_y = (h + FWD_TH - 1) / FWD_TH;
@@ -261,86 +515,152 @@ conv_fwd_bf16_kernel(const bf16* __restrict__ x, Weight w, const bf16* __restric
     const int y0 = ty * FWD_TH;
     const int x0 = tx * FWD_TW;
     const int co0 = blockIdx.y * FWD_NT;
-    const int row = threadIdx.x / 32;  // this warp's image row in the tile
-    const int g = (threadIdx.x % 32) / 4;
-    const int t = threadIdx.x % 4;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
     const bf16* xb = x + b * h * wd * cin;
-    const bf16 zero = __float2bfloat16(0.f);
-    const bool c_inner = w.s_c <= w.s_o;
+    const bool two = cout - co0 > 8;
 
-    float acc[2][4] = {};  // output channels co0 + [0, 8) and [8, 16)
-    for (int c0 = 0; c0 < cin; c0 += s.cc) {
-        __syncthreads();  // the previous chunk's readers are done
-        // the patch: channels [c0, c0 + cc), zeros outside the image and beyond cin
-        if (vec) {  // 8 channels (16 bytes) per load; cin is a multiple of 8
-            const int per = s.cc / 8;
-            for (int i = threadIdx.x; i < S::PH * S::PW * per; i += S::THREADS) {
-                const int pos = i / per;
-                const int c = (i % per) * 8;
-                const int gy = y0 + pos / S::PW - K / 2;
-                const int gx = x0 + pos % S::PW - K / 2;
-                uint4 v = make_uint4(0, 0, 0, 0);
-                if (c0 + c < cin && gy >= 0 && gy < h && gx >= 0 && gx < wd)
-                    v = *reinterpret_cast<const uint4*>(
-                        xb + (static_cast<long long>(gy) * wd + gx) * cin + c0 + c);
-                *reinterpret_cast<uint4*>(xs + pos * s.cs + c) = v;
-            }
-        } else {
-            for (int i = threadIdx.x; i < S::PH * S::PW * s.cc; i += S::THREADS) {
-                const int pos = i / s.cc;
-                const int c = i % s.cc;
-                const int gy = y0 + pos / S::PW - K / 2;
-                const int gx = x0 + pos % S::PW - K / 2;
-                const bool ok = c0 + c < cin && gy >= 0 && gy < h && gx >= 0 && gx < wd;
-                xs[pos * s.cs + c] =
-                    ok ? xb[(static_cast<long long>(gy) * wd + gx) * cin + c0 + c] : zero;
+    // ldmatrix rows of this lane: A (16 pixels x 16 channels) from rows
+    // [pixel][channel], B (16 outputs x 16 channels) from rows [output][channel]
+    const int a_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * p.cs + (lane >> 4) * 8;
+    const int b_lane = ((lane & 7) + (lane >> 4) * 8) * p.cs + ((lane >> 3) & 1) * 8;
+    // k-step column j of every tap row: tap (or tap group) j >> sh, 16-channel
+    // half j & sh of the chunk
+    const int sh = p.per_ky / p.nkx - 1;
+    const int a_kx = p.packed ? FWD_TW * p.cs : p.cs;
+    const int a_row = p.pw * p.cs;
+    const int b_kx = FWD_NT * p.cs;
+    const int b_ky = p.nkx * b_kx;
+    // this warp's two image rows of the tile (2 rp, 2 rp + 1), and its half
+    // of the columns: every other one; where their number is odd, the last
+    // column's tap rows [0, (K + 1) / 2) to half 0 and the rest to half 1
+    const int rp = warp % (FWD_TH / 2);
+    const int half = warp / (FWD_TH / 2);
+    const int n_even = p.per_ky & ~1;
+    const int n_units = n_even / 2 + (p.per_ky & 1);
+
+    // the epilogue's row, pixels (lane / 4 + 8 hf) and outputs (8 nt + 2 (lane % 4) + e),
+    // and its bias and skip, loaded before the staging so that they are in
+    // place when the sums are
+    const int gy = y0 + 2 * rp + half;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    float pre_bias[2][2] = {}, pre_skip[2][2][2] = {};  // [nt][e], [nt][hf][e]
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int o = co0 + 8 * nt + 2 * t + e;
+            if (bias != nullptr && o < cout) pre_bias[nt][e] = __bfloat162float(bias[o]);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int gx = x0 + g + 8 * hf;
+                if (skip != nullptr && o < cout && gy < h && gx < wd)
+                    pre_skip[nt][hf][e] =
+                        __bfloat162float(skip[((b * h + gy) * wd + gx) * cout + o]);
             }
         }
-        stage_weight<K>(ws, w, s, c0, co0, cin, cout, c_inner, wvec);
+    }
+
+    // [row 2 rp + r][bank: tap row parity][outputs co0 + [0, 8), [8, 16)]
+    float acc[2][2][2][4] = {};
+    for (int c0 = 0, chunk = 0; c0 < cin; c0 += p.cc, ++chunk) {
+        if (c0 > 0) __syncthreads();  // the previous chunk's readers are done
+        if (p.packed)
+            stage_packed<K>(xs, ws, p, xb, w, h, wd, cin, cout, y0, x0, co0);
+        else
+            stage_wide<K>(xs, ws, raw, bar, chunk, p, xb, w, h, wd, cin, cout, y0, x0, c0, co0,
+                          vec, wv);
         __syncthreads();
-        // the tap rows rolled above K = 3: unrolled, K = 5 and 7 spill
-#pragma unroll (K <= 3 ? K : 1)
-        for (int ky = 0; ky < K; ++ky) {
+        // a unit is one column over tap rows [k0, k1): A tiles of image rows
+        // 2 rp + k0 .. 2 rp + k1 (row 2 rp + 1 at tap row ky is row 2 rp at
+        // ky + 1: loaded once), B tiles of tap rows k0 .. k1 - 1, all loaded
+        // before the products; the sums of the two rows, the two output
+        // tiles and the two banks are eight independent chains
+        for (int u = 0; u < n_units; ++u) {
+            const bool split = 2 * u == n_even;  // the odd last column
+            const int j = split ? n_even : 2 * u + half;
+            const int k0 = split && half == 1 ? (K + 1) / 2 : 0;
+            const int k1 = split && half == 0 ? (K + 1) / 2 : K;
+            const bf16* ak = xs + 2 * rp * a_row + (j >> sh) * a_kx + (j & sh) * 16 + a_lane;
+            const bf16* bk = ws + (j >> sh) * b_kx + (j & sh) * 16 + b_lane;
+            unsigned af[K + 1][4], bw[K][4];
 #pragma unroll
-            for (int kx = 0; kx < K; ++kx) {
-                // A (16 pixels x 16 channels): pixel i of the row at a + i*cs
-                const bf16* a = xs + ((row + ky) * S::PW + kx) * s.cs + 2 * t;
-                const bf16* bw = ws + (ky * K + kx) * FWD_NT * s.cs + g * s.cs + 2 * t;
-                for (int c = 0; c < s.cc; c += 16) {
-                    unsigned af[4];
-                    af[0] = word(a + g * s.cs + c);
-                    af[1] = word(a + (g + 8) * s.cs + c);
-                    af[2] = word(a + g * s.cs + c + 8);
-                    af[3] = word(a + (g + 8) * s.cs + c + 8);
+            for (int i = 0; i <= K; ++i)
+                if (i >= k0 && i <= k1) ldmatrix_x4(af[i], ak + i * a_row);
 #pragma unroll
-                    for (int nt = 0; nt < 2; ++nt) {
-                        const bf16* bq = bw + 8 * nt * s.cs + c;
-                        const unsigned bf[2] = {word(bq), word(bq + 8)};
-                        mma_bf16(acc[nt], af, bf);
+            for (int i = 0; i < K; ++i)
+                if (i >= k0 && i < k1) ldmatrix_x4(bw[i], bk + i * b_ky);
+#pragma unroll
+            for (int i = 0; i < K; ++i) {
+                if (i >= k0 && i < k1) {
+                    const unsigned b0[2] = {bw[i][0], bw[i][1]};
+                    const unsigned b1[2] = {bw[i][2], bw[i][3]};
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        mma_bf16(acc[r][i & 1][0], af[i + r], b0);
+                        if (two) mma_bf16(acc[r][i & 1][1], af[i + r], b1);
                     }
                 }
             }
         }
     }
 
-    // epilogue in fp32 (conv_kernel.py `_epilogue`): + bias, + skip,
-    // activation; one rounding to bf16 at the store
-    const int gy = y0 + row;
-    if (gy >= h) return;
+    // the two halves' sums: each warp hands the sums of the row its partner
+    // finishes (row 2 rp + 1 - half) through shared memory and finishes row
+    // 2 rp + half, half 0's sums plus half 1's
+    float own[2][4], other[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int gx = x0 + g + (e >= 2 ? 8 : 0);
-            const int o = co0 + 8 * nt + 2 * t + (e & 1);
-            if (gx >= wd || o >= cout) continue;
+            const float r0 = acc[0][0][nt][e] + acc[0][1][nt][e];
+            const float r1 = acc[1][0][nt][e] + acc[1][1][nt][e];
+            own[nt][e] = half == 0 ? r0 : r1;
+            other[nt][e] = half == 0 ? r1 : r0;
+        }
+    }
+    __syncthreads();  // every warp is done with the staged tiles
+    float* red = reinterpret_cast<float*>(fwd_smem_raw);  // [rp][half][8 sums][32 lanes]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[((rp * 2 + half) * 8 + i) * 32 + lane] = other[i / 4][i % 4];
+    __syncthreads();
+    float v[2][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const float peer = red[((rp * 2 + 1 - half) * 8 + i) * 32 + lane];
+        v[i / 4][i % 4] = half == 0 ? own[i / 4][i % 4] + peer : peer + own[i / 4][i % 4];
+    }
+
+    // epilogue in fp32 (conv_kernel.py `_epilogue`): + bias, + skip,
+    // activation; one rounding to bf16 at the store, two outputs per 32-bit
+    // store where cout is even
+    if (gy >= h) return;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+        const int o = co0 + 8 * nt + 2 * t;
+        if (o >= cout) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int gx = x0 + g + 8 * hf;
+            if (gx >= wd) continue;
             const long long at = ((b * h + gy) * wd + gx) * cout + o;
-            float v = acc[nt][e];
-            if (bias != nullptr) v += __bfloat162float(bias[o]);
-            if (skip != nullptr) v += __bfloat162float(skip[at]);
-            if (act == ACT_RELU) v = fmaxf(v, 0.f);
-            else if (act == ACT_LEAKY) v = v >= 0.f ? v : slope * v;
-            y[at] = __float2bfloat16_rn(v);
+            bf16 out[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                float z = v[nt][2 * hf + e];
+                if (bias != nullptr) z += pre_bias[nt][e];
+                if (skip != nullptr) z += pre_skip[nt][hf][e];
+                if (act == ACT_RELU) z = fmaxf(z, 0.f);
+                else if (act == ACT_LEAKY) z = z >= 0.f ? z : slope * z;
+                out[e] = __float2bfloat16_rn(z);
+            }
+            if (cout % 2 == 0) {
+                *reinterpret_cast<unsigned*>(y + at) = pack2(out[0], out[1]);
+            } else {
+                y[at] = out[0];
+                if (o + 1 < cout) y[at + 1] = out[1];
+            }
         }
     }
 }
@@ -350,17 +670,17 @@ struct FwdTag {};
 template <int K>
 int launch_fwd(const bf16* x, const Weight& w, const bf16* bias, const bf16* skip, bf16* y,
                int batch, int h, int wd, int cin, int cout, int act, float slope, int vec,
-               int wvec, cudaStream_t stream) {
-    using S = FwdShape<K>;
-    const int smem = 2 * S(cin).elems();
+               int wv, cudaStream_t stream) {
+    const FwdPlan p(cin, K);
+    const int smem = fwd_smem_bytes(p) + 16;
     const cudaError_t err =
         allow_smem(conv_fwd_bf16_kernel<K>, smem, smem_allowed<FwdTag, K>());
     if (err != cudaSuccess) return static_cast<int>(err);
     const int tiles = ((h + FWD_TH - 1) / FWD_TH) * ((wd + FWD_TW - 1) / FWD_TW);
     const dim3 grid(static_cast<unsigned>(batch * tiles),
                     static_cast<unsigned>((cout + FWD_NT - 1) / FWD_NT));
-    conv_fwd_bf16_kernel<K><<<grid, S::THREADS, smem, stream>>>(x, w, bias, skip, y, h, wd, cin,
-                                                                cout, act, slope, vec, wvec);
+    conv_fwd_bf16_kernel<K><<<grid, 32 * FWD_TH, smem, stream>>>(x, w, bias, skip, y, h, wd, cin,
+                                                                 cout, act, slope, vec, wv);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,43 +719,6 @@ struct WgPlan {
           raw(taps > 1 ? seg * cin : 0),
           stage_elems(per_stage * ((pw + seg) * WG_RS + raw)) {}
 };
-
-// cp.async of 4, 8 or 16 bytes (v = 2, 4 or 8 bf16); when !valid nothing is
-// read and zeros are written. v = 1 is a plain load and store.
-__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src, int v, bool valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    switch (v) {
-        case 8:
-            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                         :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-            break;
-        case 4:
-            asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                         :: "r"(d), "l"(src), "r"(valid ? 8 : 0) : "memory");
-            break;
-        case 2:
-            asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                         :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
-            break;
-        default:
-            *dst = valid ? *src : __float2bfloat16(0.f);
-    }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices, transposed: lane l gives the address of row l % 8
-// of matrix l / 8, and register i receives matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
 
 // log2 of the chunks of one staged row rounded up to a power of two (n <= 16):
 // chunk k of a unit's rows is chunk k % 2^result of row k >> result
@@ -724,20 +1007,22 @@ extern "C" int silt_conv_fwd_bf16(const void* x, const void* w, long long s_ky, 
                                   const void* skip, void* y, int batch, int h, int wd, int cin,
                                   int cout, int k, int act, float slope, void* stream) {
     if (batch * h * wd == 0 || cout == 0) return 0;
-    const Weight wv{static_cast<const bf16*>(w), s_ky, s_kx, s_c, s_o, flip};
+    const Weight wt{static_cast<const bf16*>(w), s_ky, s_kx, s_c, s_o, flip};
     const int vec = cin % 8 == 0 && aligned16(x);
-    // the weight as [outer][inner][tap], the runs over (inner, tap) 16-byte aligned
+    // the weight as [outer][inner][tap]: copied as it lies, the widest chunk
+    // (8, 4 or 2 elements) that divides the outer stride and the alignment
     const long long kk = static_cast<long long>(k) * k;
-    const long long s_in = s_c < s_o ? s_c : s_o;
-    const long long s_out = s_c < s_o ? s_o : s_c;
-    const int wvec = s_kx == 1 && s_ky == k && s_in == kk && s_out % 8 == 0 && aligned16(w);
+    const long long s_in = s_c <= s_o ? s_c : s_o;
+    const long long s_out = s_c <= s_o ? s_o : s_c;
+    const int wv = s_kx == 1 && s_ky == k && s_in == kk ? chunk_width(static_cast<int>(s_out % 8), w)
+                                                        : 1;
     const auto* xb = static_cast<const bf16*>(x);
     const auto* bb = static_cast<const bf16*>(bias);
     const auto* sb = static_cast<const bf16*>(skip);
     auto* yb = static_cast<bf16*>(y);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SILT_FWD(K) \
-    launch_fwd<K>(xb, wv, bb, sb, yb, batch, h, wd, cin, cout, act, slope, vec, wvec, st)
+    launch_fwd<K>(xb, wt, bb, sb, yb, batch, h, wd, cin, cout, act, slope, vec, wv, st)
     switch (k) {
         case 1: return SILT_FWD(1);
         case 3: return SILT_FWD(3);

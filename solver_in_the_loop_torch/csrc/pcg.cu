@@ -56,13 +56,17 @@
 // Shapes. On a field whose sides are multiples of 16 and that has at most
 // 16 tiles (the karman 64x32) the kernel takes the layout above (`kFast`).
 // Any other shape the gate takes (pcg_kernel_fits) runs the same loop with
-// up to 16 warps, a warp owning up to three tiles one by one, the stripe
-// barriers replaced by block barriers, and the tiles padded with zeros by
-// predicated loads: rows and columns of Vy, Vx, invd and the fields beyond
-// the domain read as 0, so padded cells stay 0. Its shared memory is
-// unpadded (p's halo, r, two temporaries, one Vy and one Vx), which fits
-// pcg_smem_bytes at every shape the gate takes; a padded Vy alone would not
-// at (234, 1). That path spills registers; it is for correctness, not speed.
+// up to 16 warps, a warp owning up to three tiles one by one (six where the
+// field has more than 48 tiles: (130, 65) has 81), the stripe barriers
+// replaced by block barriers, and the tiles padded with zeros by predicated
+// loads: rows and columns of Vy, Vx, invd and the fields beyond the domain
+// read as 0, so padded cells stay 0. Its shared memory is unpadded (p's
+// halo, r, two temporaries, one Vy and one Vx: 220,748 bytes at (130, 65)),
+// and pcg_smem_bytes in kernels/cg.py mirrors both layouts. That path
+// spills registers (660 bytes at three tiles a warp, 1,980 at six) and is
+// for correctness, not speed: about 32 us an iteration at (96, 48) and 80
+// at (130, 65), where the fast layout takes 4.7 at 64x32 (chip_smoke.py
+// `kernels` `pressure_route`, PERF.md).
 //
 // What bounds it on the H100. One iteration is about 0.85 MFLOP per element
 // at 64x32 (the four products 4*H*W*(H+W) = 786 kFLOP, 2.4 MFLOP of TF32
@@ -90,6 +94,7 @@ using silt::split_tf32;
 
 constexpr int kMaxWarps = 16;  // 512 threads: a block's warps, at most
 constexpr int kFastWarps = 8;  // the fast layout's: two tiles each
+constexpr int kMaxTiles = 6;   // tiles per warp of the general layout, at most
 constexpr int kFlushSteps = 4;  // k-steps of 8 between flushes of the accumulators
 
 // The smallest stride >= n that is m modulo 32.
@@ -189,7 +194,9 @@ __device__ __forceinline__ void stripe_sync(int stripe, int nq) {
     else __syncthreads();
 }
 
-template <bool kFast>
+// kTiles: the tiles a warp owns, at most (2 in the fast layout, 3 or
+// kMaxTiles in the general one).
+template <bool kFast, int kTiles>
 __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
     pcg_kernel(const float* __restrict__ b_all, const float* __restrict__ x0_all,
                const float* __restrict__ fluid, const float* __restrict__ face_u,
@@ -197,8 +204,8 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
                const float* __restrict__ vx_g, const float* __restrict__ invd_g,
                float* __restrict__ x_all, int* __restrict__ iters, int* __restrict__ flags,
                int batch, int h, int w, float tol2, int max_iter) {
-    constexpr int kTiles = kFast ? 2 : 3;  // tiles per warp, at most
-    constexpr int kC = 4 * kTiles;        // cells per thread
+    static_assert(!kFast || kTiles == 2, "the fast layout gives a warp two tiles");
+    constexpr int kC = 4 * kTiles;  // cells per thread
     extern __shared__ __align__(16) float smem[];
     __shared__ float red_a[32];
     __shared__ float red_b[3 * 32];
@@ -422,7 +429,7 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
 }
 
 // the dynamic shared memory each instantiation is allowed so far, per device
-int g_smem_allowed[2][silt::kMaxDevices] = {};
+int g_smem_allowed[3][silt::kMaxDevices] = {};
 
 }  // namespace
 
@@ -443,17 +450,21 @@ extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* flui
     // by side), a named barrier per stripe (ids 1..15; 0 is __syncthreads)
     const bool fast = h % 16 == 0 && w % 16 == 0 && tiles <= 2 * kFastWarps && stripes <= 15 &&
                       4 * pcg_layout(h, w, true).words <= smem_bytes;
-    if (!fast && (tiles > 3 * kMaxWarps || 4 * pcg_layout(h, w, false).words > smem_bytes))
+    if (!fast && (tiles > kMaxTiles * kMaxWarps || 4 * pcg_layout(h, w, false).words > smem_bytes))
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     int* kflags = batch > silt::kMaxCluster ? flags : nullptr;
     const int threads = 32 * (fast ? tiles / 2 : (tiles < kMaxWarps ? tiles : kMaxWarps));
     const cudaError_t err =
-        fast ? silt::launch_batch(pcg_kernel<true>, g_smem_allowed[1], batch, threads, smem_bytes,
-                                  stream, b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters,
-                                  kflags, batch, h, w, tol2, max_iter)
-             : silt::launch_batch(pcg_kernel<false>, g_smem_allowed[0], batch, threads, smem_bytes,
-                                  stream, b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters,
-                                  kflags, batch, h, w, tol2, max_iter);
+        fast ? silt::launch_batch(pcg_kernel<true, 2>, g_smem_allowed[0], batch, threads,
+                                  smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
+                                  x, iters, kflags, batch, h, w, tol2, max_iter)
+        : tiles <= 3 * kMaxWarps
+            ? silt::launch_batch(pcg_kernel<false, 3>, g_smem_allowed[1], batch, threads,
+                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
+                                 x, iters, kflags, batch, h, w, tol2, max_iter)
+            : silt::launch_batch(pcg_kernel<false, kMaxTiles>, g_smem_allowed[2], batch, threads,
+                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
+                                 x, iters, kflags, batch, h, w, tol2, max_iter);
     return static_cast<int>(err);
 }

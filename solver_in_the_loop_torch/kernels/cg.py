@@ -20,7 +20,10 @@ implicit-function adjoint of `lax.custom_linear_solve` with
 registered custom ops so that a selective-checkpoint policy can save their
 output (train/trainer.py), and each reaches its kernel only through the
 module-level wrapper (`pcg_solve`, `cg_solve`), so replacing that wrapper
-replaces the kernel in both directions.
+replaces the kernel in both directions. `pcg_plain_solve_op`
+(`torch.ops.silt.pcg_plain_solve`) is the same differentiable solve on the
+plain FD-PCG loop, on any device: the route of a batch above MAX_BATCH
+(ops/poisson.py `pressure_route`).
 """
 
 from __future__ import annotations
@@ -43,25 +46,55 @@ MAX_BATCH = 128
 # kernel's static reduction scratch
 SMEM_LIMIT_BYTES = 232448 - 1024
 # csrc/cg.cu keeps each thread's cells of x, r, p and A p in registers: at
-# most 8 cells for each of its threads, 1,024 on the largest fields
-CG_MAX_CELLS = 1024 * 8
+# most 12 cells for each of its threads, 1,024 on the largest fields
+CG_MAX_CELLS = 1024 * 12
+# csrc/pcg.cu cuts the field into 16x8 tiles: in its fast layout (both sides
+# multiples of 16, at most PCG_FAST_TILES tiles in at most 15 stripes of 16
+# rows) 8 warps own two each; else up to 16 warps own up to 6 each
+PCG_FAST_TILES = 16
+PCG_MAX_TILES = 16 * 6
+
+
+def _stride_mod32(n: int, m: int) -> int:
+    """The smallest stride >= n that is m modulo 32 (csrc/pcg.cu `stride_mod32`)."""
+    return n + (m - n) % 32
+
+
+def _pcg_tiles(h: int, w: int) -> int:
+    return -(-h // 16) * -(-w // 8)
+
+
+def _pcg_layout_words(h: int, w: int, fast: bool) -> int:
+    """The floats of csrc/pcg.cu `pcg_layout`: p in its halo, r, t0, t1, Vy
+    and Vx, each once (general) or padded and Vy and Vx twice (fast)."""
+    ps, ldr, ld0, ldy, ldx = ((_stride_mod32(w + 1, 8), _stride_mod32(w, 8), _stride_mod32(w, 4),
+                               _stride_mod32(h, 4), _stride_mod32(w, 4)) if fast
+                              else (w + 1, w, w, h, w))
+    copies = 2 if fast else 1
+    return (h + 2) * ps + h * (2 * ldr + ld0) + copies * (h * ldy + w * ldx)
 
 
 def pcg_smem_bytes(h: int, w: int) -> int:
-    """Dynamic shared memory a block of the kernel gets: the room of nine
-    (h, w) vectors, both face masks, Vy, Vx and Vx^T. csrc/pcg.cu carves its
-    layouts inside it (at 64x32 the fast layout takes 84,288 of its 115,072
-    bytes; the unpadded one fits at every shape the gate takes). The one
+    """Dynamic shared memory a block of csrc/pcg.cu gets: the bytes of the
+    layout it takes, the fast one (at 64x32: 84,288) where the field's sides
+    are multiples of 16, it has at most PCG_FAST_TILES tiles and the layout
+    fits SMEM_LIMIT_BYTES, else the unpadded one (at (130, 65): 220,748). The
+    kernel takes the fast layout exactly where it is given its bytes. The one
     source of this size: the gate reads it and the launch passes it."""
-    return 4 * (9 * h * w + h * (w + 1) + (h + 1) * w + h * h + 2 * w * w)
+    fast = (h % 16 == 0 and w % 16 == 0 and _pcg_tiles(h, w) <= PCG_FAST_TILES and h // 16 <= 15
+            and 4 * _pcg_layout_words(h, w, True) <= SMEM_LIMIT_BYTES)
+    return 4 * _pcg_layout_words(h, w, fast)
 
 
 def pcg_kernel_fits(shape) -> bool:
     """Whether the fused kernel takes a (B, H, W) problem: the batch fits one
-    resident grid (MAX_BATCH) and one element fits a block's shared memory
-    (the port of the VMEM gate in solver_in_the_loop_tpu/ops/pallas/cg.py)."""
+    resident grid (MAX_BATCH), and one element's tiles the block's warps
+    (PCG_MAX_TILES) and its layout the block's shared memory. It stands for
+    the VMEM gate of solver_in_the_loop_tpu/ops/pallas/cg.py, which takes
+    far larger fields (16 live fields in 12 MiB: 196,608 cells)."""
     b, h, w = shape
-    return 1 <= b <= MAX_BATCH and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES
+    return (1 <= b <= MAX_BATCH and _pcg_tiles(h, w) <= PCG_MAX_TILES
+            and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES)
 
 
 def cg_smem_bytes(h: int, w: int) -> int:
@@ -198,8 +231,8 @@ def _check(b, x0, fluid, face_u, face_v, vy, vx, invd):
                              f"tensor on {b.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not pcg_kernel_fits(b.shape):
         raise ValueError(f"pcg_solve: {tuple(b.shape)} does not fit the kernel "
-                         f"(batch <= {MAX_BATCH}, {pcg_smem_bytes(h, w)} B shared memory "
-                         f"> {SMEM_LIMIT_BYTES} B)")
+                         f"(batch <= {MAX_BATCH}, at most {PCG_MAX_TILES} tiles, "
+                         f"{pcg_smem_bytes(h, w)} B shared memory <= {SMEM_LIMIT_BYTES} B)")
 
 
 def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: int):
@@ -263,6 +296,32 @@ def _pcg_backward(ctx, grad_x, _grad_iters):
 
 
 pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)
+
+
+@torch.library.custom_op(
+    "silt::pcg_plain_solve", mutates_args=(),
+    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, Tensor vy, "
+           "Tensor vx, Tensor invd, float tol, int max_iter) -> (Tensor, Tensor)")
+def pcg_plain_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
+    """The FD-preconditioned loop in plain PyTorch (`pcg_solve_plain`) as a
+    differentiable op in b, on any device: the pressure route of a batch
+    above MAX_BATCH (ops/poisson.py `pressure_route`, "pcg_plain"), as the
+    JAX package takes its XLA FD-PCG there. Returns (x, iterations)."""
+    x, iters = pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
+    return (x.clone() if x is x0 else x), iters
+
+
+def _pcg_plain_backward(ctx, grad_x, _grad_iters):
+    """The cotangent of b is A^-1 grad_x: a cold solve by the same loop."""
+    grad_b = None
+    if ctx.needs_input_grad[0]:
+        g = grad_x.contiguous()
+        grad_b, _ = pcg_solve_plain(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol,
+                                    ctx.max_iter)
+    return (grad_b,) + (None,) * 9
+
+
+pcg_plain_solve_op.register_autograd(_pcg_plain_backward, setup_context=_pcg_setup)
 
 
 def cg_solve_plain(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):

@@ -232,6 +232,47 @@ def conv_fwd_bf16(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
 conv_fwd_bf16.launches = 0
 
 
+# The tiling constants of csrc/conv_bf16.cu's forward, by their names there
+# (tests/test_torch_conv_fwd_bf16_tiles.py holds the two to each other).
+FWD_BF16 = {"FWD_TH": 8, "FWD_TW": 16, "FWD_NT": 16, "FWD_CC": 32, "FWD_RS": 24}
+
+
+def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> dict:
+    """The partition `conv_fwd_bf16` launches for x (b, h, w, cin) and a KxK
+    kernel to cout outputs, as csrc/conv_bf16.cu `FwdPlan` and `launch_fwd`
+    compute it. A block owns FWD_TH image rows x FWD_TW pixels and FWD_NT
+    outputs. Where cin >= 16 it stages the input in chunks of `cc` channels,
+    a patch of ph x pw pixels at `cs` elements each, and the weight of every
+    tap; where cin < 16 (`packed`) ph x pw A rows, each `taps` taps of all
+    cin channels, `groups` per tap row. Every tap row has `per_ky` k-steps in
+    `nkx` columns (taps or tap groups); each warp takes two image rows and
+    every other column over all tap rows, its partner the others. `patch`,
+    `weight` and `raw` are the elements of its shared memory (`raw`: the
+    weight's runs as they lie in memory). Also the grid (tiles, output
+    tiles), the block's threads and its shared memory in bytes: the tiles,
+    at least the room where the two halves exchange their sums, and 16 for
+    the mbarrier."""
+    c = FWD_BF16
+    packed = cin < 16
+    taps = 16 // max(cin, 1) if packed else 1
+    groups = -(-k // taps)
+    cc = 16 if packed else min(-(-cin // 16) * 16, c["FWD_CC"])
+    cs = c["FWD_RS"] if packed else cc + 8
+    ph = c["FWD_TH"] + k - 1
+    pw = groups * c["FWD_TW"] if packed else c["FWD_TW"] + k - 1
+    nkx = groups if packed else k
+    per_ky = groups if packed else k * (cc // 16)
+    patch = ph * pw * cs
+    weight = k * nkx * c["FWD_NT"] * cs
+    raw = 0 if packed else max(c["FWD_NT"] * -(-cc * k * k // 8) * 8,
+                               cc * -(-c["FWD_NT"] * k * k // 8) * 8)
+    tiles = -(-h // c["FWD_TH"]) * -(-w // c["FWD_TW"])
+    return {"packed": packed, "taps": taps, "groups": groups, "cc": cc, "cs": cs, "ph": ph,
+            "pw": pw, "nkx": nkx, "per_ky": per_ky, "patch": patch, "weight": weight,
+            "raw": raw, "grid": [b * tiles, -(-cout // c["FWD_NT"])], "block": 32 * c["FWD_TH"],
+            "smem_bytes": max(2 * (patch + weight + raw), 4 * c["FWD_TH"] * 8 * 32) + 16}
+
+
 def conv_wgrad(x: torch.Tensor, dz: torch.Tensor, k: int) -> torch.Tensor:
     """dW (K, K, Cin, Cout) of the SAME conv for the output cotangent dz
     (B, H, W, Cout), float32, laid out as a contiguous (Cout, Cin, K, K)

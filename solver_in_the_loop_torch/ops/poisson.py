@@ -6,12 +6,14 @@ without it, or with a multigrid V-cycle. `solve_pressure` dispatches as the
 JAX package does (`pressure_route`): on CUDA to the fused kernel of
 kernels/cg.py that the preconditioner option names (csrc/pcg.cu or
 csrc/cg.cu) wherever its gate takes the shape, else to multigrid
-(ops/multigrid.py); on the CPU to multigrid where the JAX package takes it
-off the TPU, else to the kernel's plain twin. The plain loops,
-`pcg_solve_info` and `cg_solve_info`, live beside the kernels in
-kernels/cg.py. The OPEN-boundary solve is differentiable in its right-hand
-side on every route: the backward is a cold solve of the same system by the
-same solver (`pcg_solve_op`, `cg_solve_op`, `mg_solve_op`).
+(ops/multigrid.py) where the JAX package takes it; on the CPU to multigrid
+where the JAX package takes it off the TPU, else to the kernel's plain twin;
+on either device a batch above the kernels' MAX_BATCH, off multigrid, to the
+plain FD-PCG loop, the JAX package's route there. The plain loops, `pcg_solve_info` and
+`cg_solve_info`, live beside the kernels in kernels/cg.py. The OPEN-boundary
+solve is differentiable in its right-hand side on every route: the backward
+is a cold solve of the same system by the same solver (`pcg_solve_op`,
+`cg_solve_op`, `mg_solve_op`, `pcg_plain_solve_op`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from solver_in_the_loop_torch.kernels.cg import (
     fd_apply,
     masked_matvec,
     pcg_kernel_fits,
+    pcg_plain_solve_op,
     pcg_solve_op,
 )
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
@@ -111,16 +114,26 @@ def fd_minv(ny: int, nx: int, device=None):
 def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") -> str:
     """The solver `solve_pressure` runs for a (B, H, W) problem on `device`:
     "pcg" or "cg" (the fused kernel with the FD preconditioner or without it
-    on CUDA, its plain twin on the CPU), "multigrid", or "periodic_cg" (the
-    plain CG loop, CPU only).
+    on CUDA, its plain twin on the CPU), "multigrid", "pcg_plain" (the plain
+    FD-PCG loop, a batch above MAX_BATCH) or "periodic_cg" (the plain CG
+    loop, CPU only).
 
     On CUDA it takes the kernel where its gate takes the shape (a batch of
     at most MAX_BATCH: one cluster up to 8, a cooperative grid above), as
     the JAX package takes its Pallas kernel where the VMEM gate of
     ops/pallas/cg.py takes it, and else multigrid where the JAX package
     would (`_mg_applicable`); on the CPU multigrid where the JAX package
-    takes it off the TPU and else the kernel's twin. Raises
-    NotImplementedError for what no route of the port solves on the card."""
+    takes it off the TPU and else the kernel's twin. A batch above MAX_BATCH
+    that multigrid does not take runs the plain FD-PCG loop on either
+    device, whichever `precon` names: that is the JAX package's route there.
+    Its VMEM gate (ops/pallas/cg.py:29-60) sizes the batched kernel, 16 live
+    (B, H, W) fields and the (B*W)^2 segment-sum and Vx matrices, far above
+    its 12 MiB budget at (129, 64, 32), and its XLA route off the Pallas
+    kernel (ops/poisson.py:292-299) is FD-preconditioned in either case. The
+    route depends on the shape alone: no kernel error lands there. Raises
+    NotImplementedError for what no route of the port solves on the card:
+    a periodic problem, and an element beyond both kernels' gates off
+    multigrid's sizes (with the preconditioner, (1, 134, 67))."""
     if precon not in PRECONS:
         raise ValueError(f"precon must be one of {PRECONS}, got {precon!r}")
     on_card = torch.device(device).type == "cuda"
@@ -137,11 +150,13 @@ def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") ->
         return kernel
     if _mg_applicable(shape):
         return "multigrid"
+    if shape[0] > MAX_BATCH:
+        return "pcg_plain"
     if on_card:
         raise NotImplementedError(
             f"pressure solve at {tuple(shape)} on CUDA: the fused {kernel.upper()} kernel does "
-            f"not take it (batch <= {MAX_BATCH}, one element in a block) and the JAX package "
-            "would not take multigrid there (ops/poisson.py _mg_applicable)")
+            "not take the element (kernels/cg.py pcg_kernel_fits, cg_kernel_fits) and the JAX "
+            "package would not take multigrid there (ops/poisson.py _mg_applicable)")
     return kernel
 
 
@@ -174,7 +189,8 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
         return cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
     _, ny, nx = rhs.shape
     vy, vx, invd = fd_factors(ny, nx, div.device)
-    return pcg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd, tol, max_iter)
+    solve = pcg_plain_solve_op if route == "pcg_plain" else pcg_solve_op
+    return solve(rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd, tol, max_iter)
 
 
 def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: float = 1e-5,

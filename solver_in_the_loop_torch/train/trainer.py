@@ -14,7 +14,7 @@ What differs from the JAX package, and why:
   `lax.scan`), each wrapped in `torch.utils.checkpoint` with a selective
   policy in place of `jax.checkpoint` with a names policy. The policy sees
   the pressure solve as the custom op of its route (`silt::pcg_solve`,
-  `silt::cg_solve` or `silt::mg_solve`), the tap-sum as `silt::tap_sum`, and
+  `silt::cg_solve`, `silt::mg_solve` or `silt::pcg_plain_solve`), the tap-sum as `silt::tap_sum`, and
   the convolutions as `aten.convolution` (the "library"
   nets) or `silt::conv` (the "kernel" nets).
 * The optimizer is `torch.optim.Adam` (optax's b1, b2, eps) behind
@@ -177,7 +177,7 @@ def remat_policy_ops(policy: str) -> list:
     if policy not in REMAT_SAVES:
         raise KeyError(f"unknown remat policy '{policy}'; use one of {sorted(REMAT_SAVES)}")
     ops = {"pcg": [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
-                   torch.ops.silt.mg_solve.default],
+                   torch.ops.silt.mg_solve.default, torch.ops.silt.pcg_plain_solve.default],
            "conv": [torch.ops.aten.convolution.default, torch.ops.silt.conv.default],
            "advect": [torch.ops.silt.tap_sum.default]}
     return [op for key in REMAT_SAVES[policy] for op in ops[key]]

@@ -168,6 +168,8 @@ def test_cg_kernel_gate():
     for batch in (1, 5, 8):
         assert tcg.cg_kernel_fits((batch, 64, 32))
     assert tcg.cg_kernel_fits((8, 128, 64))  # 8 cells per thread
+    assert tcg.cg_kernel_fits((1, 130, 65))  # 12 cells per thread
+    assert not tcg.cg_kernel_fits((1, 158, 79))  # beyond 12 cells per thread
     assert tcg.cg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
     assert not tcg.cg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
     assert not tcg.cg_kernel_fits((1, 256, 128))  # hi-res: multigrid
@@ -178,14 +180,15 @@ def test_cg_kernel_gate():
 @pytest.mark.parametrize("shape,device,precon,route", [
     ((3, 64, 32), "cuda", "none", "cg"), ((1, 64, 32), "cuda", "fd", "pcg"),
     ((6, 256, 128), "cuda", "none", "multigrid"), ((6, 256, 128), "cuda", "fd", "multigrid"),
-    ((2, 128, 64), "cuda", "none", "cg"), ((2, 128, 64), "cuda", "fd", "multigrid"),
+    ((2, 128, 64), "cuda", "none", "cg"), ((2, 128, 64), "cuda", "fd", "pcg"),
     ((3, 64, 32), "cpu", "none", "cg"), ((3, 64, 32), "cpu", "fd", "pcg"),
     ((2, 128, 64), "cpu", "none", "multigrid"), ((6, 256, 128), "cpu", "fd", "multigrid"),
 ])
 def test_pressure_route(shape, device, precon, route):
     """The JAX package's dispatch at the Makefile's shapes: the fused kernel
-    where its gate takes the shape, multigrid on large open grids; the CPU
-    takes multigrid where the JAX package does off the TPU."""
+    where its gate takes the shape (at 128x64 both, as the JAX package's
+    Pallas kernel takes it on the TPU), multigrid on large open grids; the
+    CPU takes multigrid where the JAX package does off the TPU."""
     assert tp.pressure_route(shape, device, precon=precon) == route
 
 
@@ -194,11 +197,26 @@ def test_pressure_route_refusals():
         tp.pressure_route((1, 32, 32), "cuda", periodic=True)
     assert tp.pressure_route((1, 32, 32), "cpu", periodic=True) == "periodic_cg"
     # more than one cluster: the kernel as a cooperative grid, as the JAX
-    # package's Pallas kernel takes it; more than one resident grid: refused
+    # package's Pallas kernel takes it; more than one resident grid: the
+    # plain FD-PCG loop on either device, the JAX package's XLA route there,
+    # either precon
     for precon, kernel in (("fd", "pcg"), ("none", "cg")):
         assert tp.pressure_route((9, 64, 32), "cuda", precon=precon) == kernel
         assert tp.pressure_route((9, 64, 32), "cpu", precon=precon) == kernel
-        with pytest.raises(NotImplementedError, match="batch <= 128"):
-            tp.pressure_route((129, 64, 32), "cuda", precon=precon)
+        assert tp.pressure_route((129, 64, 32), "cuda", precon=precon) == "pcg_plain"
+        assert tp.pressure_route((129, 64, 32), "cpu", precon=precon) == "pcg_plain"
+        # -r 48 and -r 65: off multigrid, where the JAX package takes its
+        # Pallas kernel, the kernels' general layouts
+        for shape in ((1, 96, 48), (1, 130, 65)):
+            assert tp.pressure_route(shape, "cuda", precon=precon) == kernel
+            assert tp.pressure_route(shape, "cpu", precon=precon) == kernel
+    # beyond the PCG's shared memory, off multigrid: refused on the card,
+    # where the plain CG kernel still takes it; beyond both
+    with pytest.raises(NotImplementedError, match="does not take the element"):
+        tp.pressure_route((1, 134, 67), "cuda", precon="fd")
+    assert tp.pressure_route((1, 134, 67), "cuda", precon="none") == "cg"
+    assert tp.pressure_route((1, 134, 67), "cpu", precon="fd") == "pcg"
+    with pytest.raises(NotImplementedError, match="does not take the element"):
+        tp.pressure_route((1, 158, 79), "cuda", precon="none")
     with pytest.raises(ValueError):
         tp.pressure_route((1, 64, 32), "cpu", precon="jacobi")

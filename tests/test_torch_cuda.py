@@ -283,6 +283,17 @@ CONV_SHAPES = [  # (B, H, W, Cin, Cout, K): MarsMoon at the Burgers and karman s
 ]
 
 
+# the bf16 kernels also at the karman block and head (their input gradients
+# too: a Cin < 16 stem dX at 2 -> 32), a packed Cin = 8 (two taps a row),
+# one 32-channel chunk holding 20 with an odd Cout, K = 1, an input gradient
+# whose two channel chunks each come in one bulk copy (16 -> 64), and a
+# packed Cin = 12 at K = 7 (one tap a row, seven groups)
+CONV_BF16_SHAPES = CONV_SHAPES + [(3, 64, 32, 32, 32, 5), (3, 64, 32, 32, 2, 5),
+                                  (2, 8, 8, 8, 16, 5), (1, 9, 24, 20, 17, 3),
+                                  (1, 12, 20, 16, 9, 1), (2, 16, 16, 16, 64, 3),
+                                  (1, 16, 24, 12, 20, 7)]
+
+
 def _conv_inputs(device, shape, seed=0):
     b, h, w, cin, cout, k = shape
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -354,12 +365,13 @@ def test_burgers_train_step_with_kernels_matches_plain(device):
         assert errors[key] <= tol, (key, errors)
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("shape", CONV_BF16_SHAPES)
 @pytest.mark.parametrize("act,with_skip", [("none", False), ("relu", True), ("leaky_relu", False),
                                            ("leaky_relu", True)])
 def test_conv_fwd_bf16_kernel_matches_plain(device, shape, act, with_skip):
     """The bf16 forward kernel (csrc/conv_bf16.cu) within one bf16 ulp of its
-    twin beyond the fp32 sums' tolerance (parity.bf16_errors), one launch."""
+    twin beyond the fp32 sums' tolerance (parity.bf16_errors), one launch,
+    the same bits on a second launch."""
     x, wt, bias, skip = (t.to(torch.bfloat16) for t in _conv_inputs(device, shape))
     w = wt.permute(2, 3, 1, 0)
     skip = skip if with_skip else None
@@ -370,15 +382,17 @@ def test_conv_fwd_bf16_kernel_matches_plain(device, shape, act, with_skip):
     assert got.dtype == torch.bfloat16
     want = kconv.conv_fwd_plain(x, w, bias, skip, act, 0.3)
     assert parity.bf16_errors(got, want) <= parity.CONV_BF16_ULPS
+    assert torch.equal(got, kconv.conv_fwd(x, w, bias, skip, act, 0.3))  # no atomics
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("shape", CONV_BF16_SHAPES)
 def test_conv_dgrad_and_wgrad_bf16_kernels_match_plain(device, shape):
     x, wt, _, dz = (t.to(torch.bfloat16) for t in _conv_inputs(device, shape, seed=1))
     w = wt.permute(2, 3, 1, 0)
     got = kconv.conv_fwd_bf16(dz, w.transpose(2, 3), flip=True)
     assert parity.bf16_errors(got, kconv.conv_fwd_plain(dz, w.transpose(2, 3), flip=True)) \
         <= parity.CONV_BF16_ULPS
+    assert torch.equal(got, kconv.conv_fwd_bf16(dz, w.transpose(2, 3), flip=True))
     launches = kconv.conv_wgrad_bf16.launches
     dw = kconv.conv_wgrad(x, dz, shape[5])
     assert kconv.conv_wgrad_bf16.launches == launches + 1
@@ -500,16 +514,16 @@ def test_rollout_without_preconditioner_matches_plain(device):
 
 
 def test_multigrid_route_on_the_card_matches_cpu(device):
-    """At 128x64 the PCG kernel does not fit: the card takes multigrid (no
-    kernel launch), with the CPU's result and a gradient."""
-    rhs, masks = _cg_problem(device, 2, karman_domain(64), seed=6)
+    """At 256x128 neither kernel takes the element: the card takes multigrid
+    (no kernel launch), with the CPU's result and a gradient."""
+    rhs, masks = _cg_problem(device, 2, karman_domain(128), seed=6)
     assert pressure_route(rhs.shape, device) == "multigrid"
     launches = (cg_solve.launches, pcg_solve.launches)
     div = (-rhs).requires_grad_()
     p, iters = solve_pressure(div, masks)
     p.sum().backward()
     assert (cg_solve.launches, pcg_solve.launches) == launches
-    cpu_masks = KarmanFlow(karman_domain(64), advection="shift").masks
+    cpu_masks = KarmanFlow(karman_domain(128), advection="shift").masks
     p_cpu, _ = solve_pressure(-rhs.cpu(), cpu_masks)
     assert 0 < int(iters) < 200 and torch.isfinite(div.grad).all()
     assert _rel(p.detach().cpu(), p_cpu) <= parity.PCG_REL_TOL
@@ -547,5 +561,62 @@ def test_batch_above_a_cluster_takes_the_kernel(device, precon):
     p_cpu, iters_cpu = solve_pressure(div_cpu, cpu_masks, precon=precon)
     (grad_cpu,) = torch.autograd.grad(p_cpu, div_cpu, cot.cpu())
     assert abs(int(iters) - int(iters_cpu)) <= parity.PCG_ITER_TOL
+    assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
+    assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]
+
+
+@pytest.mark.parametrize("precon", ["fd", "none"])
+def test_plain_fd_pcg_route_on_the_card_matches_cpu(device, precon):
+    """A batch above MAX_BATCH runs the plain FD-PCG loop on either device,
+    whichever precon names, forward and adjoint, with no kernel launch: the
+    card's iterations, solution and gradient against the CPU's."""
+    rhs, masks = _cg_problem(device, 129, seed=32)
+    assert pressure_route(rhs.shape, device, precon=precon) == "pcg_plain"
+    assert pressure_route(rhs.shape, "cpu", precon=precon) == "pcg_plain"
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(11),
+                      device=device)
+    launches = (cg_solve.launches, pcg_solve.launches)
+    div = (-rhs).requires_grad_()
+    p, iters = solve_pressure(div, masks, precon=precon)
+    (grad,) = torch.autograd.grad(p, div, cot)
+    assert (cg_solve.launches, pcg_solve.launches) == launches
+    cpu_masks = KarmanFlow(karman_domain(32), advection="shift").masks
+    div_cpu = (-rhs).cpu().requires_grad_()
+    p_cpu, iters_cpu = solve_pressure(div_cpu, cpu_masks, precon=precon)
+    (grad_cpu,) = torch.autograd.grad(p_cpu, div_cpu, cot.cpu())
+    assert 0 < int(iters) < 1000 and abs(int(iters) - int(iters_cpu)) <= parity.PCG_ITER_TOL
+    assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
+    assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]
+
+
+@pytest.mark.parametrize("batch,res,precon", [(1, 48, "fd"), (1, 65, "fd"), (1, 65, "none"),
+                                              (2, 64, "fd")])
+def test_general_layout_route_on_the_card_matches_cpu(device, batch, res, precon):
+    """Off multigrid's sizes (-r 48, -r 65) and at 128x64 the kernel that
+    precon names takes the element in its general layout (the PCG's three
+    or six tiles a warp, the plain CG's 12 cells a thread), forward and
+    adjoint: the card's solution and gradient against the CPU's with the
+    same precon (at 128x64 the CPU's multigrid), its iterations against
+    the kernel's twin on the CPU."""
+    rhs, masks = _cg_problem(device, batch, karman_domain(res), seed=res)
+    kernel, twin, tol = {"fd": (pcg_solve, pcg_solve_plain, parity.PCG_ITER_TOL),
+                         "none": (cg_solve, cg_solve_plain, parity.CG_ITER_TOL)}[precon]
+    assert pressure_route(rhs.shape, device, precon=precon) == {"fd": "pcg", "none": "cg"}[precon]
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(12),
+                      device=device)
+    launches = kernel.launches
+    div = (-rhs).requires_grad_()
+    p, iters = solve_pressure(div, masks, precon=precon)
+    (grad,) = torch.autograd.grad(p, div, cot)
+    assert kernel.launches == launches + 2
+    cpu_masks = KarmanFlow(karman_domain(res), advection="shift").masks
+    div_cpu = (-rhs).cpu().requires_grad_()
+    p_cpu, _ = solve_pressure(div_cpu, cpu_masks, precon=precon)
+    (grad_cpu,) = torch.autograd.grad(p_cpu, div_cpu, cot.cpu())
+    ops = [rhs.cpu(), torch.zeros_like(rhs.cpu()), cpu_masks.fluid, cpu_masks.face_u,
+           cpu_masks.face_v] + (list(fd_factors(rhs.shape[1], rhs.shape[2], "cpu"))
+                                if precon == "fd" else [])
+    _, iters_cpu = twin(*ops, 1e-5, 1000)
+    assert 0 < int(iters) < 1000 and abs(int(iters) - int(iters_cpu)) <= tol
     assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
     assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]

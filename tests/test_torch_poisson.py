@@ -160,7 +160,13 @@ def test_kernel_gate():
     assert tcg.pcg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
     assert not tcg.pcg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
     assert not tcg.pcg_kernel_fits((1, 256, 128))  # hi-res: multigrid in the JAX package
-    assert tcg.pcg_smem_bytes(64, 32) == 4 * 28768
+    # -r 48 and -r 65 (off multigrid) and 128x64 in the general layout
+    for shape in ((1, 96, 48), (1, 130, 65), (3, 128, 64)):
+        assert tcg.pcg_kernel_fits(shape)
+    assert not tcg.pcg_kernel_fits((1, 134, 67))  # beyond shared memory
+    # the fast layout at 64x32, the general one at (130, 65) (csrc/pcg.cu pcg_layout)
+    assert tcg.pcg_smem_bytes(64, 32) == 4 * 21072
+    assert tcg.pcg_smem_bytes(130, 65) == 4 * 55187
 
 
 def test_multigrid_sizes_raise_on_cpu():
@@ -193,6 +199,65 @@ def test_batch_above_a_cluster_matches_jax(precon, warm):
     (want,) = vjp(jnp.asarray(cot))
     div_t = torch.from_numpy(div).requires_grad_()
     p_t, iters = tp.solve_pressure(div_t, tm, x0=x0[1], precon=precon)
+    (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
+    _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
+    _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])
+    assert 0 < int(iters) < 1000
+
+
+# (B, H, W, precon) of a batch above MAX_BATCH: the gate is on the batch,
+# so a narrow field
+PLAIN_ROUTE_CASES = [(129, 16, 8, "fd"), (129, 16, 8, "none")]
+
+
+@pytest.mark.parametrize("case", PLAIN_ROUTE_CASES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_plain_fd_pcg_route_matches_jax(case, warm):
+    """A batch above MAX_BATCH runs the plain FD-PCG loop on either device
+    and with either precon (`pressure_route` "pcg_plain"), the JAX
+    package's XLA FD-PCG there: the solution within PCG_REL_TOL and the
+    gradient within the train-gradient tolerance of its solve_pressure."""
+    *shape, precon = case
+    assert tp.pressure_route(shape, "cuda", precon=precon) == "pcg_plain"
+    jm, tm, div, p0 = _problem(shape[0], res=shape[2], seed=11 + warm)
+    cot = np.random.RandomState(12).randn(*div.shape).astype(np.float32)
+    x0 = (jnp.asarray(p0), torch.from_numpy(p0)) if warm else (None, None)
+    p_j, vjp = jax.vjp(lambda d: jp.solve_pressure(d, jm, x0=x0[0]), jnp.asarray(div))
+    (want,) = vjp(jnp.asarray(cot))
+    div_t = torch.from_numpy(div).requires_grad_()
+    p_t, iters = tp.solve_pressure(div_t, tm, x0=x0[1], precon=precon)
+    assert "silt_pcg_plain_solve" in p_t.grad_fn.name()
+    (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
+    _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
+    _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])
+    assert 0 < int(iters) < 1000
+
+
+# (B, H, W, precon) off multigrid's sizes that only the kernels' general
+# layouts take: -r 48 (the PCG's 36 tiles, three a warp) and -r 65 (81
+# tiles, six a warp; 12 cells a thread in the plain CG)
+GENERAL_LAYOUT_CASES = [(1, 96, 48, "fd"), (1, 130, 65, "fd"), (1, 130, 65, "none")]
+
+
+@pytest.mark.parametrize("case", GENERAL_LAYOUT_CASES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_general_layout_route_matches_jax(case, warm):
+    """Where the JAX package takes its Pallas kernel off multigrid's sizes
+    and the port's kernels take the element only in their general layouts,
+    solve_pressure takes the kernel the precon names, here its plain twin:
+    the solution and gradient against the JAX package's solve_pressure
+    (its XLA FD-PCG off the TPU), with the tolerances above."""
+    *shape, precon = case
+    route = "pcg" if precon == "fd" else "cg"
+    assert tp.pressure_route(shape, "cuda", precon=precon) == route
+    jm, tm, div, p0 = _problem(shape[0], res=shape[2], seed=13 + warm)
+    cot = np.random.RandomState(14).randn(*div.shape).astype(np.float32)
+    x0 = (jnp.asarray(p0), torch.from_numpy(p0)) if warm else (None, None)
+    p_j, vjp = jax.vjp(lambda d: jp.solve_pressure(d, jm, x0=x0[0]), jnp.asarray(div))
+    (want,) = vjp(jnp.asarray(cot))
+    div_t = torch.from_numpy(div).requires_grad_()
+    p_t, iters = tp.solve_pressure(div_t, tm, x0=x0[1], precon=precon)
+    assert f"silt_{route}_solve" in p_t.grad_fn.name()
     (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
     _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
     _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])

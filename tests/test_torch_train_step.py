@@ -260,7 +260,7 @@ def test_remat_policy_names():
     # every solver's op is saved; "conv" names both conv implementations:
     # cuDNN's and the fused silt::conv
     solves = [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
-              torch.ops.silt.mg_solve.default]
+              torch.ops.silt.mg_solve.default, torch.ops.silt.pcg_plain_solve.default]
     assert trainer.remat_policy_ops("pressure+conv") == solves + [
         torch.ops.aten.convolution.default, torch.ops.silt.conv.default]
     for unknown in ("everything", "none"):  # the CLI maps "none" to "pressure"

@@ -103,10 +103,43 @@ each printing one JSON line:
                   cluster, where the CG kernels run as a cooperative grid, with
                   each `--pressure-precon`: launch counts, and frames against
                   the plain path and the JAX golden
+21. pre_gen     — `karman-pre-gen --thumb` through the CLI at the Makefile's
+                  width (-r 32: 256x128 hi-res on multigrid, 64x32 lo-res on
+                  the PCG kernel, Re 160000), --beta 1.0 cut to 54 frames
+                  and --beta 0 cut to 30 (PRE_GEN_REDUCED), after a 2-frame
+                  warm-up: a pcg_solve launch a frame, frames 21, 25 and 29
+                  against the JAX golden
+                  (tests/data/torch_port/karman_pre_gen_r32.npz), every kept
+                  correction held to its constraint, seconds per frame split
+                  into its four stages, and the correction solve's outer and
+                  inner iterations
+22. burgers_pre_gen — `burgers-pre-gen --thumb` -r 32 on the burgers_gen
+                  phase's test sim, cut to 35 frames: frames 1, 5 and 19
+                  against the JAX golden (burgers_pre_gen_r32.npz)
+23. pre_train   — `karman-pre-train --augment --conv kernel` on pre_gen's PRE
+                  set and `burgers-pre-train --model jupiter_moon --augment
+                  --conv kernel` on burgers_pre_gen's, cut to PRE_TRAIN_EPOCHS
+                  epochs of PRE_TRAIN_STEPS full batches of 32, with the
+                  histograms: conv launches per step, finite
+                  losses, seconds per epoch; and each trainer's two epochs from
+                  a seeded start on the golden frames against the JAX golden
+                  (pre_train_r32.npz)
+24. pre_apply   — `karman-pre-apply` of artifacts/k_pre_train at batch 1, 500
+                  steps, with the conv kernels and with cuDNN (3 tap-sums, 1
+                  PCG and 12 convs per step), PRE-SR's k_presr_train for 20
+                  steps, and `burgers-pre-apply` of artifacts/b_pre_train and
+                  a seeded JupiterMoon on the test sim, 199 steps: launches,
+                  seconds per step, steps 1, 5 and 20 against the JAX golden
+                  (pre_apply_r32.npz)
+25. pretf       — `karman-train --pretf artifacts/k_pre_train/model.msgpack`
+                  for 2 SOL-32 iterations on the train phase's set: the
+                  adopted stats and slope, the launches; and the SOL-32 step
+                  from that net against the JAX golden
 
 The kernels phase also checks the CG kernel's adjoint and the conv kernels
-(forward, input gradient and weight gradient) at the Burgers and karman shapes
-and times them beside cuDNN. Then a line of each phase's wall seconds, the
+(forward, input gradient and weight gradient) at the Burgers and karman shapes,
+JupiterMoon's and the PRE trainers' batch of 32 among them, and times them
+beside cuDNN. Then a line of each phase's wall seconds, the
 per-kernel summary line, the card's `nvidia-smi` name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits non-zero without that
 line; without CUDA, or outside a checkout, it exits 1 at once.
@@ -126,6 +159,7 @@ DIR (see `conv_split`). """
 from __future__ import annotations
 
 import functools
+import glob
 import json
 import os
 import shutil
@@ -230,7 +264,7 @@ def time_ms(fn, n: int, reps: int = 3) -> float:
     the issue rate instead: 34 us for a 7 us kernel once in a run of the
     whole script; the least of the runs is the device's. A function that
     synchronizes (the plain PCG's .item() stop checks) is timed as it runs,
-    host time included."""
+    host time included; one run (`reps` 1) is enough for such a twin."""
     import torch
 
     fn()
@@ -513,7 +547,7 @@ def tap_sum_cases(device):
             if timed and offsets != "integer":
                 case["ms"] = time_ms(lambda: tap_sum_fwd(vals, dy, dx, m, periodic), 200)
                 case["plain_ms"] = time_ms(lambda: tap_sum_fwd_plain(vals, dy, dx, m, periodic),
-                                           20)
+                                           5, reps=1)
                 case["bound_ms"], case["bound_by"] = tap_sum_bound_ms(shape)
                 case["library_ms"] = None
                 if not periodic and offsets == "clamped":
@@ -533,7 +567,7 @@ def tap_sum_cases(device):
             if timed and offsets != "integer":
                 case["ms"] = time_ms(lambda: tap_sum_bwd(vals, dy, dx, g, m, periodic), 200)
                 case["plain_ms"] = time_ms(
-                    lambda: tap_sum_bwd_plain(vals, dy, dx, g, m, periodic), 10)
+                    lambda: tap_sum_bwd_plain(vals, dy, dx, g, m, periodic), 5, reps=1)
                 case["bound_ms"], case["bound_by"] = tap_sum_bwd_bound_ms(shape)
                 case["library_ms"] = None
                 if not periodic and offsets == "clamped":
@@ -697,8 +731,17 @@ def phase_kernels(device):
         TAP_SUM_TOL,
     )
 
-    tap_cases, bwd_cases = tap_sum_cases(device)
+    seconds = {}
 
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    tap_cases, bwd_cases = part("tap_sum", tap_sum_cases, device)
+
+    t0 = time.perf_counter()
     pcg_cases = []
     tol, max_iter = 1e-5, 1000
     for rhs, warm, masks in cg_problems(device):
@@ -715,19 +758,20 @@ def phase_kernels(device):
                     "max_abs_err": float((x_k - x_p).abs().max()),
                     "deterministic": bool(torch.equal(x_k, x_again)) and int(it_again) == int(it_k),
                     "ms": time_ms(lambda: pcg_solve(*args), 50),
-                    "plain_ms": time_ms(lambda: pcg_solve_plain(*args), 5)}
+                    "plain_ms": time_ms(lambda: pcg_solve_plain(*args), 5, reps=1)}
             case["bound_ms"], case["bound_by"] = pcg_bound_ms(rhs.shape, case["iters"])
             pcg_cases.append(case)
             require(abs(case["iters"] - case["plain_iters"]) <= PCG_ITER_TOL,
                     f"pcg_solve iterations {case}")
             require(case["rel_err"] <= PCG_REL_TOL, f"pcg_solve solution {case}")
             require(case["deterministic"], f"pcg_solve is not deterministic {case}")
-    cg_cases = cg_kernel_cases(device)
-    routes = pressure_route_cases(device)
-    fixed_iter = fixed_iter_cases(device)
-    conv_cases, wgrad_cases = conv_kernel_cases(device)
-    bf16_cases, bf16_wgrad_cases = conv_bf16_kernel_cases(device)
-    emit({"phase": "kernels", "library_ms": "tap-sum on OPEN domains (the cases timed on "
+    seconds["pcg_solve"] = time.perf_counter() - t0
+    cg_cases = part("cg_solve", cg_kernel_cases, device)
+    routes = part("pressure_route", pressure_route_cases, device)
+    fixed_iter = part("fixed_iter", fixed_iter_cases, device)
+    conv_cases, wgrad_cases = part("conv", conv_kernel_cases, device)
+    bf16_cases, bf16_wgrad_cases = part("conv_bf16", conv_bf16_kernel_cases, device)
+    emit({"phase": "kernels", "seconds": seconds, "library_ms": "tap-sum on OPEN domains (the cases timed on "
           "clamped offsets): F.grid_sample (bilinear, border padding, align_corners) forward "
           "and aten.grid_sampler_2d_backward, the same function on the offsets the solver "
           "clamps (library_max_abs_err); tap-sum on PERIODIC domains, PCG and CG: none, no "
@@ -779,7 +823,7 @@ def cg_kernel_cases(device):
                     "max_abs_err": float((x_k - x_p).abs().max()),
                     "deterministic": bool(torch.equal(x_k, x_again)) and int(it_again) == int(it_k),
                     "ms": time_ms(lambda: cg.cg_solve(*args), 50),
-                    "plain_ms": time_ms(lambda: cg.cg_solve_plain(*args), 3)}
+                    "plain_ms": time_ms(lambda: cg.cg_solve_plain(*args), 3, reps=1)}
             case["bound_ms"], case["bound_by"] = cg_bound_ms(rhs.shape, case["iters"])
             cases.append(case)
             require(abs(case["iters"] - case["plain_iters"]) <= CG_ITER_TOL,
@@ -837,6 +881,26 @@ CONV_CASES = [
     (1, 64, 32, 3, 32, 5, "relu", False, "mercury karman apply: conv1"),
     (1, 64, 32, 32, 64, 5, "relu", False, "mercury karman apply: conv2"),
     (1, 64, 32, 64, 2, 5, "none", False, "mercury karman apply: head"),
+    # JupiterMoon (burgers-pre-train --model jupiter_moon, batch 32, and the
+    # apply at batch 1): the 5x5 convs with ReLU, the 3x3 with skip and
+    # LeakyReLU, the head
+    (32, 32, 32, 4, 32, 5, "relu", False, "jupiter train: stem"),
+    (32, 32, 32, 32, 32, 5, "relu", False, "jupiter train: block conv1 32"),
+    (32, 32, 32, 32, 64, 5, "relu", False, "jupiter train: block conv1 32->64"),
+    (32, 32, 32, 64, 64, 5, "relu", False, "jupiter train: block conv1 64"),
+    (32, 32, 32, 64, 32, 5, "relu", False, "jupiter train: block conv1 64->32"),
+    (32, 32, 32, 32, 32, 3, "leaky_relu", True, "jupiter train: block conv2 32"),
+    (32, 32, 32, 64, 64, 3, "leaky_relu", True, "jupiter train: block conv2 64"),
+    (32, 32, 32, 32, 2, 5, "none", False, "jupiter train: head"),
+    (1, 32, 32, 4, 32, 5, "relu", False, "jupiter apply: stem"),
+    (1, 32, 32, 32, 64, 5, "relu", False, "jupiter apply: block conv1 32->64"),
+    (1, 32, 32, 64, 64, 5, "relu", False, "jupiter apply: block conv1 64"),
+    (1, 32, 32, 64, 32, 5, "relu", False, "jupiter apply: block conv1 64->32"),
+    (1, 32, 32, 64, 64, 3, "leaky_relu", True, "jupiter apply: block conv2 64"),
+    # MarsMoon in karman-pre-train (batch 32, 64x32)
+    (32, 64, 32, 3, 32, 5, "leaky_relu", False, "karman pre-train: stem"),
+    (32, 64, 32, 32, 32, 5, "leaky_relu", True, "karman pre-train: block conv2"),
+    (32, 64, 32, 32, 2, 5, "none", False, "karman pre-train: head"),
 ]
 # input gradients (conv_fwd with the flipped, channel-transposed kernel) and
 # weight gradients: (B, H, W, Cin, Cout, K) of the forward conv
@@ -850,6 +914,17 @@ CONV_GRAD_CASES = [
     (1, 64, 32, 3, 32, 5, "mercury karman apply: conv1"),
     (1, 64, 32, 32, 64, 5, "mercury karman apply: conv2"),
     (1, 64, 32, 64, 2, 5, "mercury karman apply: head"),
+    (32, 32, 32, 4, 32, 5, "jupiter train: stem"),
+    (32, 32, 32, 32, 32, 5, "jupiter train: block conv1 32"),
+    (32, 32, 32, 32, 64, 5, "jupiter train: block conv1 32->64"),
+    (32, 32, 32, 64, 64, 5, "jupiter train: block conv1 64"),
+    (32, 32, 32, 64, 32, 5, "jupiter train: block conv1 64->32"),
+    (32, 32, 32, 32, 32, 3, "jupiter train: block conv2 32"),
+    (32, 32, 32, 64, 64, 3, "jupiter train: block conv2 64"),
+    (32, 32, 32, 32, 2, 5, "jupiter train: head"),
+    (32, 64, 32, 3, 32, 5, "karman pre-train: stem"),
+    (32, 64, 32, 32, 32, 5, "karman pre-train: block"),
+    (32, 64, 32, 32, 2, 5, "karman pre-train: head"),
 ]
 
 
@@ -876,9 +951,15 @@ def conv_kernel_cases(device):
         dz = torch.randn((b, h, w, cout), generator=gen, device=device)
         return x, wt, bias, dz
 
+    def calls(b):
+        """Back-to-back calls a time takes: a batch-32 call runs 0.05-0.6 ms,
+        so 50 of them outlast the host's issue as 200 of the smaller do."""
+        return 200 if b <= 5 else 50
+
     fwd_cases = []
     for *shape, act, with_skip, where in CONV_CASES:
         x, wt, bias, skip = inputs(*shape)
+        n = calls(shape[0])
         skip = skip if with_skip else None
         w = wt.permute(2, 3, 1, 0)
         r = shape[5] // 2
@@ -887,10 +968,11 @@ def conv_kernel_cases(device):
         torch.cuda.synchronize()
         case = {"shape": shape, "act": act, "skip": with_skip, "where": where, "dgrad": False,
                 "max_abs_err": float((got - want).abs().max()), "rel_err": rel_err(got, want),
-                "ms": time_ms(lambda: conv_fwd(x, w, bias, skip, act, 0.3), 200),
-                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10),
+                "ms": time_ms(lambda: conv_fwd(x, w, bias, skip, act, 0.3), n),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10,
+                                    reps=1),
                 "library_ms": time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias,
-                                                       padding=r), 200)}
+                                                       padding=r), n)}
         case["bound_ms"], case["bound_by"] = conv_bound_ms(shape, with_skip)
         fwd_cases.append(case)
         require(case["rel_err"] <= CONV_FWD_REL_TOL, f"conv_fwd {case} differs from its twin")
@@ -898,6 +980,7 @@ def conv_kernel_cases(device):
     wgrad_cases = []
     for *shape, where in CONV_GRAD_CASES:
         x, wt, _, dz = inputs(*shape)
+        n = calls(shape[0])
         w = wt.permute(2, 3, 1, 0).transpose(2, 3)  # the input gradient's kernel
         got = conv_fwd(dz, w, flip=True)
         want = conv_fwd_plain(dz, w, flip=True)
@@ -906,11 +989,11 @@ def conv_kernel_cases(device):
         case = {"shape": [b, h, wd, cout, cin, k], "act": "none", "skip": False, "where": where,
                 "dgrad": True, "max_abs_err": float((got - want).abs().max()),
                 "rel_err": rel_err(got, want),
-                "ms": time_ms(lambda: conv_fwd(dz, w, flip=True), 200),
-                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10),
+                "ms": time_ms(lambda: conv_fwd(dz, w, flip=True), n),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10, reps=1),
                 "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
                     dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
-                    [True, False, False]), 200)}
+                    [True, False, False]), n)}
         case["bound_ms"], case["bound_by"] = conv_bound_ms(case["shape"], False)
         fwd_cases.append(case)
         require(case["rel_err"] <= CONV_FWD_REL_TOL, f"conv_fwd (dgrad) {case} differs")
@@ -921,11 +1004,11 @@ def conv_kernel_cases(device):
         case = {"shape": shape, "where": where, "max_abs_err": float((got - want).abs().max()),
                 "rel_err": rel_err(got, want),
                 "deterministic": bool(torch.equal(got, conv_wgrad(x, dz, k))),
-                "ms": time_ms(lambda: conv_wgrad(x, dz, k), 200),
-                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10),
+                "ms": time_ms(lambda: conv_wgrad(x, dz, k), n),
+                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10, reps=1),
                 "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
                     dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
-                    [False, True, False]), 200)}
+                    [False, True, False]), n)}
         case["bound_ms"], case["bound_by"] = conv_wgrad_bound_ms(shape)
         wgrad_cases.append(case)
         require(case["rel_err"] <= CONV_WGRAD_REL_TOL, f"conv_wgrad {case} differs from its twin")
@@ -1015,7 +1098,8 @@ def conv_bf16_kernel_cases(device):
                 "bf16_err": bf16_errors(got, want),
                 "deterministic": bool(torch.equal(got, conv_fwd_bf16(x, w, bias, skip, act, 0.3))),
                 "ms": time_ms(lambda: conv_fwd_bf16(x, w, bias, skip, act, 0.3), 200),
-                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(x, w, bias, skip, act, 0.3), 10,
+                                    reps=1),
                 "library_ms": time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias,
                                                        padding=r), 200)}
         case["bound_ms"], case["bound_by"] = conv_bf16_bound_ms(shape, with_skip)
@@ -1037,7 +1121,7 @@ def conv_bf16_kernel_cases(device):
                 "bf16_err": bf16_errors(got, want),
                 "deterministic": bool(torch.equal(got, conv_fwd_bf16(dz, w, flip=True))),
                 "ms": time_ms(lambda: conv_fwd_bf16(dz, w, flip=True), 200),
-                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10),
+                "plain_ms": time_ms(lambda: conv_fwd_plain(dz, w, flip=True), 10, reps=1),
                 "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
                     dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
                     [True, False, False]), 200)}
@@ -1053,7 +1137,7 @@ def conv_bf16_kernel_cases(device):
                 "max_abs_err": float((got - want).abs().max()), "rel_err": rel_err(got, want),
                 "deterministic": bool(torch.equal(got, conv_wgrad_bf16(x, dz, k))),
                 "ms": time_ms(lambda: conv_wgrad_bf16(x, dz, k), 200),
-                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10),
+                "plain_ms": time_ms(lambda: conv_wgrad_plain(x, dz, k), 10, reps=1),
                 "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
                     dzn, xn, wt, None, [1, 1], [k // 2, k // 2], [1, 1], False, [0, 0], 1,
                     [False, True, False]), 200)}
@@ -1428,7 +1512,7 @@ def phase_train_parity(device):
             f"conv launches of the karman step {conv_launches}")
 
 
-def phase_train_profile(device, iters=2):
+def phase_train_profile(device, iters=1):
     """Where a SOL-32 training iteration's time goes (the parity set-up with
     the CLI's optimizer): wall time per iteration against device busy time,
     and device ms per iteration by group; and the wall time per iteration
@@ -1466,7 +1550,7 @@ def phase_train_profile(device, iters=2):
         loss = step(tdata, norm, tidx)[0]
         float(loss)
 
-    def timed(n=3):
+    def timed(n=2):
         one()
         walls = []
         for _ in range(n):
@@ -1929,7 +2013,7 @@ def phase_burgers_profile(device, apply_steps=50):
         cfg = SolTrainConfig(msteps=par.BURGERS_PARITY_MSTEPS, clip_grad=True, lr=1e-5)
         step = make_burgers_train_step(flow, model, make_optimizer(model, cfg), cfg,
                                        dt=par.BURGERS_DT)
-        line["train"][conv] = _device_profile(lambda: float(step(tdata, norm, tidx)[0]), 2)
+        line["train"][conv] = _device_profile(lambda: float(step(tdata, norm, tidx)[0]), 1)
 
         args = burgers_apply.build_parser().parse_args(
             burgers_apply_argv(conv, apply_steps + 1)[1:])
@@ -2257,6 +2341,397 @@ def phase_train_parity_cg(device):
     return launches
 
 
+PRE_SET = os.path.join(REPO, "build", "smoke_pre_set")
+# --beta 1.0 writes the PRE set the pre_train phase trains on: 33 frames,
+# one batch of 32 and one validation frame (--val 0.05)
+PRE_SET_FRAMES = 54
+PRE_GEN_REDUCED = {
+    "simsteps": f"1500 -> {PRE_SET_FRAMES} with --beta 1.0 (frames 21..{PRE_SET_FRAMES - 1} "
+                "kept), 30 with --beta 0 (21..29)",
+    "skipsteps": "999 -> 20",
+    "Re": "the 6 runs of the Makefile's loop -> the first (Re 160000)",
+}
+BURGERS_PRE_SET = os.path.join(REPO, "build", "smoke_burgers_pre_set")
+BURGERS_PRE_SET_FRAMES = 35  # 34 frames: one batch of 32 and a validation frame
+BURGERS_PRE_REDUCED = {"simsteps": f"200 -> {BURGERS_PRE_SET_FRAMES}",
+                       "sims": "the 10 training sims -> the test sim seed 100"}
+PRE_TF = os.path.join(REPO, "build", "smoke_pre_tf")
+PRE_TRAIN_EPOCHS = 3
+PRE_TRAIN_STEPS = 4
+PRE_TRAIN_REDUCED = {"epochs": f"400 -> {PRE_TRAIN_EPOCHS}",
+                     "steps per epoch": f"len(set) // 32 -> {PRE_TRAIN_STEPS}: the sets are "
+                                        "cut to the pre_gen phases' 33 and 34 frames, so each "
+                                        "step is the one full batch of 32 of a fresh "
+                                        "permutation"}
+PRE_APPLY_OUT = os.path.join(REPO, "build", "smoke_pre_apply")
+PRETF_OUT = os.path.join(REPO, "build", "smoke_pretf")
+PRETF_FRAMES = 33  # 6 sims / batch 3 x (33 - msteps 32) = 2 iterations
+
+
+def _scene_errors(sim: str, golden, keys, prefix: str = ""):
+    """{golden key: max |frame - golden| / max |golden|} for golden keys
+    "<prefix><name>_<frame>" of frames written under scene `sim`."""
+    import numpy as np
+
+    from solver_in_the_loop_torch.io.scene import read_array
+
+    out = {}
+    for key in keys:
+        name, frame = key[len(prefix) if key.startswith(prefix) else 0:].rsplit("_", 1)
+        got = read_array(os.path.join(sim, f"{name}_{int(frame):06d}.npz"))
+        want = golden[key]
+        out[key] = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    return out
+
+
+def pre_divergence(sim: str, frames) -> dict:
+    """{frame: max |G^T corr| on the valid lo-res cells / max |corr_u|} of
+    the karman PRE corrections written under scene `sim` (-r 32): the
+    constraint the projected CG holds them to."""
+    import torch
+
+    from solver_in_the_loop_torch.io.scene import legacy_to_staggered, read_array
+    from solver_in_the_loop_torch.physics.karman import karman_domain
+    from solver_in_the_loop_torch.pre import lsq
+
+    geom = lsq.build_pre_geometry(karman_domain(32), karman_domain(128), 4, bnd=2)
+    apply_gt, cells = lsq.make_apply_gt(geom), torch.from_numpy(geom.lo_cells)
+    out = {}
+    for f in frames:
+        u, v = (torch.from_numpy(a) for a in legacy_to_staggered(
+            read_array(os.path.join(sim, f"corr_{f:06d}.npz"))))
+        div = apply_gt({"u": u, "v": v}) * cells
+        out[f] = float(div.abs().max()) / (float(u.abs().max()) + 1e-9)
+    return out
+
+
+def phase_pre_gen():
+    """karman-pre-gen through the CLI at the Makefile's width (-r 32: 64x32
+    corrected lo-res, 256x128 hi-res, Re 160000) with --beta 1.0 and
+    --beta 0, cut to 30 frames, every launch count set to 0 just before
+    each: one pcg_solve per frame (the lo-res step), the hi-res step and the
+    projection on multigrid (no launch), no tap-sum (--advect gather); the
+    kept frames 21, 25 and 29 against the JAX golden, every kept correction
+    held to its constraint (G^T corr on the valid cells within PRE_DIV_TOL
+    of its max); seconds per frame and their split, and the correction
+    solve's iterations. --beta 1.0 runs PRE_SET_FRAMES frames, the
+    pre_train phase's set."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
+
+    shutil.rmtree(PRE_SET, ignore_errors=True)
+    line = {"phase": "pre_gen", "argv": par.KARMAN_PRE_GEN_ARGV, "reduced": PRE_GEN_REDUCED,
+            "hires_route": KarmanFlow(karman_domain(128), device="cuda").pressure_route(1),
+            "tolerance": par.ROLLOUT_REL_TOL}
+    launches_by_beta = {}
+    # a two-frame warm-up: the multigrid hierarchies, the operators of the
+    # correction solve and cuDNN's set-up stay out of the timed runs
+    cli.main(["karman-pre-gen", "-o", os.path.join(PRE_SET, "warmup"), "-r", "32", "-l", "100",
+              "--re", "160000", "-t", "3", "-s", "1"])
+    with np.load(par.KARMAN_PRE_GEN_GOLDEN) as golden:
+        for beta in par.PRE_BETAS:
+            frames = PRE_SET_FRAMES if beta == "1.0" else par.KARMAN_PRE_FRAMES
+            steps = frames - 1
+            argv = list(par.KARMAN_PRE_GEN_ARGV)
+            argv[argv.index("-t") + 1] = str(frames)
+            reset_launches()
+            res = cli.main(["karman-pre-gen", "-o", os.path.join(PRE_SET, beta), *argv,
+                            "--beta", beta, "--thumb"])
+            launches = read_launches()
+            launches_by_beta[beta] = launches
+            keys = [k for k in golden.files if k.startswith(f"b{beta}_")]
+            if beta == par.PRE_BETAS[0]:
+                keys += [f"{n}_{par.PRE_GOLDEN_FRAMES[-1]}" for n in par.PRE_HI_NAMES]
+            errs = _scene_errors(res["scene"], golden, keys, f"b{beta}_")
+            thumbs = sum(len(f) for _, _, f in os.walk(os.path.join(PRE_SET, beta, "thumb")))
+            sec = res["seconds"]
+            div = pre_divergence(res["scene"], res["frames"])
+            line[f"beta_{beta}"] = {
+                "frames_run": frames, "launches": launches,
+                "seconds_per_frame": sec["rollout"] / steps,
+                "split_seconds_per_frame": {k: sec[k] / steps for k in
+                                            ("hires_step", "lores_step", "projection", "lsq")},
+                "write_seconds": sec["write"],
+                "lsq_outer": {"mean": float(res["lsq_outer"].mean()),
+                              "max": int(res["lsq_outer"].max())},
+                "lsq_inner": {"mean": float(res["lsq_inner"].mean()),
+                              "max": int(res["lsq_inner"].max())},
+                "frames": res["frames"], "thumbs": thumbs,
+                "corr_divergence": {"max": max(div.values()), "tolerance": par.PRE_DIV_TOL,
+                                    "frames": len(div)},
+                "errors_vs_jax_golden": errs, "worst": max(errs.values())}
+            require(launches == counts(pcg_solve=steps),
+                    f"karman-pre-gen --beta {beta}: launches {launches}, expected {steps} "
+                    "pcg_solve and nothing else")
+            require(res["frames"] == list(range(par.PRE_SKIP + 1, frames)),
+                    f"karman-pre-gen --beta {beta} kept frames {res['frames']}")
+            require(max(div.values()) <= par.PRE_DIV_TOL,
+                    f"karman-pre-gen --beta {beta}: a correction breaks its constraint: {div}")
+            require(thumbs == 5 * len(res["frames"]), f"{thumbs} thumbnails")
+            require(line[f"beta_{beta}"]["worst"] <= par.ROLLOUT_REL_TOL,
+                    f"karman-pre-gen --beta {beta} frames differ from the JAX golden: {errs}")
+    emit(line)
+    require(line["hires_route"] == "multigrid", f"hi-res route {line['hires_route']}")
+    return launches_by_beta[par.PRE_BETAS[0]]
+
+
+def phase_burgers_pre_gen():
+    """burgers-pre-gen through the CLI at the Makefile's width (-r 32 from
+    128x128) on the test sim the burgers_gen phase wrote, cut to 20 frames,
+    every launch count set to 0 just before it (no kernel: --advect gather,
+    no pressure solve); frames 1, 5 and 19 against the JAX golden."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    shutil.rmtree(BURGERS_PRE_SET, ignore_errors=True)
+    sim = os.path.join(BURGERS_TEST, "sim_000000")
+    argv = ["burgers-pre-gen", "-o", BURGERS_PRE_SET, "-r", "32", "-l", "32", "--dt",
+            str(par.BURGERS_DT), "-t", str(BURGERS_PRE_SET_FRAMES), "--beta", "1.0",
+            "--initvH", os.path.join(sim, "velo_000000.npz"),
+            "--loadfH", os.path.join(sim, "forc_0*.npz"), "--thumb"]
+    reset_launches()
+    res = cli.main(argv)
+    launches = read_launches()
+    with np.load(par.BURGERS_PRE_GEN_GOLDEN) as golden:
+        errs = _scene_errors(res["scene"], golden, golden.files)
+    frames = BURGERS_PRE_SET_FRAMES - 1
+    thumbs = sum(len(f) for _, _, f in os.walk(os.path.join(BURGERS_PRE_SET, "thumb")))
+    line = {"phase": "burgers_pre_gen", "argv": argv, "reduced": BURGERS_PRE_REDUCED,
+            "launches": launches, "seconds_per_frame": res["seconds"]["rollout"] / frames,
+            "write_seconds": res["seconds"]["write"],
+            "lsq_iters": {"mean": float(res["lsq_outer"].mean()),
+                          "max": int(res["lsq_outer"].max())},
+            "thumbs": thumbs, "errors_vs_jax_golden": errs, "worst": max(errs.values()),
+            "tolerance": par.ROLLOUT_REL_TOL}
+    emit(line)
+    require(launches == counts(), f"burgers-pre-gen launched {launches}")
+    require(thumbs == 4 * frames, f"{thumbs} thumbnails")
+    require(line["worst"] <= par.ROLLOUT_REL_TOL,
+            f"burgers-pre-gen frames differ from the JAX golden: {errs}")
+
+
+def _pre_train_parity(scenario: str, arch: str):
+    """The port's two epochs (`--conv kernel`) from the seeded start on the
+    golden frames against the JAX golden: losses, every parameter (its
+    difference's norm over the golden's), stats.json."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    root = os.path.join(PRE_TF, f"parity_{scenario}")
+    shutil.rmtree(root, ignore_errors=True)
+    pats = par.write_pre_set(os.path.join(root, "set"), scenario)
+    opath = os.path.join(root, "tf")
+    par.write_pre_start(opath, scenario, arch)
+    res = cli.main([f"{scenario}-pre-train", "-o", opath, "--model", arch, *par.PRE_TRAIN_ARGV,
+                    *pats, "--conv", "kernel"])
+    want = par.pre_train_golden(scenario)
+    got = {n: p.detach().cpu().numpy() for n, p in res["model"].state_dict().items()}
+    require(set(got) == set(want["leaves"]), f"{scenario}-pre-train parameters {sorted(got)}")
+    leaves = par.leaf_errors(got, want["leaves"])
+    losses = want["losses"]
+    errs = {"losses": float(np.max(np.abs(np.asarray(res["losses"]) - losses) / np.abs(losses))),
+            "leaves": max(leaves.values()), "worst_leaf": max(leaves, key=leaves.get),
+            "stats": par.stats_errors(res["stats"], want["stats"])}
+    require(errs["losses"] <= par.PRE_LOSS_REL_TOL and errs["leaves"] <= par.PRE_TRAIN_REL_TOL
+            and errs["stats"] <= par.PRE_STATS_REL_TOL,
+            f"{scenario}-pre-train differs from the JAX golden: {errs}")
+    return errs
+
+
+def phase_pre_train():
+    """karman-pre-train (MarsMoon) on the pre_gen phase's PRE set and
+    burgers-pre-train --model jupiter_moon on the burgers_pre_gen phase's,
+    both with the Makefile's flags (--seed 0 --val 0.05 --augment) and
+    --conv kernel, cut to PRE_TRAIN_EPOCHS epochs of PRE_TRAIN_STEPS steps,
+    with the histograms, every launch count set to 0 just before each: the
+    conv launches per step, finite losses, seconds per epoch; then each
+    trainer's two epochs from a seeded start on the golden frames against
+    the JAX golden."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+
+    runs = {"karman": ("mars_moon", [os.path.join(PRE_SET, "1.0", "sim_0*")], 12),
+            "burgers": ("jupiter_moon", [os.path.join(BURGERS_PRE_SET, "sim_0*")], 14)}
+    line = {"phase": "pre_train", "reduced": PRE_TRAIN_REDUCED}
+    all_launches = {}
+    for scenario, (arch, pats, convs) in runs.items():
+        opath = os.path.join(PRE_TF, scenario)
+        shutil.rmtree(opath, ignore_errors=True)
+        # the trainer's split: --val 0.05 of the frames, at least one
+        frames = len(glob.glob(os.path.join(pats[0], "corr_*.npz")))
+        train_frames = frames - max(1, int(0.05 * frames))
+        require(train_frames >= 32, f"{scenario}-pre-train: {train_frames} training frames, "
+                "fewer than a batch of 32")
+        argv = [f"{scenario}-pre-train", "-o", opath, "--model", arch, "--seed", "0",
+                "--val", "0.05", "--augment", "--epochs", str(PRE_TRAIN_EPOCHS),
+                "--steps", str(PRE_TRAIN_STEPS), "--conv", "kernel", *pats]
+        reset_launches()
+        res = cli.main(argv)
+        launches = read_launches()
+        steps = PRE_TRAIN_EPOCHS * PRE_TRAIN_STEPS
+        # per step: every conv forward, the input gradient of each but the
+        # stem (it reads data), every weight gradient; per epoch the
+        # validation forward
+        want = counts(conv_fwd=steps * (2 * convs - 1) + PRE_TRAIN_EPOCHS * convs,
+                      conv_wgrad=steps * convs)
+        all_launches[scenario] = launches
+        line[scenario] = {"argv": argv, "train_frames": train_frames, "batch": 32,
+                          "launches": launches,
+                          "launches_per_step": {k: v / steps for k, v in launches.items()},
+                          "losses": res["losses"], "val_losses": res["val_losses"],
+                          "seconds_per_epoch": res["seconds_per_epoch"],
+                          "histograms": res["histograms"],
+                          "parity_vs_jax_golden": _pre_train_parity(scenario, arch)}
+        require(launches == want, f"{scenario}-pre-train launches {launches} != {want}")
+        require(all(np.isfinite(res["losses"] + res["val_losses"])),
+                f"{scenario}-pre-train loss not finite")
+        channels = 3 if scenario == "karman" else 4
+        require(res["histograms"] == 2 * channels + 2 * 2, f"{res['histograms']} histograms")
+        for name in ("model.msgpack", "stats.json", f"model_epoch{PRE_TRAIN_EPOCHS:04d}.msgpack"):
+            require(os.path.isfile(os.path.join(opath, name)), f"{name} was not written")
+    emit(line)
+    return all_launches
+
+
+def phase_pre_apply():
+    """karman-pre-apply of artifacts/k_pre_train at the Makefile's run_test
+    shape (batch 1, -t 500, from the built-in initial state at Re 240000)
+    with --conv kernel and with cuDNN, and burgers-pre-apply of
+    artifacts/b_pre_train and a seeded JupiterMoon on the test sim (199
+    steps) with --conv kernel, each after a two-step warm-up, every launch
+    count set to 0 just before it; steps 1, 5 and 20 against the JAX golden
+    (the karman runs' own frames; Burgers on the golden's inputs; PRE-SR's
+    k_presr_train 20 steps)."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    shutil.rmtree(PRE_APPLY_OUT, ignore_errors=True)
+    golden = dict(np.load(par.PRE_APPLY_GOLDEN))
+    line = {"phase": "pre_apply", "tolerance": par.ROLLOUT_REL_TOL}
+    steps = 499
+
+    def errors(frames, label, fields):
+        return {f"{k}_{t}": float(np.abs(frames[k][t - 1, 0].cpu().numpy()
+                                         - golden[f"{label}_{k}"][i]).max()
+                                  / np.abs(golden[f"{label}_{k}"][i]).max())
+                for k in fields for i, t in enumerate(par.PRE_APPLY_GOLDEN_STEPS)}
+
+    main_launches = None
+    for conv in ("kernel", "library"):
+        out = os.path.join(PRE_APPLY_OUT, f"karman_{conv}")
+        cli.main(["karman-pre-apply", *par.karman_pre_apply_argv(out, steps=2), "--conv", conv])
+        reset_launches()
+        frames = cli.main(["karman-pre-apply", *par.karman_pre_apply_argv(out, steps=steps),
+                           "--conv", conv])
+        launches = read_launches()
+        errs = errors(frames, "k_pre", ("dens", "u", "v"))
+        line[f"karman_{conv}"] = {"launches": launches,
+                                  "seconds_per_step": frames["rollout_seconds"] / steps,
+                                  "finite": bool(torch.isfinite(frames["u"]).all()),
+                                  "errors_vs_jax_golden": errs, "worst": max(errs.values())}
+        want = counts(tap_sum_fwd=3 * steps, pcg_solve=steps,
+                      conv_fwd=12 * steps if conv == "kernel" else 0)
+        require(launches == want, f"karman-pre-apply --conv {conv}: {launches} != {want}")
+        require(line[f"karman_{conv}"]["finite"], "karman-pre-apply frames not finite")
+        require(line[f"karman_{conv}"]["worst"] <= par.ROLLOUT_REL_TOL,
+                f"karman-pre-apply --conv {conv} differs from the JAX golden: {errs}")
+        main_launches = main_launches or launches
+    frames = cli.main(["karman-pre-apply", *par.karman_pre_apply_argv(
+        os.path.join(PRE_APPLY_OUT, "presr"), par.KARMAN_PRESR_CKPT), "--conv", "kernel"])
+    errs = errors(frames, "k_presr", ("dens", "u", "v"))
+    line["karman_presr_20_steps"] = {"errors_vs_jax_golden": errs, "worst": max(errs.values())}
+    require(max(errs.values()) <= par.ROLLOUT_REL_TOL, f"PRE-SR apply differs: {errs}")
+
+    jm = par.jupiter_checkpoint(os.path.join(PRE_APPLY_OUT, "jupiter_net"))
+    nets = {"b_pre_train": (os.path.join(par.BURGERS_PRE_CKPT, "model.msgpack"),
+                            os.path.join(par.BURGERS_PRE_CKPT, "stats.json"), "mars_moon", 12),
+            "jupiter": (jm["model"], jm["stats"], "jupiter_moon", 14)}
+    sim = os.path.join(BURGERS_TEST, "sim_000000")
+    inputs = par.burgers_apply_inputs(os.path.join(PRE_APPLY_OUT, "inputs"))
+    burgers_launches = {}
+    for label, (model, stats, arch, convs) in nets.items():
+        out = os.path.join(PRE_APPLY_OUT, label)
+        argv = ["burgers-pre-apply", "-o", out, "--model", model, "--stats", stats, "--arch",
+                arch, "--initvH", os.path.join(sim, "velo_000000.npz"),
+                "--loadfH", os.path.join(sim, "forc_0*.npz"), "-d", "4", "-r", "32", "-l", "32",
+                "--dt", str(par.BURGERS_DT), "--conv", "kernel"]
+        cli.main([*argv, "-t", "3"])
+        reset_launches()
+        frames = cli.main([*argv, "-t", str(BURGERS_TEST_FRAMES)])
+        launches = read_launches()
+        bsteps = BURGERS_TEST_FRAMES - 1
+        golden_frames = cli.main(["burgers-pre-apply", *par.burgers_pre_apply_argv(
+            os.path.join(out, "golden_inputs"), inputs, model, stats, arch), "--conv", "kernel"])
+        errs = errors(golden_frames, label, ("u", "v"))
+        line[f"burgers_{label}"] = {"arch": arch, "launches": launches,
+                                    "seconds_per_step": frames["rollout_seconds"] / bsteps,
+                                    "finite": bool(torch.isfinite(frames["u"]).all()),
+                                    "errors_vs_jax_golden": errs, "worst": max(errs.values())}
+        want = counts(tap_sum_fwd=2 * bsteps, conv_fwd=convs * bsteps)
+        require(launches == want, f"burgers-pre-apply {label}: {launches} != {want}")
+        require(line[f"burgers_{label}"]["finite"], f"burgers-pre-apply {label} not finite")
+        require(max(errs.values()) <= par.ROLLOUT_REL_TOL,
+                f"burgers-pre-apply {label} differs from the JAX golden: {errs}")
+        burgers_launches[label] = launches
+    emit(line)
+    return main_launches, burgers_launches["jupiter"]
+
+
+def phase_pretf(device):
+    """`karman-train --pretf artifacts/k_pre_train/model.msgpack` through the
+    CLI on the train phase's fixture, cut to 2 SOL-32 iterations, every
+    launch count set to 0 just before it: the adopted stats and slope in
+    dataStats.json, finite losses, the launches; and the SOL-32 train step
+    from that net with its adopted scales against the JAX golden."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+
+    shutil.rmtree(PRETF_OUT, ignore_errors=True)
+    pretf = os.path.join(par.KARMAN_PRE_CKPT, "model.msgpack")
+    argv = ["karman-train", *[a if a != TRAIN_OUT else PRETF_OUT for a in train_argv()],
+            "--pretf", pretf]
+    argv[argv.index("-t") + 1] = str(PRETF_FRAMES)
+    reset_launches()
+    result = cli.main(argv)
+    launches = read_launches()
+    with open(os.path.join(PRETF_OUT, "dataStats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(par.KARMAN_PRE_CKPT, "stats.json")) as f:
+        pre = json.load(f)
+    iters = len(result.losses)
+    summary = par.parity_summary(par.parity_step(device, conv="kernel", pretf=par.KARMAN_PRE_CKPT))
+    errs = par.parity_errors(summary, par.train_golden_summary(par.PRE_TRAIN_GOLDEN, "pretf_"))
+    line = {"phase": "pretf", "argv": argv, "reduced": {"iterations": "936 per epoch -> 2"},
+            "iterations": iters, "losses": result.losses, "launches": launches,
+            "launches_per_iter": {k: v / max(iters, 1) for k, v in launches.items()},
+            "adopted": {k: stats.get(k) for k in ("in.std", "out.std", "leaky_alpha")},
+            "step_errors_vs_jax_golden": errs, "tolerances": par.TRAIN_PARITY_TOL}
+    emit(line)
+    require(iters == 2, f"{iters} iterations, expected 2")
+    require(all(np.isfinite(result.losses)), "a --pretf training loss is not finite")
+    require(stats["in.std"] == pre["in.std"] and stats["out.std"] == pre["out.std"]
+            and stats["leaky_alpha"] == pre["leaky_alpha"],
+            f"dataStats.json did not adopt the PRE net's stats: {line['adopted']}")
+    require(launches == {k: v * iters for k, v in counts(tap_sum_fwd=192, tap_sum_bwd=62,
+                                                           pcg_solve=63).items()},
+            f"--pretf launches {launches}")
+    for key, tol in par.TRAIN_PARITY_TOL.items():
+        require(errs[key] <= tol, f"--pretf step {key} {errs[key]} > {tol}")
+
+
 def cg_split(specs) -> int:
     """`python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]`: only the
     fixed-iteration timing of both CG kernels (fixed_iter_cases), built from
@@ -2464,6 +2939,11 @@ def main() -> int:
     apply_cg_launches = timed("apply_cg", phase_apply_cg)
     train_cg_launches = timed("train_parity_cg", phase_train_parity_cg, device)
     b9_fd_launches, b9_cg_launches = timed("apply_b9", phase_apply_b9)
+    pre_gen_launches = timed("pre_gen", phase_pre_gen)
+    timed("burgers_pre_gen", phase_burgers_pre_gen)
+    pre_train_launches = timed("pre_train", phase_pre_train)
+    pre_apply_launches, jupiter_apply_launches = timed("pre_apply", phase_pre_apply)
+    timed("pretf", phase_pretf, device)
     emit({"phase": "seconds", **seconds})
 
     def at(name, shape, **match):
@@ -2513,7 +2993,12 @@ def main() -> int:
                               "karman_apply_b9_cg": b9_cg_launches[name],
                               "burgers_train_bf16": bf16_launches[name],
                               "karman_train_step_bf16": karman_bf16_launches[name],
-                              "karman_train_bf16": karman_train_bf16_launches[name]},
+                              "karman_train_bf16": karman_train_bf16_launches[name],
+                              "karman_pre_gen": pre_gen_launches[name],
+                              "karman_pre_train": pre_train_launches["karman"][name],
+                              "burgers_pre_train_jupiter": pre_train_launches["burgers"][name],
+                              "karman_pre_apply_b1": pre_apply_launches[name],
+                              "burgers_pre_apply_jupiter": jupiter_apply_launches[name]},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -1,8 +1,8 @@
 """solver_in_the_loop_torch — the PyTorch + CUDA port of solver_in_the_loop_tpu.
 
-The port runs the karman serving and training paths (`karman-apply`,
-`karman-train`) and the Burgers family (`burgers-gen`, `burgers-train`,
-`burgers-apply`) on an NVIDIA H100, with the TPU kernels of those paths
+The port runs every command of the JAX package's CLI but the data-parallel
+`--dp` (the karman and Burgers data generation, training, serving and
+evaluation, and the PRE workflow) on an NVIDIA H100, with the TPU kernels of those paths
 rewritten by hand in CUDA C++ for Hopper (`csrc/`, bound in `kernels/`): the
 advection tap-sum forward and backward, the fused FD-preconditioned CG (also
 the pressure solve's adjoint), and the fused convolution (forward, input
@@ -15,15 +15,16 @@ boundary:
   (karman) or [v, u, fv, fu] (Burgers).
 
 Layer map:
-  core      — Domain / CenteredGrid / StaggeredGrid, downsampling, random fields
+  core      — Domain / CenteredGrid / StaggeredGrid, resampling, random fields
   ops       — stencils, diffusion, interpolation, advection, pressure solve
   kernels   — ctypes wrappers of the CUDA kernels, each with its plain twin
   physics   — karman geometry and solver step; Burgers step and forces
-  models    — features and the correction networks (MarsMoon, Mercury)
+  models    — features and the correction networks (MarsMoon, Mercury, JupiterMoon)
+  pre       — the PRE correction solve (constrained least squares, matrix-free CG)
   train     — flax msgpack checkpoints, recurrent rollouts, datasets, trainer
   io        — Scene npz I/O in the reference's legacy on-disk layout
   utils     — data statistics, metrics writer, logging
-  apps      — the karman and Burgers CLIs
+  apps      — the karman and Burgers CLIs, SOL and PRE
 
 Library functions follow the device of their input tensors; the CLI runs on
 CUDA unless `--device cpu` is given.

@@ -2,9 +2,11 @@
 
     python -m solver_in_the_loop_torch <command> [args...]
 
-The port covers the karman and Burgers data generation, training, serving
-and evaluation paths so far; the PRE commands of `python -m
-solver_in_the_loop_tpu` follow as their slices are ported.
+Every command of `python -m solver_in_the_loop_tpu`, with its flags: the
+karman and Burgers data generation, training, serving and evaluation paths
+and the PRE workflow (data generation, supervised training and rollouts).
+`karman-pre-train` and `burgers-pre-train` run the same module with the
+scenario the command names.
 """
 
 from __future__ import annotations
@@ -14,11 +16,22 @@ import sys
 
 COMMANDS = {
     "karman-gen": ("solver_in_the_loop_torch.apps.karman_gen", "karman data generation"),
-    "karman-apply": ("solver_in_the_loop_torch.apps.karman_apply", "karman test rollout"),
     "karman-train": ("solver_in_the_loop_torch.apps.karman_train", "karman SOL/NON training"),
+    "karman-apply": ("solver_in_the_loop_torch.apps.karman_apply", "karman test rollout"),
+    "karman-pre-gen": ("solver_in_the_loop_torch.apps.karman_pre_gen",
+                       "karman PRE data generation"),
+    "karman-pre-train": ("solver_in_the_loop_torch.apps.pre_train",
+                         "karman PRE supervised training"),
+    "karman-pre-apply": ("solver_in_the_loop_torch.apps.karman_pre_apply", "karman PRE rollout"),
     "burgers-gen": ("solver_in_the_loop_torch.apps.burgers_gen", "burgers data generation"),
     "burgers-train": ("solver_in_the_loop_torch.apps.burgers_train", "burgers SOL/NON training"),
     "burgers-apply": ("solver_in_the_loop_torch.apps.burgers_apply", "burgers test rollout"),
+    "burgers-pre-gen": ("solver_in_the_loop_torch.apps.burgers_pre_gen",
+                        "burgers PRE data generation"),
+    "burgers-pre-train": ("solver_in_the_loop_torch.apps.pre_train",
+                          "burgers PRE supervised training"),
+    "burgers-pre-apply": ("solver_in_the_loop_torch.apps.burgers_pre_apply",
+                          "burgers PRE rollout"),
     "evaluate": ("solver_in_the_loop_torch.apps.evaluate", "rollout MAE vs hi-res reference"),
 }
 
@@ -26,9 +39,9 @@ COMMANDS = {
 def main(argv=None):
     """Run one command; returns what the command's main returns (the apply
     commands and karman-gen: their frames; the train commands: their
-    TrainResult; burgers-gen: its Scene; evaluate: its JSON line as a dict),
-    0 for --help and 2 for an unknown
-    command."""
+    TrainResult; burgers-gen: its Scene; the PRE commands: their result
+    dicts; evaluate: its JSON line as a dict), 0 for --help and 2 for an
+    unknown command."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
@@ -39,7 +52,10 @@ def main(argv=None):
     if cmd not in COMMANDS:
         print(f"unknown command '{cmd}'; run with --help", file=sys.stderr)
         return 2
-    return importlib.import_module(COMMANDS[cmd][0]).main(rest)
+    mod = importlib.import_module(COMMANDS[cmd][0])
+    if cmd in ("karman-pre-train", "burgers-pre-train"):
+        return mod.main(rest, scenario=cmd.split("-")[0])
+    return mod.main(rest)
 
 
 if __name__ == "__main__":

@@ -64,9 +64,20 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     return p
 
 
-def prepare(args):
+def sol_normalization(stats: dict, device, use_force: bool) -> Normalization:
+    """The SOL/NON nets' contract: dataStats.json's std.v, std.u (and with
+    the force channels std.fv, std.fu)."""
+    if use_force:
+        return Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
+                                     stats["std.fu"], device)
+    std = torch.tensor([stats["std.v"], stats["std.u"]], dtype=torch.float32, device=device)
+    return Normalization(std, std)
+
+
+def prepare(args, normalization=sol_normalization):
     """What the rollout takes, on the requested device: (rollout_replay, v0,
-    fu, fv)."""
+    fu, fv); `normalization(stats, device, use_force)` reads the stats
+    json's contract."""
     device = resolve_device(args.device)
     dom = burgers_domain(args.res, args.len)
     flow = BurgersFlow(dom, advection=args.advect, max_shift=args.max_shift)
@@ -84,12 +95,7 @@ def prepare(args):
 
     with open(args.stats) as f:
         stats = json.load(f)
-    if use_force:
-        norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
-                                     stats["std.fu"], device)
-    else:
-        std = torch.tensor([stats["std.v"], stats["std.u"]], dtype=torch.float32, device=device)
-        norm = Normalization(std, std)
+    norm = normalization(stats, device, use_force)
 
     model = None
     if not args.no_model:
@@ -104,11 +110,11 @@ def prepare(args):
     return rollout_replay, v0, fu, fv
 
 
-def run(args):
+def run(args, normalization=sol_normalization):
     """Run the rollout and write its scene. Returns the frames ((T, 1, ...)
     "u", "v") plus "rollout_seconds", the wall time of the rollout alone,
     synchronized with the device."""
-    rollout_replay, v0, fu, fv = prepare(args)
+    rollout_replay, v0, fu, fv = prepare(args, normalization)
     device = v0.u.device
     if device.type == "cuda":
         torch.cuda.synchronize(device)

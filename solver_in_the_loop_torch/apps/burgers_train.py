@@ -12,8 +12,9 @@ Makefile (`burgers-fdt-sol04`; `burgers-fdt-non` is the same with -m 1):
 It writes OUT/tf/dataStats.json at the start, model_epoch%04d.msgpack (the
 parameters and the optimizer state) after the first epoch and every 10
 epochs, and model.msgpack at the end, in the JAX package's format. The
-flags --resume, --inittf, --bf16, --profile and --debug-nans work as
-karman-train's; flags of the JAX CLI that this port does not implement yet
+flags --resume, --inittf, --pretf, --bf16, --profile and --debug-nans work
+as karman-train's (a --pretf net's in.std and out.std become the features'
+and output's scales, their first two channels without the force); flags of the JAX CLI that this port does not implement yet
 raise NotImplementedError naming their ROADMAP.md item, as karman-train's do.
 """
 
@@ -69,7 +70,7 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--resume", type=int, default=-1,
                    help="resume from model_epoch%%04d.msgpack of --tf at this epoch")
     p.add_argument("--inittf", default=None, help="warm-start checkpoint (msgpack)")
-    p.add_argument("--pretf", default=None)
+    p.add_argument("--pretf", default=None, help="supervised pre-trained checkpoint")
     p.add_argument("--tf", default=os.path.join(tempfile.gettempdir(), "silt", "tf"),
                    help="output dir (models, logs)")
     p.add_argument("--no-remat", action="store_true")
@@ -116,8 +117,16 @@ def run(args):
         stats = ckpt.load_stats(args.tf)
         # resume with the slope the run was started with (absent: the old 0.01)
         args.leaky_alpha = stats.get("leaky_alpha", 0.01)
+    if args.pretf is not None:
+        ckpt.adopt_pretf_stats(stats, args, log)
     use_force = not args.noforce
-    if use_force:
+    if "in.std" in stats:
+        # the supervised-init contract: the PRE net's scales
+        def t(values):
+            return torch.tensor(values, dtype=torch.float32, device=device)
+
+        norm = Normalization(t(stats["in.std"][:4 if use_force else 2]), t(stats["out.std"][:2]))
+    elif use_force:
         norm = Normalization.burgers(stats["std.v"], stats["std.u"], stats["std.fv"],
                                      stats["std.fu"], device)
     else:

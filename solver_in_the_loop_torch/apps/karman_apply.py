@@ -105,9 +105,15 @@ def leaky_slope(args, stats) -> float:
     return float(stats.get("leaky_alpha", 0.01))
 
 
-def prepare(args):
+def sol_normalization(stats: dict, device) -> Normalization:
+    """The SOL/NON nets' contract: dataStats.json's std.v, std.u, ext.std."""
+    return Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
+
+
+def prepare(args, normalization=sol_normalization):
     """What the rollout takes, on the requested device: (flow, d0, v0, re,
-    model or None, norm)."""
+    model or None, norm); `normalization(stats, device)` reads the stats
+    json's contract."""
     device = resolve_device(args.device)
     dom = karman_domain(args.res, args.len)
     flow = KarmanFlow(dom, advection=args.advect, max_shift=args.max_shift,
@@ -117,7 +123,7 @@ def prepare(args):
 
     with open(args.stats) as f:
         stats = json.load(f)
-    norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
+    norm = normalization(stats, device)
 
     model = None
     if not args.no_model:
@@ -130,11 +136,11 @@ def prepare(args):
     return flow, d0, v0, re, model, norm
 
 
-def run(args):
+def run(args, normalization=sol_normalization):
     """Run the rollout and write one scene per Re. Returns the frames (see
     train.rollout.karman_rollout) plus "rollout_seconds", the wall time of the
     rollout alone, synchronized with the device."""
-    flow, d0, v0, re, model, norm = prepare(args)
+    flow, d0, v0, re, model, norm = prepare(args, normalization)
     device, batch = re.device, len(args.re)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

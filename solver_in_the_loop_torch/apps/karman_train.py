@@ -22,8 +22,11 @@ the schedule; `--inittf PATH` starts from a checkpoint's parameters;
 without drawing from the schedule, and keeps its update; `--debug-nans`
 raises FloatingPointError at the first NaN (train/trainer.py); `--reg-loss`
 is accepted and changes nothing (the reference's regularization list is
-empty). Flags of the JAX CLI that this port does not implement yet
-(NOT_PORTED) raise NotImplementedError naming their ROADMAP.md item.
+empty); `--pretf PATH` starts from a PRE net's parameters (karman-pre-train's
+model.msgpack) and adopts its stats.json's in.std and out.std and LeakyReLU
+slope (train/checkpoint.py adopt_pretf_stats). Flags of the JAX CLI that
+this port does not implement yet (NOT_PORTED) raise NotImplementedError
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -55,8 +58,7 @@ log = logging.getLogger(__name__)
 # flags of the JAX CLI left out of this port, with the ROADMAP.md item that
 # ports them; each raises NotImplementedError when given
 NOT_PORTED = {
-    "pretf": "A4 (PRE: --pretf supervised init)",
-    "dp": "A5 (data parallelism)",
+    "dp": "A3 (parallelism)",
 }
 
 
@@ -90,7 +92,7 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--resume", type=int, default=-1,
                    help="resume from model_epoch%%04d.msgpack of --tf at this epoch")
     p.add_argument("--inittf", default=None, help="warm-start checkpoint (msgpack)")
-    p.add_argument("--pretf", default=None)
+    p.add_argument("--pretf", default=None, help="supervised pre-trained checkpoint")
     p.add_argument("--tf", default=os.path.join(tempfile.gettempdir(), "silt", "tf"),
                    help="output dir (models, logs)")
     p.add_argument("--no-remat", action="store_true")
@@ -132,7 +134,7 @@ def refuse_not_ported(args) -> None:
 def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig):
     """What both trainers do between the data and the epoch loop, as the JAX
     CLIs do it: the net (bf16 compute with --bf16) and its optimizer, the
-    parameters from --inittf, the parameters and optimizer state of epoch
+    parameters from --pretf, then from --inittf, the parameters and optimizer state of epoch
     --resume (else dataStats.json written); returns (model, optimizer)."""
     model = build_model(args.model, in_channels=in_channels, leaky_slope=args.leaky_alpha,
                         init=args.init, generator=torch.Generator().manual_seed(args.seed),
@@ -143,6 +145,9 @@ def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig):
     optimizer = make_optimizer(model, cfg)
     if getattr(args, "reg_loss", False):
         log.info("--reg-loss: no regularization terms (the reference's list is empty)")
+    if args.pretf:
+        ckpt.load_model_weights(model, args.pretf, args.model)
+        log.info("loaded pre-trained model %s", args.pretf)
     if args.inittf:
         ckpt.load_model_weights(model, args.inittf, args.model)
         log.info("warm start from %s", args.inittf)
@@ -209,7 +214,17 @@ def run(args):
         stats = ckpt.load_stats(args.tf)
         # resume with the slope the run was started with (absent: the old 0.01)
         args.leaky_alpha = stats.get("leaky_alpha", 0.01)
-    norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
+    if args.pretf is not None:
+        ckpt.adopt_pretf_stats(stats, args, log)
+    if "in.std" in stats:
+        # the supervised-init contract: the PRE net's velocity scales, the
+        # data's Re scale
+        norm = Normalization(
+            torch.tensor([stats["in.std"][0], stats["in.std"][1], stats["ext.std"]],
+                         dtype=torch.float32, device=device),
+            torch.tensor(stats["out.std"][:2], dtype=torch.float32, device=device))
+    else:
+        norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
     res_y, res_x = data_np.resolution
     dom = karman_domain(res_x, args.len)
     if dom.resolution != (res_y, res_x):

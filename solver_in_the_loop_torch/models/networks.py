@@ -1,11 +1,13 @@
 """Correction networks, fully convolutional, channel-last at the boundary.
 
-Port of solver_in_the_loop_tpu/models/networks.py (the `--arch` choices of
-karman-apply):
+Port of solver_in_the_loop_tpu/models/networks.py:
 
 * Mercury  — conv5x5(32) ReLU -> conv5x5(64) ReLU -> conv5x5(2)
 * MarsMoon — conv5x5(F)+LeakyReLU stem, `blocks` residual blocks
   [conv5x5(F) LeakyReLU conv5x5(F) + skip, LeakyReLU], conv5x5(2) head
+* JupiterMoon — the Burgers PRE net: conv5x5(32)+ReLU stem, six blocks
+  [conv5x5(F) ReLU conv3x3(F) + skip, LeakyReLU] at F = 32, 32, 64, 64, 32,
+  32, the skip a 1x1 projection where F changes, conv5x5(2) head
 
 Inputs are normalized collocated features (B, Y, X, C) and outputs
 (B, Y, X, 2) = [dv, du], as in the JAX package. Each model runs its
@@ -63,6 +65,11 @@ def disable_tf32() -> None:
 
 def _conv5(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel_size=5, padding=2)
+
+
+def _convk(cin: int, cout: int, k: int) -> nn.Conv2d:
+    """A KxK SAME conv (K odd)."""
+    return nn.Conv2d(cin, cout, kernel_size=k, padding=k // 2)
 
 
 CONV_IMPLS = ("library", "kernel")
@@ -156,7 +163,54 @@ class MarsMoon(_Net):
         return _apply(self.head, x, nhwc)
 
 
-MODELS = {"mercury": Mercury, "mars_moon": MarsMoon}
+class JupiterBlock(nn.Module):
+    """conv5x5 with ReLU -> conv3x3 -> skip-add (a 1x1 projection where the
+    width changes) -> LeakyReLU. The 1x1 projection is a plain matrix product
+    over the channels, as in the JAX package (no kernel there either)."""
+
+    def __init__(self, cin: int, features: int, leaky_slope: float):
+        super().__init__()
+        self.conv1 = _conv5(cin, features)
+        self.conv2 = _convk(features, features, 3)
+        self.proj = _convk(cin, features, 1) if cin != features else None
+        self.leaky_slope = leaky_slope
+
+    def forward(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        y = _apply(self.conv1, x, nhwc, "relu")
+        skip = x if self.proj is None else _project(self.proj, x, nhwc)
+        return _apply(self.conv2, y, nhwc, "leaky_relu", self.leaky_slope, skip=skip)
+
+
+def _project(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+    """A 1x1 conv with bias as one matrix product over the channels."""
+    w = conv.weight.to(x.dtype)[:, :, 0, 0]
+    if nhwc:
+        return torch.matmul(x, w.t()) + conv.bias.to(x.dtype)
+    return F.conv2d(x, w[:, :, None, None], conv.bias.to(x.dtype))
+
+
+class JupiterMoon(_Net):
+    """The Burgers PRE net (--arch / --model jupiter_moon)."""
+
+    STAGES = (32, 32, 64, 64, 32, 32)
+
+    def __init__(self, in_channels: int = 4, out_channels: int = 2, leaky_slope: float = 0.3):
+        super().__init__()
+        self.stem = _conv5(in_channels, 32)
+        widths = (32,) + self.STAGES
+        self.blocks = nn.ModuleList(JupiterBlock(cin, f, leaky_slope)
+                                    for cin, f in zip(widths, self.STAGES))
+        self.head = _conv5(self.STAGES[-1], out_channels)
+        self.leaky_slope = leaky_slope
+
+    def body(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        x = _apply(self.stem, x, nhwc, "relu")
+        for block in self.blocks:
+            x = block(x, nhwc)
+        return _apply(self.head, x, nhwc)
+
+
+MODELS = {"mercury": Mercury, "mars_moon": MarsMoon, "jupiter_moon": JupiterMoon}
 INIT_MODES = ("reference", "zero")
 
 # jax.nn.initializers.variance_scaling's truncated normal: the stddev of a
@@ -206,8 +260,10 @@ def build_model(name: str, in_channels: int = 3, leaky_slope: float = 0.3,
     if compute_dtype not in COMPUTE_DTYPES:
         raise KeyError(f"unsupported compute dtype {compute_dtype}; use one of {COMPUTE_DTYPES}")
     disable_tf32()
-    model = Mercury(in_channels) if name == "mercury" else MarsMoon(in_channels,
-                                                                   leaky_slope=leaky_slope)
+    if name == "mercury":
+        model = Mercury(in_channels)
+    else:
+        model = MODELS[name](in_channels, leaky_slope=leaky_slope)
     model.conv_impl = conv
     model.compute_dtype = compute_dtype
     if init is not None:

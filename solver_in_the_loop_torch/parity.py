@@ -238,21 +238,42 @@ def _loss_and_grads(model, loss_fn):
     return (loss.item(), step_losses.detach().cpu(), *(r.cpu() for r in rest), grads)
 
 
+def pretf_model(device, pretf_dir: str, conv: str = "library"):
+    """The PRE net of `pretf_dir` (model.msgpack, stats.json) as
+    `karman-train --pretf` starts from it: (model, its stats)."""
+    from solver_in_the_loop_torch.models.networks import build_model
+    from solver_in_the_loop_torch.train import checkpoint as ckpt
+
+    with open(os.path.join(pretf_dir, "stats.json")) as f:
+        pre = json.load(f)
+    model = build_model("mars_moon", leaky_slope=pre.get("leaky_alpha", 0.01), conv=conv)
+    ckpt.load_model_weights(model, os.path.join(pretf_dir, "model.msgpack"), "mars_moon")
+    return model.to(device), pre
+
+
 def parity_step(device, conv: str = "library", precon: str = "fd",
-                compute_dtype: torch.dtype = torch.float32):
+                compute_dtype: torch.dtype = torch.float32, pretf: str = None):
     """One SOL-32 train step's loss and gradients on `device` (no update),
     its pressure solves preconditioned as `precon` says, the net computing
     in `compute_dtype`: (loss, step_losses (32,), forward CG iterations,
-    {param name: grad})."""
+    {param name: grad}). With `pretf` (a PRE net's directory) the net and
+    the velocity scales are those `karman-train --pretf` adopts."""
     from solver_in_the_loop_torch.models.features import Normalization
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, karman_loss
 
     data, idx, stats = train_parity_inputs()
-    model = parity_model(device, conv, compute_dtype=compute_dtype)
     flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, pressure_precon=precon,
                       device=device)
-    norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
+    if pretf is None:
+        model = parity_model(device, conv, compute_dtype=compute_dtype)
+        norm = Normalization.karman(stats["std.v"], stats["std.u"], stats["ext.std"], device)
+    else:
+        model, pre = pretf_model(device, pretf, conv)
+        norm = Normalization(
+            torch.tensor([pre["in.std"][0], pre["in.std"][1], stats["ext.std"]],
+                         dtype=torch.float32, device=device),
+            torch.tensor(pre["out.std"][:2], dtype=torch.float32, device=device))
     cfg = SolTrainConfig(msteps=PARITY_MSTEPS, clip_grad=True)
     tdata = {k: torch.from_numpy(a).to(device) for k, a in data.items()}
     return _loss_and_grads(model, lambda: karman_loss(flow, model, norm, tdata,
@@ -355,13 +376,13 @@ def parity_summary(step):
             grads["head.weight"].numpy())
 
 
-def train_golden_summary(path: str = TRAIN_GOLDEN):
-    """A JAX package's parity step (default the karman TRAIN_GOLDEN), laid out
-    as parity_summary lays out the port's."""
+def train_golden_summary(path: str = TRAIN_GOLDEN, prefix: str = ""):
+    """A JAX package's parity step (default the karman TRAIN_GOLDEN; its keys
+    with `prefix`), laid out as parity_summary lays out the port's."""
     with np.load(path) as g:
-        return (float(g["loss"]), g["step_losses"],
-                dict(zip(g["grad_names"].tolist(), g["grad_norms"].tolist())),
-                g["head_weight_grad"])
+        return (float(g[f"{prefix}loss"]), g[f"{prefix}step_losses"],
+                dict(zip(g[f"{prefix}grad_names"].tolist(), g[f"{prefix}grad_norms"].tolist())),
+                g[f"{prefix}head_weight_grad"])
 
 
 def parity_errors(got, want, params=None):
@@ -387,3 +408,189 @@ def bf16_errors(got: torch.Tensor, want: torch.Tensor) -> float:
     mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(((got - want).abs() / (ulp + sums)).max())
+
+
+# PRE (tests/test_torch_pre_golden.py makes the JAX goldens). karman-pre-gen
+# at the Makefile's width (-r 32: 64x32 lo-res, 256x128 hi-res, Re 160000),
+# cut from 1500 frames to KARMAN_PRE_FRAMES with PRE_SKIP skipped, with
+# --beta 1 (PRE) and --beta 0 (PRE-SR); the golden holds the lo-res frames
+# PRE_GOLDEN_FRAMES of both and the hi-res ones of the last
+KARMAN_PRE_GEN_GOLDEN = os.path.join(DATA, "karman_pre_gen_r32.npz")
+KARMAN_PRE_FRAMES = 30
+PRE_SKIP = 20
+KARMAN_PRE_GEN_ARGV = ["-r", "32", "-l", "100", "--re", "160000", "--seed", "0",
+                       "-t", str(KARMAN_PRE_FRAMES), "-s", str(PRE_SKIP)]
+PRE_BETAS = ("1.0", "0")
+PRE_GOLDEN_FRAMES = (21, 25, 29)
+PRE_LO_NAMES = ("densC", "veloC", "dens", "velo", "corr")
+# a karman correction's constraint: G^T corr on the valid cells within this
+# share of max |corr_u| (the JAX package's bound, tests/test_pre_lsq.py; the
+# golden frames sit at 1e-5 to 2e-5)
+PRE_DIV_TOL = 5e-3
+PRE_HI_NAMES = ("densH", "veloH")
+# burgers-pre-gen of the Makefile's test sim seed 100 (BURGERS_GEN_ARGV)
+# at its width (-r 32: 32x32 lo-res from the 128x128 frames), cut from 200
+# frames to BURGERS_PRE_FRAMES
+BURGERS_PRE_GEN_GOLDEN = os.path.join(DATA, "burgers_pre_gen_r32.npz")
+BURGERS_PRE_FRAMES = 20
+BURGERS_PRE_GOLDEN_FRAMES = (1, 5, 19)
+BURGERS_PRE_NAMES = ("veloC", "velo", "corr", "forc")
+# the PRE rollouts: karman-pre-apply of artifacts/k_pre_train from the
+# built-in initial state at -r 32, Re 240000 (the first test Re), and
+# burgers-pre-apply on the Burgers apply golden's inputs with
+# artifacts/b_pre_train (MarsMoon) and a JupiterMoon of seeded weights
+PRE_APPLY_GOLDEN = os.path.join(DATA, "pre_apply_r32.npz")
+PRE_APPLY_STEPS = 20
+PRE_APPLY_GOLDEN_STEPS = (1, 5, 20)  # the steps the golden keeps
+KARMAN_PRE_CKPT = os.path.join(REPO, "artifacts", "k_pre_train")
+KARMAN_PRESR_CKPT = os.path.join(REPO, "artifacts", "k_presr_train")
+BURGERS_PRE_CKPT = os.path.join(REPO, "artifacts", "b_pre_train")
+PRE_APPLY_RE = 240000.0
+JUPITER_SEED = 3
+# pre-train: two epochs (--resume 1 --epochs 3) from a start checkpoint of
+# seeded weights on the PRE golden frames, both scenarios, against the JAX
+# CLI's run from the same start (PRE_TRAIN_GOLDEN)
+PRE_TRAIN_GOLDEN = os.path.join(DATA, "pre_train_r32.npz")
+PRE_TRAIN_ARGV = ["--seed", "0", "--val", "0.2", "--augment", "--bsize", "4", "--steps", "3",
+                  "--resume", "1", "--epochs", "3", "--nostats"]
+PRE_TRAIN_SEED = 5
+# Two epochs (6 Adam steps) from the same start on the same batches and
+# flips. Adam moves a weight by about lr * m / sqrt(v), about lr * sign(g) in
+# its first steps, so an element whose gradient is near 0 may step the
+# other way on the other side: after one step the weights agree within
+# 4.5e-5, after three hundreds of elements a leaf sit 2 lr (2e-3) apart
+# (JupiterMoon on random data, on the CPU), and the function moves with
+# them. So each leaf is held in norm (||port - JAX|| / ||JAX||) and the
+# epochs' mean losses in relative terms. Measured: on the CPU at most 7e-6
+# (karman MarsMoon), 9e-5 (Burgers JupiterMoon on the golden frames) and
+# 2.3e-3 (JupiterMoon on random frames), losses within 1e-4; on the card
+# with the conv kernels 5.3e-4 (karman) and 1.7e-3 (Burgers JupiterMoon),
+# losses within 8.6e-4 (measured on one NVIDIA H100 80GB HBM3 at 700.00 W
+# by chip_smoke.py's pre_train phase)
+PRE_TRAIN_REL_TOL = 1e-2
+PRE_LOSS_REL_TOL = 2e-3
+# stats.json on another machine: numpy's float32 sums in another order
+PRE_STATS_REL_TOL = 1e-6
+
+
+def seeded_weights(model, seed: int):
+    """Set every conv's kernel to numpy glorot-uniform draws from
+    RandomState(seed) in construction order, and its bias to 0.01 times
+    normal draws: weights that every device and both packages rebuild from
+    the seed alone. Returns the model."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for conv in (m for m in model.modules() if isinstance(m, torch.nn.Conv2d)):
+            w = conv.weight
+            receptive = w.shape[2] * w.shape[3]
+            limit = np.sqrt(6.0 / (receptive * (w.shape[0] + w.shape[1])))
+            w.copy_(torch.from_numpy(rng.uniform(-limit, limit, tuple(w.shape))
+                                     .astype(np.float32)))
+            conv.bias.copy_(torch.from_numpy(0.01 * rng.randn(*conv.bias.shape)
+                                             .astype(np.float32)))
+    return model
+
+
+def jupiter_checkpoint(out_dir: str, leaky: float = 0.3) -> dict:
+    """A JupiterMoon (4 input channels) of seeded weights (JUPITER_SEED),
+    written as out_dir/model.msgpack with the Burgers PRE net's stats.json
+    (BURGERS_PRE_CKPT's, at slope `leaky`). Returns the apply CLIs'
+    --model and --stats arguments."""
+    from solver_in_the_loop_torch.models.networks import build_model
+    from solver_in_the_loop_torch.train import checkpoint as ckpt
+
+    model = seeded_weights(build_model("jupiter_moon", in_channels=4), JUPITER_SEED)
+    ckpt.save_checkpoint(out_dir, model, "jupiter_moon")
+    with open(os.path.join(BURGERS_PRE_CKPT, "stats.json")) as f:
+        stats = json.load(f)
+    stats["leaky_alpha"] = leaky
+    with open(os.path.join(out_dir, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=1)
+    return {"model": os.path.join(out_dir, "model.msgpack"),
+            "stats": os.path.join(out_dir, "stats.json")}
+
+
+def karman_pre_apply_argv(out: str, ckpt_dir: str = KARMAN_PRE_CKPT,
+                          steps: int = PRE_APPLY_STEPS) -> list:
+    """karman-pre-apply's arguments for `steps` steps of a PRE net's rollout
+    at -r 32 from the built-in initial state, Re PRE_APPLY_RE."""
+    return ["-o", out, "--model", os.path.join(ckpt_dir, "model.msgpack"),
+            "--stats", os.path.join(ckpt_dir, "stats.json"), "-r", "32", "-l", "100",
+            "--re", str(int(PRE_APPLY_RE)), "-t", str(steps + 1)]
+
+
+def burgers_pre_apply_argv(out: str, inputs: dict, model: str, stats: str, arch: str,
+                           steps: int = PRE_APPLY_STEPS) -> list:
+    """burgers-pre-apply's arguments for `steps` steps from
+    burgers_apply_inputs (already at 32x32, so -d 1)."""
+    return ["-o", out, "--model", model, "--stats", stats, "--arch", arch,
+            "--initvH", inputs["initvH"], "--loadfH", inputs["loadfH"], "-d", "1", "-r", "32",
+            "-l", "32", "--dt", str(BURGERS_DT), "-t", str(steps + 1)]
+
+
+def write_pre_set(out: str, scenario: str) -> list:
+    """The PRE training set of the pre-train parity: the PRE golden frames
+    (karman: both betas' PRE_GOLDEN_FRAMES, one scene each, Re 160000;
+    Burgers: BURGERS_PRE_GOLDEN_FRAMES) written as PRE scenes under `out`.
+    Returns the trainer's scene patterns."""
+    from solver_in_the_loop_torch.io import scene as scene_io
+
+    golden = KARMAN_PRE_GEN_GOLDEN if scenario == "karman" else BURGERS_PRE_GEN_GOLDEN
+    with np.load(golden) as g:
+        groups = ([(f"b{b}_", PRE_GOLDEN_FRAMES) for b in PRE_BETAS] if scenario == "karman"
+                  else [("", BURGERS_PRE_GOLDEN_FRAMES)])
+        names = ("velo", "corr") if scenario == "karman" else ("velo", "corr", "forc")
+        for prefix, frames in groups:
+            sc = scene_io.Scene.create(out)
+            sc.write_params({"re": 160000.0} if scenario == "karman" else {})
+            for name in names:
+                for f in frames:
+                    scene_io.write_array(sc.frame_path(name, f), g[f"{prefix}{name}_{f}"])
+    return [os.path.join(out, "sim_0*")]
+
+
+def write_pre_start(opath: str, scenario: str, arch: str, leaky: float = 0.3) -> None:
+    """The start of the pre-train parity: opath/model_epoch0001.msgpack with
+    seeded weights (PRE_TRAIN_SEED) and a fresh Adam state, which both
+    packages' `--resume 1` load."""
+    from solver_in_the_loop_torch.models.networks import build_model
+    from solver_in_the_loop_torch.train import checkpoint as ckpt
+
+    model = seeded_weights(build_model(arch, in_channels=3 if scenario == "karman" else 4,
+                                       leaky_slope=leaky), PRE_TRAIN_SEED)
+    adam = torch.optim.Adam(model.parameters(), lr=1e-3)
+    ckpt.save_checkpoint(opath, model, arch, adam, epoch=1)
+
+
+def stats_errors(got: dict, want: dict) -> float:
+    """The largest relative difference of two stats.json dicts' numbers
+    (inf where a key or a non-number differs)."""
+    if set(got) != set(want):
+        return float("inf")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, (list, float)) and not isinstance(w, bool):
+            g, w = (np.atleast_1d(np.asarray(a, np.float64)) for a in (g, w))
+            if g.shape != w.shape:
+                return float("inf")
+            worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30))))
+        elif g != w:
+            return float("inf")
+    return worst
+
+
+def pre_train_golden(scenario: str) -> dict:
+    """The pre-train golden of `scenario`: "losses", "leaves" ({port name:
+    array}) and "stats"."""
+    prefix = f"{scenario}_leaf_"
+    with np.load(PRE_TRAIN_GOLDEN) as g:
+        return {"losses": g[f"{scenario}_losses"],
+                "leaves": {k[len(prefix):]: g[k] for k in g.files if k.startswith(prefix)},
+                "stats": json.loads(str(g[f"{scenario}_stats"]))}
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """{name: ||got - want|| / ||want||} of two {name: array} parameter sets."""
+    return {n: float(np.linalg.norm(np.asarray(got[n], np.float64) - want[n])
+                     / max(np.linalg.norm(want[n]), 1e-30)) for n in want}

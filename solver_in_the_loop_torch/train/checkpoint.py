@@ -24,7 +24,9 @@ layout, where a named tuple is a map of its fields and a tuple a map "0",
 `count`, `mu` and `nu`, each moment a tree of the parameters' layout.
 `opt_state_to_jax` and `opt_state_from_jax` map that state onto the port's
 GuardedAdam and back: optax's count is torch's Adam step (both bias-correct
-step t with b^t), mu and nu are exp_avg and exp_avg_sq.
+step t with b^t), mu and nu are exp_avg and exp_avg_sq. The PRE trainer's
+optimizer is `inject_hyperparams(adam)` alone, torch's Adam in the port:
+`adam_state_to_jax` and `adam_state_from_jax` map that.
 """
 
 from __future__ import annotations
@@ -139,6 +141,14 @@ def _flax_names(arch: str, model: nn.Module) -> Dict[str, str]:
             names[f"_ResBlock_{k}/Conv_0"] = f"blocks.{k}.conv1"
             names[f"_ResBlock_{k}/Conv_1"] = f"blocks.{k}.conv2"
         return names
+    if arch == "jupiter_moon":
+        names = {"Conv_0": "stem", "Conv_1": "head"}
+        for k, block in enumerate(model.blocks):
+            names[f"_JupiterBlock_{k}/Conv_0"] = f"blocks.{k}.conv1"
+            names[f"_JupiterBlock_{k}/Conv_1"] = f"blocks.{k}.conv2"
+            if block.proj is not None:
+                names[f"_JupiterBlock_{k}/Conv_2"] = f"blocks.{k}.proj"
+        return names
     raise KeyError(f"no flax name map for arch '{arch}'")
 
 
@@ -205,32 +215,39 @@ def params_to_jax(model: nn.Module, arch: str) -> dict:
 ADAM_EPS_ROOT = 0.0
 
 
-def opt_state_to_jax(optimizer, model: nn.Module, arch: str) -> dict:
-    """The GuardedAdam's state as the JAX trainer's optax state in flax's
-    layout (the module docstring); its moments' trees in sorted key order,
-    as jax.tree_util rebuilds them."""
+def adam_state_to_jax(adam: torch.optim.Adam, model: nn.Module, arch: str) -> dict:
+    """The state of optax's `inject_hyperparams(adam)` for torch's Adam, in
+    flax's layout: what the PRE trainer saves, and the inner state of the
+    SOL trainers' chain. The moments' trees in sorted key order, as
+    jax.tree_util rebuilds them."""
     names = {id(p): n for n, p in model.named_parameters()}
-    state = optimizer.adam.state
-    steps = {int(state[p]["step"]) for p in optimizer.params if p in state}
+    params = [p for group in adam.param_groups for p in group["params"]]
+    state = adam.state
+    steps = {int(state[p]["step"]) for p in params if p in state}
     if len(steps) > 1:
         raise ValueError(f"the parameters' Adam steps differ: {sorted(steps)}")
     count = steps.pop() if steps else 0
 
     def moment(key):
         tensors = {names[id(p)]: state[p][key] if p in state else torch.zeros_like(p)
-                   for p in optimizer.params}
+                   for p in params}
         return {"params": _nest(dict(sorted(_flax_flat(tensors, arch, model).items())))}
 
-    adam = {"count": np.asarray(count, np.int32), "mu": moment("exp_avg"),
-            "nu": moment("exp_avg_sq")}
-    inject = {"count": np.asarray(count, np.int32),
-              "hyperparams": {"learning_rate": np.asarray(optimizer.adam.param_groups[0]["lr"],
-                                                       np.float32),
-                              "b1": np.asarray(ADAM_BETAS[0], np.float32),
-                              "b2": np.asarray(ADAM_BETAS[1], np.float32),
-                              "eps": np.asarray(ADAM_EPS, np.float32),
-                              "eps_root": np.asarray(ADAM_EPS_ROOT, np.float32)},
-              "hyperparams_states": {}, "inner_state": {"0": adam, "1": {}}}
+    inner = {"count": np.asarray(count, np.int32), "mu": moment("exp_avg"),
+             "nu": moment("exp_avg_sq")}
+    return {"count": np.asarray(count, np.int32),
+            "hyperparams": {"learning_rate": np.asarray(adam.param_groups[0]["lr"], np.float32),
+                            "b1": np.asarray(ADAM_BETAS[0], np.float32),
+                            "b2": np.asarray(ADAM_BETAS[1], np.float32),
+                            "eps": np.asarray(ADAM_EPS, np.float32),
+                            "eps_root": np.asarray(ADAM_EPS_ROOT, np.float32)},
+            "hyperparams_states": {}, "inner_state": {"0": inner, "1": {}}}
+
+
+def opt_state_to_jax(optimizer, model: nn.Module, arch: str) -> dict:
+    """The GuardedAdam's state as the JAX trainer's optax state in flax's
+    layout (the module docstring)."""
+    inject = adam_state_to_jax(optimizer.adam, model, arch)
     chain = {"0": {}, "1": inject} if optimizer.clip is not None else {"0": inject}
     return {"notfinite_count": np.asarray(optimizer.notfinite_count, np.int32),
             "last_finite": np.asarray(optimizer.last_finite, np.bool_),
@@ -244,6 +261,35 @@ def _keys(tree: dict, where: str, want) -> None:
         raise ValueError(f"optimizer state {where}: keys {got}, expected {sorted(want)}")
 
 
+def adam_state_from_jax(inject: dict, adam: torch.optim.Adam, model: nn.Module,
+                        arch: str) -> None:
+    """Load an `inject_hyperparams(adam)` state (flax's layout, as
+    read_msgpack decodes it) into torch's Adam: its step, moments and
+    learning rate."""
+    _keys(inject, "of inject_hyperparams",
+          ("count", "hyperparams", "hyperparams_states", "inner_state"))
+    inner = inject["inner_state"]["0"]
+    _keys(inner, "of adam", ("count", "mu", "nu"))
+    hyper = {k: float(v) for k, v in inject["hyperparams"].items()}
+    want = {"b1": ADAM_BETAS[0], "b2": ADAM_BETAS[1], "eps": ADAM_EPS, "eps_root": ADAM_EPS_ROOT}
+    for key, value in want.items():
+        if hyper.get(key) != value:
+            raise ValueError(f"optimizer state: {key} {hyper.get(key)}, the port's Adam has "
+                             f"{value}")
+    mu = params_from_jax(inner["mu"]["params"], arch, model)
+    nu = params_from_jax(inner["nu"]["params"], arch, model)
+    count = int(inner["count"])
+    for name, p in model.named_parameters():
+        if count == 0:
+            adam.state.pop(p, None)
+            continue
+        adam.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                         "exp_avg": mu[name].to(p.device, p.dtype),
+                         "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    for group in adam.param_groups:
+        group["lr"] = hyper["learning_rate"]
+
+
 def opt_state_from_jax(tree: dict, optimizer, model: nn.Module, arch: str) -> None:
     """Load the JAX trainer's optax state (flax's layout, as read_msgpack
     decodes it) into the GuardedAdam: Adam's step, moments and learning
@@ -252,28 +298,7 @@ def opt_state_from_jax(tree: dict, optimizer, model: nn.Module, arch: str) -> No
     _keys(tree, "", ("notfinite_count", "last_finite", "total_notfinite", "inner_state"))
     chain = tree["inner_state"]
     _keys(chain, "inner_state", ("0", "1") if optimizer.clip is not None else ("0",))
-    inject = chain[str(len(chain) - 1)]
-    _keys(inject, "of inject_hyperparams",
-          ("count", "hyperparams", "hyperparams_states", "inner_state"))
-    adam = inject["inner_state"]["0"]
-    _keys(adam, "of adam", ("count", "mu", "nu"))
-    hyper = {k: float(v) for k, v in inject["hyperparams"].items()}
-    want = {"b1": ADAM_BETAS[0], "b2": ADAM_BETAS[1], "eps": ADAM_EPS, "eps_root": ADAM_EPS_ROOT}
-    for key, value in want.items():
-        if hyper.get(key) != value:
-            raise ValueError(f"optimizer state: {key} {hyper.get(key)}, the port's Adam has "
-                             f"{value}")
-    mu = params_from_jax(adam["mu"]["params"], arch, model)
-    nu = params_from_jax(adam["nu"]["params"], arch, model)
-    count = int(adam["count"])
-    for name, p in model.named_parameters():
-        if count == 0:
-            optimizer.adam.state.pop(p, None)
-            continue
-        optimizer.adam.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
-                                   "exp_avg": mu[name].to(p.device, p.dtype),
-                                   "exp_avg_sq": nu[name].to(p.device, p.dtype)}
-    optimizer.set_learning_rate(hyper["learning_rate"])
+    adam_state_from_jax(chain[str(len(chain) - 1)], optimizer.adam, model, arch)
     optimizer.notfinite_count = int(tree["notfinite_count"])
     optimizer.last_finite = bool(tree["last_finite"])
     optimizer.total_notfinite = int(tree["total_notfinite"])
@@ -345,13 +370,16 @@ def epoch_path(ckpt_dir: str, epoch: int) -> str:
 def save_checkpoint(ckpt_dir: str, model: nn.Module, arch: str, optimizer=None,
                     epoch: Optional[int] = None) -> str:
     """Write the model's parameters, and the optimizer's state if one is
-    given, as the JAX package's `model.msgpack` (`model_epoch%04d.msgpack`
+    given (a GuardedAdam, or the PRE trainer's plain torch Adam), as the
+    JAX package's `model.msgpack` (`model_epoch%04d.msgpack`
     for an epoch): {"params": {"params": ...}, "opt_state": ...}, readable
     by both packages' apply CLIs and resumable by both trainers."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, "model.msgpack") if epoch is None else epoch_path(ckpt_dir, epoch)
     payload = {"params": {"params": params_to_jax(model, arch)}}
-    if optimizer is not None:
+    if isinstance(optimizer, torch.optim.Adam):
+        payload["opt_state"] = adam_state_to_jax(optimizer, model, arch)
+    elif optimizer is not None:
         payload["opt_state"] = opt_state_to_jax(optimizer, model, arch)
     with open(path, "wb") as f:
         f.write(pack_msgpack(payload))
@@ -368,7 +396,10 @@ def load_epoch_checkpoint(ckpt_dir: str, epoch: int, model: nn.Module, arch: str
     model.load_state_dict(params_from_jax(tree["params"]["params"], arch, model), strict=True)
     if "opt_state" not in tree:
         return False
-    opt_state_from_jax(tree["opt_state"], optimizer, model, arch)
+    if isinstance(optimizer, torch.optim.Adam):
+        adam_state_from_jax(tree["opt_state"], optimizer, model, arch)
+    else:
+        opt_state_from_jax(tree["opt_state"], optimizer, model, arch)
     return True
 
 
@@ -382,6 +413,22 @@ def save_stats(ckpt_dir: str, stats: Dict) -> None:
 def load_stats(ckpt_dir: str) -> Dict:
     with open(os.path.join(ckpt_dir, "dataStats.json")) as f:
         return json.load(f)
+
+
+def adopt_pretf_stats(stats: Dict, args, log) -> None:
+    """The supervised-init (--pretf) contract of both SOL trainers: adopt the
+    PRE checkpoint's in.std and out.std (stats.json beside it) and rebuild
+    the net at the LeakyReLU slope it was trained with (absent: 0.01).
+    Mutates `stats` and `args.leaky_alpha` in place."""
+    with open(os.path.join(os.path.dirname(args.pretf), "stats.json")) as f:
+        pre_stats = json.load(f)
+    stats["in.std"] = pre_stats["in.std"]
+    stats["out.std"] = pre_stats["out.std"]
+    pre_alpha = pre_stats.get("leaky_alpha", 0.01)
+    if pre_alpha != args.leaky_alpha:
+        log.info("--pretf checkpoint trained at leaky_alpha=%s; overriding CLI %s",
+                 pre_alpha, args.leaky_alpha)
+        args.leaky_alpha = pre_alpha
 
 
 def load_model_weights(model: nn.Module, path: str, arch: str) -> nn.Module:

@@ -190,13 +190,15 @@ def _imported_roots(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "solver_in_the_loop_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the training, Burgers and karman-gen slices' modules are among those scanned
+    # the training, Burgers, karman-gen and PRE slices' modules are among those scanned
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"solver_in_the_loop_torch/{m}" for m in (
         "apps/karman_train.py", "train/trainer.py", "train/dataset.py",
         "utils/metrics.py", "utils/stats.py", "apps/burgers_gen.py", "apps/burgers_train.py",
         "apps/burgers_apply.py", "physics/burgers.py", "core/random_fields.py",
-        "kernels/conv.py", "apps/karman_gen.py", "ops/multigrid.py")} <= scanned
+        "kernels/conv.py", "apps/karman_gen.py", "ops/multigrid.py", "pre/lsq.py",
+        "apps/karman_pre_gen.py", "apps/burgers_pre_gen.py", "apps/pre_train.py",
+        "apps/karman_pre_apply.py", "apps/burgers_pre_apply.py")} <= scanned
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_roots(f) if m in BANNED]
     assert not bad, f"the port imports JAX-side modules: {bad}"
 

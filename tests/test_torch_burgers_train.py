@@ -190,9 +190,10 @@ def test_train_cli_end_to_end(tmp_path):
     assert bool(torch.isfinite(frames["u"]).all())
 
 
-@pytest.mark.parametrize("flag,item", [(["--pretf", "x"], "A4"), (["--dp"], "A5")])
+@pytest.mark.parametrize("flag,item", [(["--dp"], "A3")])
 def test_train_cli_refuses_flags_not_ported(tmp_path, flag, item):
-    """The flags still to port; the others work (tests/test_torch_resume.py)."""
+    """The flag still to port; the others work (tests/test_torch_resume.py,
+    tests/test_torch_pretf.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         torch_cli.main(["burgers-train", "--train", str(tmp_path), *flag, "--device", "cpu"])
 

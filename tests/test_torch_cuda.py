@@ -292,6 +292,10 @@ CONV_BF16_SHAPES = CONV_SHAPES + [(3, 64, 32, 32, 32, 5), (3, 64, 32, 32, 2, 5),
                                   (2, 8, 8, 8, 16, 5), (1, 9, 24, 20, 17, 3),
                                   (1, 12, 20, 16, 9, 1), (2, 16, 16, 16, 64, 3),
                                   (1, 16, 24, 12, 20, 7)]
+# the fp32 kernels also at JupiterMoon's widths (burgers-pre-train --model
+# jupiter_moon): 32 -> 64, 64 -> 64 and 64 -> 32 at 5x5, 64 -> 64 at 3x3
+CONV_SHAPES = CONV_SHAPES + [(4, 32, 32, 32, 64, 5), (4, 32, 32, 64, 64, 5),
+                             (4, 32, 32, 64, 32, 5), (4, 32, 32, 64, 64, 3)]
 
 
 def _conv_inputs(device, shape, seed=0):

@@ -10,8 +10,8 @@ on the CPU.
   hidden weights), finite losses, and a model.msgpack that both packages'
   karman-apply load and roll out alike;
 * without `--device cpu` and without CUDA the CLI refuses to run, and the
-  flags that are not ported (--pretf, --dp) raise NotImplementedError naming
-  their ROADMAP.md item.
+  flag that is not ported (--dp) raises NotImplementedError naming its
+  ROADMAP.md item (--pretf: tests/test_torch_pretf.py).
 
 Tolerances: the dataset statistics are float64 sums of the same float32
 frames (1e-6); the first loss is a float32 unroll with CG at tol 1e-5 on both
@@ -130,10 +130,11 @@ def test_karman_train_cli_refuses_cpu_without_device_flag(tmp_path, monkeypatch)
     assert not (tmp_path / "tf").exists()
 
 
-@pytest.mark.parametrize("flag,item", [(["--pretf", "p.msgpack"], "A4"), (["--dp"], "A5")])
+@pytest.mark.parametrize("flag,item", [(["--dp"], "A3")])
 def test_karman_train_cli_flags_not_ported_raise(tmp_path, flag, item):
-    """The flags still to port (PRE's --pretf, data parallelism); the others
-    work (tests/test_torch_resume.py, tests/test_torch_bf16.py)."""
+    """The flag still to port (data parallelism); the others work
+    (tests/test_torch_resume.py, tests/test_torch_bf16.py,
+    tests/test_torch_pretf.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         torch_cli.main(["karman-train", *_train_args(tmp_path / "none", tmp_path / "tf"),
                         "--device", "cpu", *flag])

@@ -135,6 +135,23 @@ each printing one JSON line:
                   for 2 SOL-32 iterations on the train phase's set: the
                   adopted stats and slope, the launches; and the SOL-32 step
                   from that net against the JAX golden
+26. dp_single   — `karman-train --dp --conv kernel` without a launcher, a
+                  group of one over NCCL, 4 SOL-32 iterations between two
+                  runs without --dp:
+                  losses and model.msgpack bit for bit, launches, s/iteration
+27. dp_shared   — `python -m torch.distributed.run --nproc-per-node 2
+                  chip_smoke.py --dp-rank DIR`: two ranks on the one card over
+                  gloo run `karman-train --dp --conv kernel --init zero`
+                  (batch 3 padded to 4) and
+                  `burgers-train --dp --conv kernel` (batch 5 padded to 6)
+                  through the CLI entry point, 4 iterations each: each rank's
+                  launches, the losses and leaf norms against the runs
+                  without --dp
+28. spatial     — the same launcher with `--spatial-rank DIR`: the y-sharded
+                  karman step (parallel/spatial.py) on two ranks at 64x32
+                  and 256x128, batch 1, `--advect gather` and `shift`,
+                  against the unsharded step on the card, the tap-sum
+                  launches per rank, ms per step of both
 
 The kernels phase also checks the CG kernel's adjoint and the conv kernels
 (forward, input gradient and weight gradient) at the Burgers and karman shapes,
@@ -154,7 +171,12 @@ runs only the CG kernels' fixed-iteration timing, built from each DIR (see
 only the bf16 weight gradient's, at every CONV_BF16_GRAD_CASES shape beside
 cuDNN's, or with `fwd` the bf16 forward's at every CONV_BF16_CASES shape and
 as the input gradient at every CONV_BF16_GRAD_CASES shape, built from each
-DIR (see `conv_split`). """
+DIR (see `conv_split`).
+
+    python3 chip_smoke.py --dp-rank DIR | --spatial-rank DIR
+
+is one rank of the dp_shared or the spatial phase, which starts two of
+them under `torch.distributed.run`. """
 
 from __future__ import annotations
 
@@ -2732,6 +2754,300 @@ def phase_pretf(device):
         require(errs[key] <= tol, f"--pretf step {key} {errs[key]} > {tol}")
 
 
+DP_DIR = os.path.join(REPO, "build", "smoke_dp")
+DP_FRAMES = 34  # 6 sims / batch 3 x (34 - msteps 32) = 4 iterations
+DP_BURGERS_FRAMES = 6  # 10 sims / batch 5 x (6 - msteps 4) = 4 iterations
+# the padded batch on 2 ranks against the run without --dp, held to the
+# train parity's loss tolerance and every leaf's norm to its gradient one.
+# The karman runs of that comparison start from --init zero: from the train
+# phase's glorot draw (losses of 1e7) two runs without --dp, one at CG
+# tolerance 1e-5 and one at 1e-7, parted by 2e-3 at the fourth loss on the
+# card, and the --dp run (each rank's CG stopping on its own rows) by as much
+DP_LOSS_RTOL = 1e-4
+DP_LEAF_RTOL = 1e-3
+DP_SHARED_INIT = ["--init", "zero"]
+# a SOL-32 iteration's launches with --conv kernel, in every rank
+DP_KARMAN_PER_ITER = dict(tap_sum_fwd=192, tap_sum_bwd=62, pcg_solve=63, conv_fwd=767,
+                          conv_wgrad=384)
+SPATIAL_RES = (32, 128)  # 64x32 (SOL-32) and 256x128 (the hi-res set)
+SPATIAL_REL_TOL = 1e-4  # of each field's largest value: the sharded gather test's tolerance
+SPATIAL_STEPS = 3  # timed steps, after one warm-up step, of each configuration
+
+
+def dp_karman_argv(tf):
+    """The Makefile's SOL-32 command on the train phase's fixture, cut to
+    DP_FRAMES frames: 4 iterations at batch 3, the convs in the port's
+    kernels, which are deterministic (cuDNN's default algorithms are not:
+    two runs without --dp on the card parted at the fourth loss)."""
+    argv = ["karman-train", *[a if a != TRAIN_OUT else tf for a in train_argv()],
+            "--conv", "kernel"]
+    argv[argv.index("-t") + 1] = str(DP_FRAMES)
+    return argv
+
+
+def dp_burgers_argv(tf):
+    """The SOL-04 command with the conv kernels on the burgers_gen set, cut to
+    DP_BURGERS_FRAMES frames: 4 iterations at batch 5."""
+    argv = [a if a != BURGERS_TF else tf for a in burgers_train_argv()]
+    argv[argv.index("-t") + 1] = str(DP_BURGERS_FRAMES)
+    return argv
+
+
+def _leaves(tf):
+    from solver_in_the_loop_torch.train import checkpoint as ckpt
+
+    return ckpt._flatten(ckpt.read_msgpack(os.path.join(tf, "model.msgpack"))["params"]["params"])
+
+
+def _steady(result) -> float:
+    import numpy as np
+
+    return float(np.median(result.iter_seconds[1:]))
+
+
+def phase_dp_single():
+    """`karman-train --dp` without a launcher, a group of one over NCCL,
+    between two runs without --dp (4 SOL-32 iterations each, every launch
+    count set to 0 before each run): the same losses and model.msgpack, bit
+    for bit, the same launches, and the seconds per iteration of each."""
+    from solver_in_the_loop_torch import __main__ as cli
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    runs, launches = {}, {}
+    for name in ("plain", "dp", "plain_again"):
+        reset_launches()
+        runs[name] = cli.main([*dp_karman_argv(os.path.join(DP_DIR, name))]
+                              + (["--dp"] if name == "dp" else []))
+        launches[name] = read_launches()
+    leaves = {name: _leaves(os.path.join(DP_DIR, name)) for name in ("plain", "dp")}
+    equal = leaves["dp"].keys() == leaves["plain"].keys() and all(
+        leaves["dp"][k].tobytes() == leaves["plain"][k].tobytes() for k in leaves["plain"])
+    line = {"phase": "dp_single", "argv": dp_karman_argv("TF") + ["--dp"],
+            "reduced": {"iterations": "936 per epoch -> 4"}, "losses": runs["dp"].losses,
+            "losses_equal": runs["dp"].losses == runs["plain"].losses, "params_bit_equal": equal,
+            "launches": launches["dp"],
+            "sec_per_iter_median_after_first": {k: _steady(r) for k, r in runs.items()},
+            "sec_per_iter": {k: r.iter_seconds for k, r in runs.items()}}
+    emit(line)
+    require(len(runs["dp"].losses) == 4, f"{len(runs['dp'].losses)} --dp iterations, expected 4")
+    require(line["losses_equal"], "--dp as a group of one changed the losses")
+    require(equal, "--dp as a group of one changed model.msgpack")
+    require(launches["dp"] == launches["plain"] == {
+        k: 4 * v for k, v in counts(**DP_KARMAN_PER_ITER).items()},
+            f"--dp launches {launches['dp']}, without --dp {launches['plain']}")
+    return launches["dp"]
+
+
+def torchrun(mode: str, out: str, timeout: int = 600):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2
+    chip_smoke.py MODE OUT`: two ranks on the one card; returns each rank's
+    JSON from OUT."""
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           os.path.abspath(__file__), mode, out]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+    require(proc.returncode == 0, f"{mode} under torch.distributed.run exited {proc.returncode}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def dp_rank(out: str) -> int:
+    """One rank of `dp_shared`: karman-train --dp --init zero (4 SOL-32 iterations) and
+    burgers-train --dp --conv kernel (4 SOL-04 iterations) through the CLI
+    entry point in one process group, each rank's launch counts set to 0
+    before each run; writes OUT/rank{r}.json."""
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.data_parallel_mesh("cuda")
+    try:
+        line = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+                "device": str(mesh.device)}
+        for name, argv in (("karman", dp_karman_argv(os.path.join(out, "karman_tf"))
+                            + DP_SHARED_INIT),
+                           ("burgers", dp_burgers_argv(os.path.join(out, "burgers_tf")))):
+            reset_launches()
+            result = cli.main(argv + ["--dp"])
+            line[name] = {"losses": result.losses, "iter_seconds": result.iter_seconds,
+                          "launches": read_launches()}
+        with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(line, f)
+    finally:
+        mesh.close()
+    return 0
+
+
+def phase_dp_shared():
+    """`karman-train --dp --conv kernel --init zero` and `burgers-train --dp
+    --conv kernel` on two ranks time-sliced on the one card (gloo): batch 3
+    padded to 4, batch 5 to 6. Each rank's launches; rank 0's losses and
+    its model.msgpack's leaf norms against the same runs without --dp, at
+    DP_LOSS_RTOL and DP_LEAF_RTOL; every rank's losses the same."""
+    import numpy as np
+
+    from solver_in_the_loop_torch import __main__ as cli
+
+    out = os.path.join(DP_DIR, "shared")
+    plain_tf = {"karman": os.path.join(DP_DIR, "karman_plain"),
+                "burgers": os.path.join(DP_DIR, "burgers_plain")}
+    plain = {}
+    for name, argv in (("karman", dp_karman_argv(plain_tf["karman"]) + DP_SHARED_INIT),
+                       ("burgers", dp_burgers_argv(plain_tf["burgers"]))):
+        shutil.rmtree(plain_tf[name], ignore_errors=True)
+        plain[name] = cli.main(argv)
+    t0 = time.perf_counter()
+    ranks = torchrun("--dp-rank", out)
+    seconds = time.perf_counter() - t0
+    line = {"phase": "dp_shared", "note": "two ranks time-sliced on one card over gloo: a "
+            "correctness run, not a scaling figure", "torchrun_seconds": seconds,
+            "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks]}
+    for name in ("karman", "burgers"):
+        got, want = ranks[0][name]["losses"], plain[name].losses
+        leaves = _leaves(os.path.join(out, f"{name}_tf")), _leaves(plain_tf[name])
+        leaf_err = max(abs(float(np.linalg.norm(leaves[0][k])) / float(np.linalg.norm(v)) - 1.0)
+                       for k, v in leaves[1].items())
+        line[name] = {"losses": got, "losses_without_dp": want,
+                      "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+                      "leaf_norm_rel_err": leaf_err,
+                      "launches_by_rank": [r[name]["launches"] for r in ranks],
+                      "sec_per_iter_median_after_first": float(np.median(
+                          ranks[0][name]["iter_seconds"][1:])),
+                      "sec_per_iter_without_dp": _steady(plain[name])}
+    emit(line)
+    for name, per_iter in (("karman", counts(**DP_KARMAN_PER_ITER)),
+                           ("burgers", counts(tap_sum_fwd=16, tap_sum_bwd=6, conv_fwd=95,
+                                              conv_wgrad=48))):
+        require(ranks[0]["size"] == 2 and ranks[0]["backend"] == "gloo", f"the group {ranks[0]}")
+        require(ranks[1][name]["losses"] == ranks[0][name]["losses"],
+                f"{name}: the ranks logged other losses")
+        require(len(ranks[0][name]["losses"]) == 4, f"{name}: not 4 iterations")
+        require(line[name]["loss_rel_err"] <= DP_LOSS_RTOL,
+                f"{name}: --dp losses {line[name]['loss_rel_err']} from the run without it")
+        require(line[name]["leaf_norm_rel_err"] <= DP_LEAF_RTOL,
+                f"{name}: --dp leaf norms {line[name]['leaf_norm_rel_err']} from the run without it")
+        for r in ranks:
+            require(r[name]["launches"] == {k: 4 * v for k, v in per_iter.items()},
+                    f"{name} rank {r['rank']} launches {r[name]['launches']}")
+    return [{**ranks[r]["karman"]["launches"]} for r in range(2)], \
+        [{**ranks[r]["burgers"]["launches"]} for r in range(2)]
+
+
+def _moving_state(res, device):
+    """The karman initial state at res, perturbed from a seed: density, u
+    and v with room to move."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch.physics import karman
+
+    dom = karman.karman_domain(res)
+    d0, v0 = karman.initial_state(dom, 1)
+    rng = np.random.RandomState(res)
+    noise = [rng.rand(*d0.values.shape), rng.randn(*v0.u.shape), rng.randn(*v0.v.shape)]
+    fields = [d0.values + 0.5 * torch.from_numpy(noise[0]).float(),
+              v0.u + 0.3 * torch.from_numpy(noise[1]).float(),
+              v0.v + 0.3 * torch.from_numpy(noise[2]).float()]
+    return dom, [f.to(device) for f in fields]
+
+
+def spatial_rank(out: str) -> int:
+    """One rank of `spatial`: the y-sharded karman step on 2 ranks on the one
+    card at 64x32 and 256x128, batch 1, both advection modes, from a
+    perturbed state; rank 0 also runs the unsharded step on the card. The
+    tap-sum launches of the sharded steps are counted per rank."""
+    import torch
+
+    from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+    from solver_in_the_loop_torch.parallel import spatial
+    from solver_in_the_loop_torch.physics import karman
+
+    mesh = spatial.spatial_mesh("cuda")
+    re = torch.tensor([1.6e5], device=mesh.device)
+    line = {"rank": mesh.rank, "backend": mesh.backend, "cases": []}
+    try:
+        for res in SPATIAL_RES:
+            dom, full = _moving_state(res, mesh.device)
+            for advection in ("gather", "shift"):
+                flow = karman.KarmanFlow(dom, advection=advection, max_shift=2, pressure_tol=1e-6,
+                                         pressure_max_iter=1000, device=mesh.device)
+                step = spatial.make_sharded_step_y(flow, mesh)
+                blocks = spatial.shard_staggered_y(mesh, *full)
+                step(*blocks, re)  # warm-up
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SPATIAL_STEPS):
+                    got = step(*blocks, re)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0) / SPATIAL_STEPS
+                case = {"res": [dom.ny, dom.nx], "advection": advection,
+                        "launches": {k: v / SPATIAL_STEPS for k, v in read_launches().items()},
+                        "ms_per_step_sharded": ms}
+                whole = [spatial.gather_y(mesh, a, n)
+                         for a, n in zip(got, (dom.ny, dom.ny, dom.ny + 1))]
+                if mesh.rank == 0:
+                    def plain():
+                        d, vel, _, _ = flow.step(CenteredGrid(full[0], dom),
+                                                 StaggeredGrid(full[1], full[2], dom), re)
+                        return d.values, vel.u, vel.v
+
+                    plain()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(SPATIAL_STEPS):
+                        want = plain()
+                    torch.cuda.synchronize()
+                    case["ms_per_step_unsharded"] = 1e3 * (time.perf_counter() - t0) / SPATIAL_STEPS
+                    case["route_unsharded"] = flow.pressure_route(1)
+                    case["max_abs_err_rel"] = {
+                        k: float((a - b).abs().max() / b.abs().max())
+                        for k, a, b in zip(("dens", "u", "v"), whole, want)}
+                    div = ((whole[1][:, :, 1:] - whole[1][:, :, :-1])
+                           + (whole[2][:, 1:] - whole[2][:, :-1])) * flow.masks.fluid
+                    case["max_fluid_divergence"] = float(div.abs().max())
+                    case["finite"] = bool(all(torch.isfinite(a).all() for a in whole))
+                line["cases"].append(case)
+        with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(line, f)
+    finally:
+        mesh.close()
+    return 0
+
+
+def phase_spatial():
+    """The y-sharded karman step (parallel/spatial.py) on two ranks
+    time-sliced on the one card over gloo, against the unsharded step on the
+    card: each field within SPATIAL_REL_TOL of its largest value, the fluid
+    divergence under 1e-3, 3 tap-sums a `shift` step in each rank."""
+    t0 = time.perf_counter()
+    ranks = torchrun("--spatial-rank", os.path.join(DP_DIR, "spatial"))
+    line = {"phase": "spatial", "note": "two ranks time-sliced on one card over gloo, the rows "
+            "moved through host memory: a correctness run, not a scaling figure",
+            "torchrun_seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+            "cases": ranks[0]["cases"],
+            "launches_by_rank": [[c["launches"] for c in r["cases"]] for r in ranks]}
+    emit(line)
+    for case in ranks[0]["cases"]:
+        what = f"spatial {case['res']} {case['advection']}"
+        require(case["finite"], f"{what}: a field is not finite")
+        for k, err in case["max_abs_err_rel"].items():
+            require(err <= SPATIAL_REL_TOL, f"{what}: {k} {err} from the unsharded step")
+        require(case["max_fluid_divergence"] < 1e-3, f"{what}: divergence "
+                f"{case['max_fluid_divergence']}")
+    for r in ranks:
+        for case in r["cases"]:
+            want = counts(tap_sum_fwd=3) if case["advection"] == "shift" else counts()
+            require(case["launches"] == want, f"rank {r['rank']} {case['res']} "
+                    f"{case['advection']}: launches {case['launches']} a step")
+    return [[c["launches"] for c in r["cases"]] for r in ranks]
+
+
 def cg_split(specs) -> int:
     """`python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]`: only the
     fixed-iteration timing of both CG kernels (fixed_iter_cases), built from
@@ -2904,6 +3220,10 @@ def main() -> int:
         return cg_split(sys.argv[2:])
     if sys.argv[1:2] == ["--conv-split"]:
         return conv_split(sys.argv[2:])
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        return spatial_rank(sys.argv[2])
     device = torch.device("cuda", 0)
     seconds = {}
 
@@ -2944,6 +3264,9 @@ def main() -> int:
     pre_train_launches = timed("pre_train", phase_pre_train)
     pre_apply_launches, jupiter_apply_launches = timed("pre_apply", phase_pre_apply)
     timed("pretf", phase_pretf, device)
+    dp_single_launches = timed("dp_single", phase_dp_single)
+    dp_karman_launches, dp_burgers_launches = timed("dp_shared", phase_dp_shared)
+    spatial_launches = timed("spatial", phase_spatial)
     emit({"phase": "seconds", **seconds})
 
     def at(name, shape, **match):
@@ -2998,7 +3321,14 @@ def main() -> int:
                               "karman_pre_train": pre_train_launches["karman"][name],
                               "burgers_pre_train_jupiter": pre_train_launches["burgers"][name],
                               "karman_pre_apply_b1": pre_apply_launches[name],
-                              "burgers_pre_apply_jupiter": jupiter_apply_launches[name]},
+                              "burgers_pre_apply_jupiter": jupiter_apply_launches[name],
+                              "karman_train_dp_single": dp_single_launches[name],
+                              **{f"karman_train_dp_rank{r}": dp_karman_launches[r][name]
+                                 for r in range(2)},
+                              **{f"burgers_train_dp_rank{r}": dp_burgers_launches[r][name]
+                                 for r in range(2)},
+                              **{f"spatial_step_rank{r}": [c[name] for c in spatial_launches[r]]
+                                 for r in range(2)}},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -1,7 +1,7 @@
 """solver_in_the_loop_torch — the PyTorch + CUDA port of solver_in_the_loop_tpu.
 
-The port runs every command of the JAX package's CLI but the data-parallel
-`--dp` (the karman and Burgers data generation, training, serving and
+The port runs every command of the JAX package's CLI (the karman and Burgers
+data generation, training with `--dp` among its flags, serving and
 evaluation, and the PRE workflow) on an NVIDIA H100, with the TPU kernels of those paths
 rewritten by hand in CUDA C++ for Hopper (`csrc/`, bound in `kernels/`): the
 advection tap-sum forward and backward, the fused FD-preconditioned CG (also
@@ -22,6 +22,8 @@ Layer map:
   models    — features and the correction networks (MarsMoon, Mercury, JupiterMoon)
   pre       — the PRE correction solve (constrained least squares, matrix-free CG)
   train     — flax msgpack checkpoints, recurrent rollouts, datasets, trainer
+  parallel  — process groups, data parallelism (`--dp`) and the y-sharded
+              karman step over torch.distributed
   io        — Scene npz I/O in the reference's legacy on-disk layout
   utils     — data statistics, metrics writer, logging
   apps      — the karman and Burgers CLIs, SOL and PRE

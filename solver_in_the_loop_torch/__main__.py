@@ -6,7 +6,12 @@ Every command of `python -m solver_in_the_loop_tpu`, with its flags: the
 karman and Burgers data generation, training, serving and evaluation paths
 and the PRE workflow (data generation, supervised training and rollouts).
 `karman-pre-train` and `burgers-pre-train` run the same module with the
-scenario the command names.
+scenario the command names. `karman-train --dp` and `burgers-train --dp`
+train data-parallel over the ranks that
+
+    python -m torch.distributed.run --nproc-per-node N -m solver_in_the_loop_torch ...
+
+starts (one process, a group of one, without the launcher).
 """
 
 from __future__ import annotations

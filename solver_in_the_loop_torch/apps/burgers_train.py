@@ -14,8 +14,10 @@ parameters and the optimizer state) after the first epoch and every 10
 epochs, and model.msgpack at the end, in the JAX package's format. The
 flags --resume, --inittf, --pretf, --bf16, --profile and --debug-nans work
 as karman-train's (a --pretf net's in.std and out.std become the features'
-and output's scales, their first two channels without the force); flags of the JAX CLI that this port does not implement yet
-raise NotImplementedError naming their ROADMAP.md item, as karman-train's do.
+and output's scales, their first two channels without the force), and so
+does `--dp`: the batch sharded over the ranks of a process group, started
+by `python -m torch.distributed.run --nproc-per-node N -m
+solver_in_the_loop_torch burgers-train --dp ...`.
 """
 
 from __future__ import annotations
@@ -27,8 +29,13 @@ import tempfile
 
 import torch
 
-from solver_in_the_loop_torch.apps.karman_apply import resolve_device
-from solver_in_the_loop_torch.apps.karman_train import prepare, refuse_not_ported, train
+from solver_in_the_loop_torch.apps.karman_train import (
+    is_main,
+    load_on_ranks,
+    prepare,
+    run_context,
+    train,
+)
 from solver_in_the_loop_torch.models.features import Normalization
 from solver_in_the_loop_torch.models.networks import CONV_IMPLS
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow, burgers_domain
@@ -83,7 +90,9 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--leaky-alpha", type=float, default=0.3,
                    help="LeakyReLU negative slope (Keras default 0.3)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
-    p.add_argument("--dp", action="store_true")
+    p.add_argument("--dp", action="store_true",
+                   help="shard the batch over the ranks of the process group "
+                        "(python -m torch.distributed.run starts them)")
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler trace of one step to this dir")
     p.add_argument("--debug-nans", action="store_true",
@@ -99,16 +108,20 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
 def run(args):
     """Train and write the checkpoints; returns the TrainResult (None with
     --only-ds)."""
-    refuse_not_ported(args)
-    device = resolve_device(args.device)
-    setup_logging(args.log, args.resume)
+    with run_context(args) as (device, mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
+    setup_logging(args.log if is_main(mesh) else None, args.resume)
     if args.nsims % args.sbatch != 0:
         args.nsims = (args.nsims // args.sbatch) * args.sbatch
         log.info("nsims adjusted to %d (batch size divisibility)", args.nsims)
     log.info("params: %s", vars(args))
 
-    data_np = load_burgers_dataset(args.train, num_frames=args.simsteps, num_sims=args.nsims,
-                                   scale=args.scale, skip_preprocessing=args.skip_ds)
+    data_np = load_on_ranks(mesh, lambda skip: load_burgers_dataset(
+        args.train, num_frames=args.simsteps, num_sims=args.nsims, scale=args.scale,
+        skip_preprocessing=skip), args.skip_ds)
     if args.only_ds:
         return None
 
@@ -145,12 +158,12 @@ def run(args):
         clip_grad=args.clip_grad, remat=not args.no_remat, remat_policy=args.remat_policy,
         warmup_epochs=args.warmup_epochs, debug_nans=args.debug_nans)
     stats["leaky_alpha"] = args.leaky_alpha  # the apply CLIs rebuild the net with it
-    model, optimizer = prepare(args, stats, device, 4 if use_force else 2, cfg)
+    model, optimizer = prepare(args, stats, device, 4 if use_force else 2, cfg, mesh)
     train_step = make_burgers_train_step(flow, model, optimizer, cfg, dt=args.dt,
                                          use_force=use_force)
     # Burgers also keeps epoch 1
     return train(args, train_step, optimizer, model, data_np.to_device(device), norm, cfg,
-                 lambda epoch: epoch == 0 or epoch % 10 == 9)
+                 lambda epoch: epoch == 0 or epoch % 10 == 9, mesh)
 
 
 def main(argv=None):

@@ -24,28 +24,40 @@ raises FloatingPointError at the first NaN (train/trainer.py); `--reg-loss`
 is accepted and changes nothing (the reference's regularization list is
 empty); `--pretf PATH` starts from a PRE net's parameters (karman-pre-train's
 model.msgpack) and adopts its stats.json's in.std and out.std and LeakyReLU
-slope (train/checkpoint.py adopt_pretf_stats). Flags of the JAX CLI that
-this port does not implement yet (NOT_PORTED) raise NotImplementedError
-naming their ROADMAP.md item.
+slope (train/checkpoint.py adopt_pretf_stats).
+
+`--dp` trains data-parallel, as the JAX CLI does over its devices, over the
+ranks of a process group (parallel/mesh.py): under
+`python -m torch.distributed.run --nproc-per-node N -m solver_in_the_loop_torch
+karman-train --dp ...` each of N ranks runs its rows of every batch, a batch
+the ranks do not divide padded with zero-weighted rows, and the gradients
+are summed over the ranks before the clip, the guard and Adam; without the
+launcher the process is a group of one. Every rank starts from rank 0's
+parameters and optimizer state, and only rank 0 writes dataStats.json, the
+checkpoints, the metrics, the log file and the --profile trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 from solver_in_the_loop_torch.apps.karman_apply import add_pressure_precon, resolve_device
 from solver_in_the_loop_torch.models.features import Normalization
 from solver_in_the_loop_torch.models.networks import CONV_IMPLS, build_model
+from solver_in_the_loop_torch.parallel import mesh as pmesh
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
 from solver_in_the_loop_torch.train import checkpoint as ckpt
 from solver_in_the_loop_torch.train.dataset import EpochSchedule, load_karman_dataset
 from solver_in_the_loop_torch.train.trainer import (
     SolTrainConfig,
+    local_batch,
     make_karman_train_step,
     make_optimizer,
     run_training,
@@ -54,13 +66,6 @@ from solver_in_the_loop_torch.utils import profiling
 from solver_in_the_loop_torch.utils.metrics import MetricsWriter, setup_logging
 
 log = logging.getLogger(__name__)
-
-# flags of the JAX CLI left out of this port, with the ROADMAP.md item that
-# ports them; each raises NotImplementedError when given
-NOT_PORTED = {
-    "dp": "A3 (parallelism)",
-}
-
 
 def build_parser(parser=None) -> argparse.ArgumentParser:
     p = parser or argparse.ArgumentParser("karman-train")
@@ -105,7 +110,9 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     p.add_argument("--leaky-alpha", type=float, default=0.3,
                    help="LeakyReLU negative slope (Keras default 0.3)")
     p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
-    p.add_argument("--dp", action="store_true")
+    p.add_argument("--dp", action="store_true",
+                   help="shard the batch over the ranks of the process group "
+                        "(python -m torch.distributed.run starts them)")
     p.add_argument("--ptol", type=float, default=1e-5, help="pressure CG tolerance")
     p.add_argument("--pmaxiter", type=int, default=1000, help="pressure CG max iterations")
     p.add_argument("--profile", default=None,
@@ -121,28 +128,64 @@ def build_parser(parser=None) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_not_ported(args) -> None:
-    """Raise NotImplementedError for a NOT_PORTED flag that is given (a
-    parser without the flag gives none)."""
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to the PyTorch trainer yet "
-                f"(ROADMAP.md {item})")
+@contextlib.contextmanager
+def run_context(args):
+    """The device both trainers run on and, with --dp, this rank's place in
+    the data-parallel group (parallel/mesh.py `data_parallel_mesh`), which
+    is closed when the run ends; yields (device, mesh or None)."""
+    device = resolve_device(args.device)
+    mesh = pmesh.data_parallel_mesh(args.device) if args.dp else None
+    try:
+        yield (device if mesh is None else mesh.device), mesh
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
-def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig):
+def is_main(mesh) -> bool:
+    """Whether this process writes files: rank 0, or the only process."""
+    return mesh is None or mesh.is_main
+
+
+def load_on_ranks(mesh, load, skip_ds: bool):
+    """`load(skip_preprocessing)`; data-parallel, rank 0 first, which writes
+    the downsampled ds_ cache that the other ranks then read."""
+    if mesh is None:
+        return load(skip_ds)
+    data = load(skip_ds) if mesh.is_main else None
+    mesh.barrier()
+    return data if mesh.is_main else load(True)
+
+
+def dp_padding(mesh, sbatch: int):
+    """The JAX CLI's `pad_batch_to` for a batch the ranks do not divide
+    (None when they do, or without --dp), with its log line."""
+    if mesh is None:
+        return None
+    if sbatch % mesh.size == 0:
+        log.info("data-parallel over %d devices", mesh.size)
+        return None
+    pad = -(-sbatch // mesh.size) * mesh.size
+    log.info("data-parallel over %d devices: batch %d padded to %d with zero-weighted rows "
+             "(gradients exact, %d rows of compute wasted); for full efficiency pick a batch "
+             "size divisible by %d", mesh.size, sbatch, pad, pad - sbatch, mesh.size)
+    return pad
+
+
+def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig, mesh=None):
     """What both trainers do between the data and the epoch loop, as the JAX
     CLIs do it: the net (bf16 compute with --bf16) and its optimizer, the
     parameters from --pretf, then from --inittf, the parameters and optimizer state of epoch
-    --resume (else dataStats.json written); returns (model, optimizer)."""
+    --resume (else dataStats.json written by the main rank); data-parallel,
+    rank 0's parameters and Adam moments broadcast to every rank (JAX's
+    `replicate`); returns (model, optimizer)."""
     model = build_model(args.model, in_channels=in_channels, leaky_slope=args.leaky_alpha,
                         init=args.init, generator=torch.Generator().manual_seed(args.seed),
                         conv=args.conv,
                         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     log.info("model %s: %d params, conv %s, compute %s", args.model, ckpt.param_count(model),
              args.conv, "bfloat16" if args.bf16 else "float32")
-    optimizer = make_optimizer(model, cfg)
+    optimizer = make_optimizer(model, cfg, mesh)
     if getattr(args, "reg_loss", False):
         log.info("--reg-loss: no regularization terms (the reference's list is empty)")
     if args.pretf:
@@ -156,36 +199,47 @@ def prepare(args, stats: dict, device, in_channels: int, cfg: SolTrainConfig):
             log.warning("epoch %d's checkpoint holds no optimizer state; Adam starts afresh",
                         args.resume)
         log.info("resumed from epoch %d", args.resume)
-    else:
+    elif is_main(mesh):
         ckpt.save_stats(args.tf, stats)
+    if mesh is not None:
+        moments = [t for p in optimizer.params
+                   for k, t in sorted(optimizer.adam.state.get(p, {}).items()) if k != "step"]
+        pmesh.replicate([*model.parameters(), *model.buffers(), *moments], mesh)
     return model, optimizer
 
 
-def train(args, train_step, optimizer, model, data, norm, cfg, keep_epoch):
+def train(args, train_step, optimizer, model, data, norm, cfg, keep_epoch, mesh=None):
     """--profile's traced step, the epoch loop with an epoch checkpoint after
-    every epoch `keep_epoch` names, and the final model.msgpack; returns the
+    every epoch `keep_epoch` names, and the final model.msgpack (data-parallel:
+    every rank trains, the main rank traces and writes); returns the
     TrainResult."""
+    main = is_main(mesh)
+    pad_batch_to = dp_padding(mesh, args.sbatch)
     if args.profile:
         # one step on the pairs (0, 0), which draws nothing from the
         # schedule; its update is kept, as the JAX CLIs keep it
-        idx0 = torch.zeros((args.sbatch, 2), dtype=torch.int64, device=data["u"].device)
-        with profiling.trace(args.profile):
-            train_step(data, norm, idx0)
-        log.info("profiler trace written to %s", args.profile)
+        idx0, wgt0 = local_batch(np.zeros((args.sbatch, 2), np.int64), mesh, pad_batch_to,
+                                 data["u"].device)
+        with profiling.trace(args.profile) if main else contextlib.nullcontext():
+            train_step(data, norm, idx0, wgt0)
+        if main:
+            log.info("profiler trace written to %s", args.profile)
     schedule = EpochSchedule(args.nsims, args.simsteps, args.sbatch, seed=args.seed)
-    writer = MetricsWriter(args.tf)
+    writer = MetricsWriter(args.tf) if main else None
 
     def on_epoch_end(epoch):
-        if keep_epoch(epoch):
+        if main and keep_epoch(epoch):
             ckpt.save_checkpoint(args.tf, model, args.model, optimizer, epoch=epoch + 1)
 
     try:
         result = run_training(train_step, optimizer, data, norm, schedule, cfg,
                               start_epoch=max(args.resume, 0), on_epoch_end=on_epoch_end,
-                              metrics_writer=writer)
+                              metrics_writer=writer, mesh=mesh, pad_batch_to=pad_batch_to)
     finally:
-        writer.close()
-    ckpt.save_checkpoint(args.tf, model, args.model)
+        if writer is not None:
+            writer.close()
+    if main:
+        ckpt.save_checkpoint(args.tf, model, args.model)
     if result.losses:
         log.info("final loss %.6f; %.4f sec/iter (best epoch), %.4f (median epoch); "
                  "%d non-finite update(s) skipped", result.losses[-1], result.sec_per_iter,
@@ -196,16 +250,20 @@ def train(args, train_step, optimizer, model, data, norm, cfg, keep_epoch):
 def run(args):
     """Train and write the checkpoints; returns the TrainResult (None with
     --only-ds)."""
-    refuse_not_ported(args)
-    device = resolve_device(args.device)
-    setup_logging(args.log, args.resume)
+    with run_context(args) as (device, mesh):
+        return _run(args, device, mesh)
+
+
+def _run(args, device, mesh):
+    setup_logging(args.log if is_main(mesh) else None, args.resume)
     if args.nsims % args.sbatch != 0:
         args.nsims = (args.nsims // args.sbatch) * args.sbatch
         log.info("nsims adjusted to %d (batch size divisibility)", args.nsims)
     log.info("params: %s", vars(args))
 
-    data_np = load_karman_dataset(args.train, num_frames=args.simsteps, num_sims=args.nsims,
-                                  scale=args.scale, skip_preprocessing=args.skip_ds)
+    data_np = load_on_ranks(mesh, lambda skip: load_karman_dataset(
+        args.train, num_frames=args.simsteps, num_sims=args.nsims, scale=args.scale,
+        skip_preprocessing=skip), args.skip_ds)
     if args.only_ds:
         return None
 
@@ -242,10 +300,10 @@ def run(args):
         clip_grad=args.clip_grad, remat=not args.no_remat, remat_policy=args.remat_policy,
         warmup_epochs=args.warmup_epochs, debug_nans=args.debug_nans)
     stats["leaky_alpha"] = args.leaky_alpha  # the apply CLIs rebuild the net with it
-    model, optimizer = prepare(args, stats, device, 3, cfg)
+    model, optimizer = prepare(args, stats, device, 3, cfg, mesh)
     train_step = make_karman_train_step(flow, model, optimizer, cfg)
     return train(args, train_step, optimizer, model, data_np.to_device(device), norm, cfg,
-                 lambda epoch: epoch % 10 == 9)
+                 lambda epoch: epoch % 10 == 9, mesh)
 
 
 def main(argv=None):

@@ -148,10 +148,13 @@ def cg_solve_info(matvec: Callable, b: torch.Tensor, tol: float, max_iter: int,
 
 
 def pcg_solve_info(matvec: Callable, minv: Callable, b: torch.Tensor, tol: float,
-                   max_iter: int, x0: Optional[torch.Tensor] = None):
+                   max_iter: int, x0: Optional[torch.Tensor] = None,
+                   dot: Callable = batch_dot):
     """Preconditioned CG; stops when every batch element's true residual r.r
-    is at most tol^2 * max(b.b, 1e-30), or at max_iter. Returns (x, iterations)."""
-    b_norm_sq = batch_dot(b, b)
+    is at most tol^2 * max(b.b, 1e-30), or at max_iter. `dot` is the
+    per-element inner product (parallel/spatial.py passes one summed over
+    the ranks that hold the field's rows). Returns (x, iterations)."""
+    b_norm_sq = dot(b, b)
     thresh = (tol * tol) * torch.clamp_min(b_norm_sq, 1e-30)
     if x0 is None:
         x = torch.zeros_like(b)
@@ -160,23 +163,23 @@ def pcg_solve_info(matvec: Callable, minv: Callable, b: torch.Tensor, tol: float
     else:
         x = x0
         r = b - matvec(x0)
-        rs = batch_dot(r, r)
+        rs = dot(r, r)
     z = minv(r)
     p = z
-    rz = batch_dot(r, z)
+    rz = dot(r, z)
     i = 0
     while i < max_iter and bool((rs > thresh).any().item()):
         ap = matvec(p)
-        p_ap = batch_dot(p, ap)
+        p_ap = dot(p, ap)
         alpha = torch.where(p_ap == 0, 0.0, rz / torch.where(p_ap == 0, 1.0, p_ap))
         x = x + alpha * p
         r = r - alpha * ap
         z = minv(r)
-        rz_new = batch_dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz == 0, 1.0, rz)
         p = z + beta * p
         rz = rz_new
-        rs = batch_dot(r, r)
+        rs = dot(r, r)
         i += 1
     return x, i
 

@@ -23,6 +23,14 @@ What differs from the JAX package, and why:
   `set_learning_rate` does.
 * The non-finite test reads one flag from the device per iteration, which
   is also where the loop synchronizes to time the iteration.
+* Data parallelism (`mesh`, the CLIs' --dp) is explicit where XLA's
+  partitioner inserts it: each rank runs the unroll on its rows of the
+  (padded) batch, and `GuardedAdam.step` sums the gradients over the ranks
+  in one all-reduce before the clip and the guard, so that every rank
+  clips, guards and updates alike with the gradient of the global loss
+  (JAX's loss is a sum over the global batch, and the psum adds the shards:
+  a sum, not DistributedDataParallel's mean). The logged losses are
+  summed too.
 * `debug_nans` (the CLIs' --debug-nans, the JAX package's jax_debug_nans)
   raises FloatingPointError at the first NaN: each unrolled step's state
   and loss are checked as they are made, and the backward pass runs under
@@ -54,6 +62,7 @@ from solver_in_the_loop_torch.models.features import (
     correction_to_staggered,
     karman_features,
 )
+from solver_in_the_loop_torch.parallel import mesh as pmesh
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
 from solver_in_the_loop_torch.train.dataset import EpochSchedule
@@ -123,10 +132,15 @@ class GuardedAdam:
     `notfinite_count` counts the non-finite gradients in a row,
     `last_finite` says whether the last one was finite and `total_notfinite`
     counts every non-finite gradient, applied or not: optax's three counters,
-    which an epoch checkpoint keeps (train/checkpoint.py)."""
+    which an epoch checkpoint keeps (train/checkpoint.py).
 
-    def __init__(self, params, cfg: SolTrainConfig):
+    With a `mesh` of the data-parallel group, `step` first sums the
+    gradients over its ranks (parallel/mesh.py `all_reduce_sum`), so the
+    clip and the guard act on the reduced gradient and agree on every rank."""
+
+    def __init__(self, params, cfg: SolTrainConfig, mesh: Optional[pmesh.Mesh] = None):
         self.params = list(params)
+        self.mesh = mesh
         self.adam = torch.optim.Adam(self.params, lr=cfg.lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self.clip = CLIP_NORM if cfg.clip_grad else None
         self.notfinite_count = 0
@@ -143,6 +157,8 @@ class GuardedAdam:
     def step(self) -> bool:
         """Update from the parameters' .grad; returns whether it applied."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if self.mesh is not None:
+            grads = pmesh.all_reduce_sum(grads, self.mesh)
         finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         self.last_finite = finite
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
@@ -157,8 +173,9 @@ class GuardedAdam:
         return True
 
 
-def make_optimizer(model: nn.Module, cfg: SolTrainConfig) -> GuardedAdam:
-    return GuardedAdam(model.parameters(), cfg)
+def make_optimizer(model: nn.Module, cfg: SolTrainConfig,
+                   mesh: Optional[pmesh.Mesh] = None) -> GuardedAdam:
+    return GuardedAdam(model.parameters(), cfg, mesh)
 
 
 REMAT_SAVES = {
@@ -365,10 +382,25 @@ class TrainResult:
     cg_iters: list = dataclasses.field(default_factory=list)  # forward CG iterations per step (karman)
 
 
+def local_batch(idx: np.ndarray, mesh: Optional[pmesh.Mesh], pad_batch_to: Optional[int],
+                device):
+    """An iteration's (B, 2) index rows as this rank runs them: padded to
+    `pad_batch_to` with zero-weighted copies of row 0 (parallel/mesh.py
+    `padded_batch`), then its rows of them (`batch_rows`); without a mesh
+    all of them. Returns (idx, weights or None) on `device`."""
+    idx, wgt = pmesh.padded_batch(idx, pad_batch_to)
+    if mesh is not None:
+        rows = pmesh.batch_rows(mesh, idx.shape[0])
+        idx, wgt = idx[rows], (None if wgt is None else wgt[rows])
+    idx = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(device, non_blocking=True)
+    return idx, (None if wgt is None else torch.from_numpy(wgt).to(device))
+
+
 def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tensor],
                  norm: Normalization, schedule: EpochSchedule, cfg: SolTrainConfig,
                  start_epoch: int = 0, on_epoch_end: Optional[Callable] = None,
-                 metrics_writer=None) -> TrainResult:
+                 metrics_writer=None, mesh: Optional[pmesh.Mesh] = None,
+                 pad_batch_to: Optional[int] = None) -> TrainResult:
     """Epoch loop of solver_in_the_loop_tpu/train/trainer.py `run_training`
     (reference karman_train.py:483-514): the epoch's learning rate (the
     --adplr schedule, times WARMUP_LR_SCALE in warm-up epochs), one train step
@@ -379,13 +411,20 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
     A resumed run (`start_epoch` N > 0) skips epochs 0..N-1 as the JAX loop
     does: each still draws its shuffle, so the data order stays that of an
     uninterrupted run, and advances the metrics' step; the --adplr schedule
-    is not stepped for them (the reference's own behaviour, kept)."""
+    is not stepped for them (the reference's own behaviour, kept).
+
+    Data-parallel (`mesh`): every rank draws the same schedule and runs its
+    rows of each iteration's batch, padded to `pad_batch_to` as the JAX loop
+    pads it (`local_batch`); the loss and the per-step losses are summed over
+    the ranks, so every rank logs and returns the global loss. The forward
+    CG iterations are this rank's. Only a rank given a metrics writer
+    writes."""
     device = data["u"].device
     current_lr = cfg.lr
     losses, iter_seconds, epoch_means, cg_iters = [], [], [], []
     global_step = 0
     for epoch in range(cfg.epochs):
-        idx_epoch = torch.from_numpy(schedule.epoch_indices(cfg.msteps).astype(np.int64))
+        idx_epoch = schedule.epoch_indices(cfg.msteps)
         if epoch < start_epoch:
             global_step += idx_epoch.shape[0]
             continue
@@ -394,8 +433,11 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
         optimizer.set_learning_rate(eff_lr)
         t_epoch = t_prev = time.perf_counter()
         for it in range(idx_epoch.shape[0]):
-            idx = idx_epoch[it].to(device, non_blocking=True)
-            loss, step_losses, iters, _ = train_step(data, norm, idx)
+            idx, wgt = local_batch(idx_epoch[it], mesh, pad_batch_to, device)
+            batch = (idx,) if wgt is None else (idx, wgt)
+            loss, step_losses, iters, _ = train_step(data, norm, *batch)
+            if mesh is not None:
+                loss, step_losses = pmesh.all_reduce_sum([loss, step_losses], mesh)
             loss_f = float(loss)
             now = time.perf_counter()
             iter_seconds.append(now - t_prev)

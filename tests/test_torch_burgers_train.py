@@ -26,6 +26,8 @@ from solver_in_the_loop_tpu.models.networks import build_model as jax_build_mode
 from solver_in_the_loop_tpu.physics import burgers as jb
 from solver_in_the_loop_tpu.train import trainer as jtrainer
 
+import torch_dist_ranks as ranks
+
 from solver_in_the_loop_torch import __main__ as torch_cli
 from solver_in_the_loop_torch import parity
 from solver_in_the_loop_torch.kernels import conv as kconv
@@ -190,12 +192,26 @@ def test_train_cli_end_to_end(tmp_path):
     assert bool(torch.isfinite(frames["u"]).all())
 
 
-@pytest.mark.parametrize("flag,item", [(["--dp"], "A3")])
-def test_train_cli_refuses_flags_not_ported(tmp_path, flag, item):
-    """The flag still to port; the others work (tests/test_torch_resume.py,
-    tests/test_torch_pretf.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        torch_cli.main(["burgers-train", "--train", str(tmp_path), *flag, "--device", "cpu"])
+@pytest.mark.parametrize("batch", ["2", "1"])
+def test_train_cli_dp_on_two_ranks(tmp_path, batch):
+    """`burgers-train --dp --conv kernel --device cpu` on 2 ranks of a
+    launcher's environment (tests/torch_dist_ranks.py), one row each or
+    (-b 1) a batch padded with a zero-weighted row: the losses of the run
+    without --dp within rtol 1e-4 (sums in another order), the same on both
+    ranks, and only rank 0 writes dataStats.json, the checkpoints and the
+    metrics."""
+    _gen_set(tmp_path / "hires")
+    args = ["--train", str(tmp_path / "hires"), "-n", "2", "-b", batch, "-t", "5", "-m", "2",
+            "-e", "1", "--lr", "1e-4", "--conv", "kernel", "--device", "cpu"]
+    want = torch_cli.main(["burgers-train", *args, "--tf", str(tmp_path / "plain")])
+    got = ranks.spawn(ranks.cli_rank, 2,
+                      ["burgers-train", *args, "--tf", str(tmp_path / "tf"), "--dp"])
+    assert got[0]["losses"] == got[1]["losses"] and len(want.losses) == 3 * (2 // int(batch))
+    np.testing.assert_allclose(got[0]["losses"], want.losses, rtol=1e-4)
+    assert sorted(got[0]["writes"]) == ["checkpoint", "checkpoint", "metrics", "stats"]
+    assert got[1]["writes"] == []
+    assert {"dataStats.json", "model.msgpack", "model_epoch0001.msgpack"} <= set(
+        os.listdir(tmp_path / "tf"))
 
 
 def test_karman_step_with_kernel_convs_matches_library():

@@ -16,12 +16,19 @@ bit-equal across launches, the conv forward within 1e-5 and its weight gradient 
 that and its fp32 weight gradient within 1e-5, a 10-step rollout within
 1e-3, one SOL-32 and one SOL-04 train step's losses within 1e-4 and
 gradients within 1e-3, and a bf16 SOL-04 step within TRAIN_PARITY_TOL_BF16.
+The data-parallel step and the y-sharded step run on two ranks that share
+cuda:0 over gloo (tests/torch_dist_ranks.py), each rank launching the
+kernels, against the same ranks on the CPU: the train step within those
+train tolerances, the sharded step within 1e-5 of each field's max.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
+
+import torch_dist_ranks as ranks
 
 from solver_in_the_loop_torch import parity
 from solver_in_the_loop_torch.kernels import advect, cg
@@ -33,7 +40,7 @@ from solver_in_the_loop_torch.kernels.advect import (
     tap_sum_fwd_plain,
 )
 from solver_in_the_loop_torch.kernels.cg import cg_solve, cg_solve_plain, pcg_solve, pcg_solve_plain
-from solver_in_the_loop_torch.models.networks import disable_tf32
+from solver_in_the_loop_torch.models.networks import build_model, disable_tf32
 from solver_in_the_loop_torch.ops import interp
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
 from solver_in_the_loop_torch.ops.poisson import (
@@ -43,6 +50,7 @@ from solver_in_the_loop_torch.ops.poisson import (
     solve_pressure,
 )
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
+from solver_in_the_loop_torch.train.checkpoint import params_to_jax
 from solver_in_the_loop_torch.train.rollout import karman_rollout
 
 pytestmark = pytest.mark.cuda
@@ -624,3 +632,57 @@ def test_general_layout_route_on_the_card_matches_cpu(device, batch, res, precon
     assert 0 < int(iters) < 1000 and abs(int(iters) - int(iters_cpu)) <= tol
     assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
     assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]
+
+
+def _dp_case():
+    """One SOL karman step at 16x8, msteps 2, batch 3 padded to 4 over two
+    ranks, from a seeded MarsMoon, at CG tolerance 1e-7."""
+    rng = np.random.RandomState(4)
+    dom = karman_domain(8)
+    d0, v0 = initial_state(dom, 1)
+    data = {"dens": d0.values.numpy()[None] + 0.1 * rng.rand(3, 4, dom.ny, dom.nx),
+            "u": v0.u.numpy()[None] + 0.2 * rng.randn(3, 4, dom.ny, dom.nx + 1),
+            "v": v0.v.numpy()[None] + 0.2 * rng.randn(3, 4, dom.ny + 1, dom.nx),
+            "re": 1.6e5 * 2.0 ** np.arange(3)}
+    model = build_model("mars_moon", leaky_slope=0.3, generator=torch.Generator().manual_seed(2))
+    return {"family": "karman", "res": 8, "max_shift": 2, "ptol": 1e-7, "pmaxiter": 1000,
+            "in_channels": 3, "norm": ([0.3, 0.2, 1e5], [0.3, 0.2]), "msteps": 2, "lr": 1e-4,
+            "params": params_to_jax(model, "mars_moon"), "pad_to": 4,
+            "data": {k: np.asarray(a, np.float32) for k, a in data.items()},
+            "idx": np.stack([np.arange(3), np.zeros(3, np.int64)], 1)}
+
+
+def test_dp_step_on_two_ranks_of_the_card_matches_cpu(device):
+    case = _dp_case()
+    card = ranks.spawn(ranks.dp_train_step_rank, 2, case, "cuda")
+    cpu = ranks.spawn(ranks.dp_train_step_rank, 2, case, "cpu")
+    for r in card:
+        assert r["launches"] == card[0]["launches"] and min(r["launches"].values()) > 0
+        assert r["loss"] == card[0]["loss"]
+    tol = parity.TRAIN_PARITY_TOL
+    np.testing.assert_allclose(card[0]["loss"], cpu[0]["loss"], rtol=tol["loss"])
+    np.testing.assert_allclose(card[0]["step_losses"], cpu[0]["step_losses"],
+                               rtol=tol["step_losses"])
+    for name, want in cpu[0]["grad"].items():
+        assert np.abs(card[0]["grad"][name] - want).max() <= tol["grad_norms"] * np.abs(want).max()
+        np.testing.assert_allclose(card[0]["update"][name], cpu[0]["update"][name], rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_sharded_shift_step_on_the_card_matches_its_twin(device):
+    """The y-sharded step with `advection="shift"`: every rank runs the
+    tap-sum kernel on its haloed blocks, three launches a step."""
+    rng = np.random.RandomState(7)
+    dom = karman_domain(16)
+    d0, v0 = initial_state(dom, 1)
+    fields = tuple(np.asarray(a + s * rng.randn(*a.shape), np.float32)
+                   for a, s in ((d0.values.numpy(), 0.3), (v0.u.numpy(), 0.3),
+                                (v0.v.numpy(), 0.3)))
+    case = {"kind": "step", "advection": "shift", "ptol": 1e-6, "pmaxiter": 1000, "res": 16,
+            "fields": fields}
+    card = ranks.spawn(ranks.spatial_rank, 2, [case], "cuda")
+    cpu = ranks.spawn(ranks.spatial_rank, 2, [case], "cpu")
+    assert [r[0]["tap_sum_launches"] for r in card] == [(3, 0), (3, 0)]
+    for name in ("dens", "u", "v"):
+        want = cpu[0][0][name]
+        assert np.abs(card[0][0][name] - want).max() <= 1e-5 * np.abs(want).max(), name

@@ -17,8 +17,8 @@
   and keeps its step's update as the JAX CLI does (the same parameters from
   the same start, within 1e-3 of a step's size), `--reg-loss` changes
   nothing, `--debug-nans` raises FloatingPointError at a NaN and changes
-  nothing on a finite run, `--bf16` trains; `--dp` still refuses, naming
-  its ROADMAP.md item.
+  nothing on a finite run, `--bf16` trains (`--dp`:
+  tests/test_torch_parallel.py and the CLI tests).
 """
 
 from __future__ import annotations

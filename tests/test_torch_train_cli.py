@@ -9,9 +9,12 @@ on the CPU.
   loss (with --init zero the first unroll is the pure solver's, whatever the
   hidden weights), finite losses, and a model.msgpack that both packages'
   karman-apply load and roll out alike;
-* without `--device cpu` and without CUDA the CLI refuses to run, and the
-  flag that is not ported (--dp) raises NotImplementedError naming its
-  ROADMAP.md item (--pretf: tests/test_torch_pretf.py).
+* without `--device cpu` and without CUDA the CLI refuses to run;
+* `karman-train --dp --device cpu` on 2 ranks of a launcher's environment
+  (tests/torch_dist_ranks.py): every rank logs the same losses, those of
+  the run without --dp within rtol 1e-4 (each rank's pressure solves stop
+  on its own rows, at the CLI's CG tolerance 1e-5), and only rank 0 writes
+  dataStats.json, the checkpoint, the metrics and the log file.
 
 Tolerances: the dataset statistics are float64 sums of the same float32
 frames (1e-6); the first loss is a float32 unroll with CG at tol 1e-5 on both
@@ -33,6 +36,8 @@ from solver_in_the_loop_tpu.apps import karman_apply as jax_apply
 from solver_in_the_loop_tpu.apps import karman_train as jax_train
 from solver_in_the_loop_tpu.io.scene import Scene as JScene
 from solver_in_the_loop_tpu.physics import karman as jk
+
+import torch_dist_ranks as ranks
 
 from solver_in_the_loop_torch import __main__ as torch_cli
 from solver_in_the_loop_torch.apps import karman_train as torch_train
@@ -130,15 +135,24 @@ def test_karman_train_cli_refuses_cpu_without_device_flag(tmp_path, monkeypatch)
     assert not (tmp_path / "tf").exists()
 
 
-@pytest.mark.parametrize("flag,item", [(["--dp"], "A3")])
-def test_karman_train_cli_flags_not_ported_raise(tmp_path, flag, item):
-    """The flag still to port (data parallelism); the others work
-    (tests/test_torch_resume.py, tests/test_torch_bf16.py,
-    tests/test_torch_pretf.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        torch_cli.main(["karman-train", *_train_args(tmp_path / "none", tmp_path / "tf"),
-                        "--device", "cpu", *flag])
-    assert not (tmp_path / "tf").exists()
+@pytest.mark.parametrize("batch", ["2", "1"])
+def test_karman_train_cli_dp_on_two_ranks(tmp_path, batch):
+    """-b 2 gives each rank one row; -b 1 pads the batch to 2 with a
+    zero-weighted copy, which rank 1 runs alone."""
+    _write_hires_scenes(str(tmp_path / "hires"))
+    want = torch_cli.main(["karman-train", *_train_args(tmp_path / "hires", tmp_path / "plain",
+                                                        "--device", "cpu", "-b", batch)])
+    argv = ["karman-train", *_train_args(tmp_path / "hires", tmp_path / "tf", "--device", "cpu",
+                                         "-b", batch, "--dp", "--log",
+                                         str(tmp_path / "tf" / "run.log"))]
+    got = ranks.spawn(ranks.cli_rank, 2, argv)
+    assert got[0]["losses"] == got[1]["losses"] and len(want.losses) == 4 // int(batch)
+    np.testing.assert_allclose(got[0]["losses"], want.losses, rtol=1e-4)
+    assert sorted(got[0]["writes"]) == ["checkpoint", "metrics", "stats"]
+    assert got[0]["log_files"] == [str(tmp_path / "tf" / "run.log")]
+    assert got[1]["writes"] == [] and got[1]["log_files"] == []
+    assert {"dataStats.json", "model.msgpack", "metrics.jsonl", "run.log"} <= {
+        p.name for p in (tmp_path / "tf").iterdir()}
 
 
 def test_karman_train_cli_maps_remat_none_to_pressure(tmp_path, monkeypatch):

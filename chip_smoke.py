@@ -21,10 +21,15 @@ each printing one JSON line:
                   bound; both CG kernels at fixed iteration counts, the
                   time of one iteration and of the set-up; and
                   solve_pressure where its route is not the 64x32 kernel
-                  (the plain FD-PCG loop at a batch above 128, the CG
-                  kernels' general layouts at -r 48, -r 65 and 128x64),
-                  against the CPU, with its time per solve and the plain
-                  loop's iterations in float32 and float64 on both devices
+                  (the plain FD-PCG loop at a batch above 128; the cluster
+                  layout at -r 48, -r 65, 128x64, -r 67, -r 79, 256x128 at
+                  batch 1, 3 and 5, -r 192 and -r 267), against the CPU,
+                  with its time per solve and the plain loop's iterations
+                  in float32 and float64 on both devices;
+                  the cluster layout (csrc/cg_cluster.cu, both
+                  instantiations) against its twin at CLUSTER_CASES, cold,
+                  warm and adjoint, timed beside the route the card took
+                  there before it
 4. apply        — `karman-apply` through the CLI entry point at the full width
                   of the SOL-32 MarsMoon checkpoint (artifacts/a3_k_sol32), 500
                   steps at batch 1 and at batch 5, each after a one-step
@@ -94,6 +99,9 @@ each printing one JSON line:
                   499 steps) from the last frame of sim 0 of that set, with
                   the FD-preconditioned kernel and with the plain CG kernel
                   (`--pressure-precon none`), held to each other
+17b. karman_gen_r67 — `karman-gen -r 67` (134x67) for 5 steps with each
+                  `--pressure-precon`: one launch of the cluster layout a
+                  step and nothing else, frames against the CPU's
 18. apply_cg    — `karman-apply --pressure-precon none` at batch 1 and 5, 500
                   steps, the CG kernel's launch counts, and the batch-1 run's
                   steps 1, 5 and 20 against the JAX golden of the apply phase
@@ -104,15 +112,17 @@ each printing one JSON line:
                   each `--pressure-precon`: launch counts, and frames against
                   the plain path and the JAX golden
 21. pre_gen     — `karman-pre-gen --thumb` through the CLI at the Makefile's
-                  width (-r 32: 256x128 hi-res on multigrid, 64x32 lo-res on
-                  the PCG kernel, Re 160000), --beta 1.0 cut to 54 frames
-                  and --beta 0 cut to 30 (PRE_GEN_REDUCED), after a 2-frame
-                  warm-up: a pcg_solve launch a frame, frames 21, 25 and 29
+                  width (-r 32: 256x128 hi-res on the cluster layout, 64x32
+                  lo-res on the PCG kernel, Re 160000), --beta 1.0 cut to 54
+                  frames and --beta 0 cut to 30 (PRE_GEN_REDUCED), after a
+                  2-frame warm-up: a pcg_solve and two pcg_cluster_solve
+                  launches a frame, frames 21, 25 and 29
                   against the JAX golden
                   (tests/data/torch_port/karman_pre_gen_r32.npz), every kept
                   correction held to its constraint, seconds per frame split
                   into its four stages, and the correction solve's outer and
-                  inner iterations
+                  inner iterations; then 4 frames with the hi-res solves on
+                  multigrid and on the cluster layout
 22. burgers_pre_gen — `burgers-pre-gen --thumb` -r 32 on the burgers_gen
                   phase's test sim, cut to 35 frames: frames 1, 5 and 19
                   against the JAX golden (burgers_pre_gen_r32.npz)
@@ -164,7 +174,13 @@ line; without CUDA, or outside a checkout, it exits 1 at once.
     python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]
 
 runs only the CG kernels' fixed-iteration timing, built from each DIR (see
-`cg_split`), and
+`cg_split`),
+
+    python3 chip_smoke.py --cg-general DIR
+
+the general layouts of the one-block CG kernels as csrc/ held them before
+the cluster layout (DIR: that csrc/) against the cluster layout (see
+`cg_general`), and
 
     python3 chip_smoke.py --conv-split [fwd] LABEL=DIR [LABEL=DIR ...]
 
@@ -408,7 +424,9 @@ def kernel_wrappers():
     from solver_in_the_loop_torch.kernels import advect, cg, conv
 
     return {"tap_sum_fwd": advect.tap_sum_fwd, "tap_sum_bwd": advect.tap_sum_bwd,
-            "pcg_solve": cg.pcg_solve, "cg_solve": cg.cg_solve, "conv_fwd": conv.conv_fwd,
+            "pcg_solve": cg.pcg_solve, "cg_solve": cg.cg_solve,
+            "pcg_cluster_solve": cg.pcg_cluster_solve, "cg_cluster_solve": cg.cg_cluster_solve,
+            "conv_fwd": conv.conv_fwd,
             "conv_wgrad": conv.conv_wgrad, "conv_fwd_bf16": conv.conv_fwd_bf16,
             "conv_wgrad_bf16": conv.conv_wgrad_bf16}
 
@@ -443,7 +461,18 @@ def phase_build():
 
     t0 = time.perf_counter()
     report = build.build_all(force=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": report})
+    seconds = time.perf_counter() - t0
+    resident = cluster_residency()
+    emit({"phase": "build", "seconds": seconds, "sources": report,
+          "cluster_resident": resident})
+    # the cluster layout: no spill in either instantiation; the card keeps
+    # at least the clusters kernels/cg.py plans with resident at once
+    spills = [ln for ln in report["cg_cluster"]["ptxas"]
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    require(not spills, f"the cluster CG kernels spill registers: {spills}")
+    require(all(want <= got for want, got in zip(resident["planned"], resident["least"])),
+            f"kernels/cg.py CLUSTER_RESIDENT {resident['planned']} above the card's "
+            f"{resident['least']}")
     # no spill in the conv kernels, but for the bf16 forward at K = 7 (no net
     # of the repo has a 7x7 conv): it spills 4 bytes, more with its tap loop
     # rolled or its channel loop rolled (measured on the H100)
@@ -458,10 +487,32 @@ def phase_build():
         require(not spills, f"the {name} kernels spill registers: {spills}")
 
 
+def cluster_residency():
+    """cudaOccupancyMaxActiveClusters of csrc/cg_cluster.cu by cluster size,
+    for each instantiation at the least shared memory (CG, 128 wide) and at
+    the most the JAX-gated shapes give it (PCG, 48 rows of 267); "least" is
+    the smallest of them, which kernels/cg.py CLUSTER_RESIDENT ("planned")
+    must not exceed."""
+    from solver_in_the_loop_torch.kernels import cg
+
+    sizes = range(1, cg.CLUSTER_MAX + 1)
+    got = {f"{'pcg' if precon else 'cg'}_w{w}_band{band}": [cg.cluster_resident(precon, w, c, band)
+                                                          for c in sizes]
+           for precon, w, band in ((False, 128, 16), (True, 128, 16), (True, 267, 48))}
+    return {**got, "least": [min(v[c - 1] for v in got.values()) for c in sizes],
+            "planned": list(cg.CLUSTER_RESIDENT)}
+
+
 def karman_rhs(batch_re, device, steps=30, res=32):
     """A real pressure problem on the card: the projection's RHS after `steps`
     solver steps on the plain path at resolution `res` (64x32 at 32), the
-    previous step's pressure (the warm start), and the masks."""
+    previous step's pressure (the warm start), and the masks. Made once per
+    arguments: the callers only read them."""
+    return _karman_rhs(tuple(batch_re), device, steps, res)
+
+
+@functools.lru_cache(maxsize=None)
+def _karman_rhs(batch_re, device, steps, res):
     import torch
 
     from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
@@ -472,7 +523,7 @@ def karman_rhs(batch_re, device, steps=30, res=32):
 
     dom = karman_domain(res)
     flow = KarmanFlow(dom, advection="shift", max_shift=2, device=device)
-    re = torch.tensor(batch_re, device=device)
+    re = torch.tensor(list(batch_re), device=device)
     d0, v0 = initial_state(dom, len(batch_re), device)
     with torch.inference_mode(), plain_path():
         fr = karman_rollout(flow, d0, v0, re, steps)
@@ -614,11 +665,16 @@ def cg_problems(device):
 
 # (Re values, res, precon) beside the 64x32 kernel cases: a batch above
 # MAX_BATCH at 64x32, the plain FD-PCG loop with either precon; off
-# multigrid's sizes at -r 48 and -r 65, and at 128x64, the kernels' general
-# layouts (the PCG's three or six tiles a warp, the plain CG's 12 cells a
-# thread)
+# multigrid's sizes at -r 48 and -r 65, and at 128x64, the cluster layout
+# (csrc/cg_cluster.cu; at -r 48 without the preconditioner csrc/cg.cu's
+# 1,024 threads); and the cluster layout where the card refused the shape
+# before it (-r 67, -r 79, -r 267) or took multigrid (256x128 at the
+# batches the JAX package's gate takes, -r 192)
 ROUTE_CASES = [(RE_B8 * 16 + RE_B1, 32, "fd"), (RE_B8 * 16 + RE_B1, 32, "none"),
-               (RE_B1, 48, "fd"), (RE_B1, 65, "fd"), (RE_B1, 65, "none"), (RE_B5[:2], 64, "fd")]
+               (RE_B1, 48, "fd"), (RE_B1, 65, "fd"), (RE_B1, 65, "none"), (RE_B5[:2], 64, "fd"),
+               (RE_B1, 67, "fd"), (RE_B1, 79, "none"), (RE_B1, 128, "fd"),
+               (RE_B5[:3], 128, "fd"), (RE_B5, 128, "none"), (RE_B1, 192, "fd"),
+               (RE_B1, 267, "fd")]
 
 
 def pressure_route_cases(device):
@@ -628,7 +684,8 @@ def pressure_route_cases(device):
     plain route), the iterations, solution and gradient of a random
     cotangent against the CPU's with the same precon, and the wall ms of one
     solve, host included (the plain loop reads the host once per iteration),
-    beside multigrid's where the card took it before the PCG kernel did.
+    beside one wall-clock solve of multigrid's where the card took it before
+    the kernel did, else of the plain FD-PCG loop.
     The iterations are held to those of the route's function in the plain
     loop (FD-PCG, or CG without the preconditioner) on the CPU; as a
     witness, that loop runs in float32 and in float64 on the card and on
@@ -679,17 +736,21 @@ def pressure_route_cases(device):
                     ops += [f.to(b) for f in fd_factors(rhs.shape[1], rhs.shape[2], b.device)]
                 solve = cg.pcg_solve_plain if fd else cg.cg_solve_plain
                 witness[f"{where}_{str(dtype)[6:]}"] = int(solve(*ops, 1e-5, 1000)[1])
-        kernel = {"pcg": "pcg_solve", "cg": "cg_solve"}.get(route)
+        bsz, h, w = rhs.shape
+        kernel = {"pcg": "pcg_solve" if cg._pcg_fast(h, w) else "pcg_cluster_solve",
+                  "cg": "cg_solve" if h * w <= cg.CG_MAX_CELLS else "cg_cluster_solve"}.get(route)
         case = {"shape": list(rhs.shape), "precon": precon, "route": route, "iters": int(iters),
                 "cpu_iters": int(iters_cpu), "plain_loop_iters": witness,
                 "rel_err": rel_err(p.detach().cpu(), p_cpu.detach()),
                 "grad_rel_err": rel_err(grad.cpu(), grad_cpu),
                 "kernel_launches": {k: v for k, v in launches.items() if v},
                 "ms": time_ms(lambda: solve_pressure(-rhs, masks, precon=precon), 3)}
+        ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
         if _mg_applicable(rhs.shape):  # the route the card took there before the kernel did
-            fluid, face_u, face_v = masks.fluid, masks.face_u, masks.face_v
-            case["multigrid_ms"] = time_ms(lambda: mg_solve_op(
-                -rhs, torch.zeros_like(rhs), fluid, face_u, face_v, 1e-5, 1000), 3)
+            case["multigrid_ms"] = _wall_ms(lambda: mg_solve_op(*ops, 1e-5, 1000))
+        elif route != "pcg_plain":  # the plain FD-PCG loop, the JAX package's XLA route
+            case["pcg_plain_ms"] = _wall_ms(lambda: cg.pcg_solve_plain(
+                *ops, *fd_factors(h, w, device), 1e-5, 1000))
         cases.append(case)
         expect = "pcg_plain" if len(batch_re) > cg.MAX_BATCH else "pcg" if fd else "cg"
         require(route == expect and case["kernel_launches"] == ({kernel: 2} if kernel else {}),
@@ -733,6 +794,119 @@ def fixed_iter_cases(device):
             out[name].append({"shape": list(rhs.shape), f"ms_{lo}": ms[lo], f"ms_{hi}": ms[hi],
                               "us_per_iter": us, "setup_ms": ms[lo] - lo * us / 1e3})
     return out
+
+
+# (Re values, res, precon) of the cluster layout (csrc/cg_cluster.cu): the
+# shapes the card refused before it at -r 67 (the lo-res karman-gen with
+# either precon) and -r 79, the PRE generator's 256x128 at the batches the
+# JAX package's gate takes, -r 192 and its largest element, -r 267; and
+# 256x128 at batch 6, multigrid's route, the kernel timed for ROADMAP B5
+RE_B3, RE_B6 = RE_B5[:3], RE_B5 + RE_B8[5:6]
+CLUSTER_CASES = [(RE_B1, 67, "fd"), (RE_B1, 67, "none"), (RE_B1, 79, "none"), (RE_B1, 128, "fd"),
+                 (RE_B3, 128, "fd"), (RE_B5, 128, "none"), (RE_B1, 192, "fd"), (RE_B1, 267, "fd"),
+                 (RE_B6, 128, "fd")]
+
+
+def _wall_ms(fn) -> float:
+    """Wall ms of one call of fn, synchronized: for the plain loops, which
+    read the host once per iteration."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def cluster_kernel_cases(device):
+    """Both instantiations of csrc/cg_cluster.cu through their wrappers
+    (pcg_cluster_solve, cg_cluster_solve) at CLUSTER_CASES on real karman
+    right-hand sides, cold and warm: the solution within PCG_REL_TOL /
+    CG_REL_TOL of its max from the twin on the card, the same bits from a
+    second launch, the iterations beside the twin's; the adjoint through
+    autograd against the plain path's, two launches; ms per solve, the
+    twin's (one call), the bound, us per iteration and set-up at
+    FIXED_ITERS, and the wall ms of one solve by the route the card took
+    there before this layout: multigrid where it applies, else the plain
+    FD-PCG loop. pressure_route_cases holds the cold solves' iterations to
+    the CPU's float32 loop; from a warm start the float32 loops of the two
+    devices part by up to three themselves (PERF.md)."""
+    from unittest import mock
+
+    import torch
+
+    from solver_in_the_loop_torch.kernels import cg
+    from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
+    from solver_in_the_loop_torch.ops.poisson import _mg_applicable, fd_factors
+    from solver_in_the_loop_torch.parity import CG_REL_TOL, PCG_REL_TOL, plain_path
+
+    cases = []
+    tol, max_iter = 1e-5, 1000
+    lo, hi = FIXED_ITERS
+    for batch_re, res, precon in CLUSTER_CASES:
+        rhs, warm, masks = karman_rhs(batch_re, device, res=res)
+        shape = tuple(rhs.shape)
+        ops = (masks.fluid, masks.face_u, masks.face_v)
+        fd = fd_factors(shape[1], shape[2], device)
+        pre = precon == "fd"
+        kernel, plain, op = ((cg.pcg_cluster_solve, cg.pcg_solve_plain, cg.pcg_solve_op) if pre
+                             else (cg.cg_cluster_solve, cg.cg_solve_plain, cg.cg_solve_op))
+        extra = fd if pre else ()
+        rel_tol = PCG_REL_TOL if pre else CG_REL_TOL
+        base = {"shape": list(shape), "precon": precon, "plan": cg.cluster_plan(shape, pre)}
+        for start in ("cold", "warm"):
+            x0 = warm if start == "warm" else torch.zeros_like(rhs)
+            args = (rhs, x0, *ops, *extra, tol, max_iter)
+            x_k, it_k = kernel(*args)
+            x_again, it_again = kernel(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x_p, it_p = plain(*args)
+            plain_ms = 1e3 * (time.perf_counter() - t0)  # it reads the host every iteration
+            case = {**base, "start": start, "iters": int(it_k), "plain_iters": int(it_p),
+                    "rel_err": rel_err(x_k, x_p), "max_abs_err": float((x_k - x_p).abs().max()),
+                    "deterministic": bool(torch.equal(x_k, x_again)) and int(it_again) == int(it_k),
+                    "ms": time_ms(lambda: kernel(*args), 3), "plain_ms": plain_ms}
+            case["us_per_iter"] = 1e3 * case["ms"] / max(case["iters"], 1)
+            case["bound_ms"], case["bound_by"] = (pcg_bound_ms if pre else cg_bound_ms)(
+                shape, case["iters"])
+            if _mg_applicable(shape):  # the card's route before this layout
+                case["multigrid_ms"] = _wall_ms(lambda: mg_solve_op(rhs, x0, *ops, tol, max_iter))
+            else:
+                case["pcg_plain_ms"] = _wall_ms(lambda: cg.pcg_solve_plain(rhs, x0, *ops, *fd, tol,
+                                                                           max_iter))
+            cases.append(case)
+            require(case["rel_err"] <= rel_tol and case["deterministic"],
+                    f"{kernel.__name__} against its twin {case}")
+        ms = {}
+        for n in (lo, hi):
+            args = (rhs, torch.zeros_like(rhs), *ops, *extra, 0.0, n)
+            require(int(kernel(*args)[1]) == n, f"{kernel.__name__} at tol 0 ran other than {n}")
+            ms[n] = time_ms(lambda: kernel(*args), 3)
+        us = 1e3 * (ms[hi] - ms[lo]) / (hi - lo)
+        cot = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(7),
+                          device=device)
+
+        def grad():
+            b = rhs.clone().requires_grad_()
+            x, _ = op(b, warm, *ops, *extra, tol, max_iter)
+            return torch.autograd.grad(x, b, cot)[0]
+
+        reset = kernel.launches
+        # the op's wrapper takes the cluster layout at every shape here
+        with mock.patch.object(cg, "pcg_solve" if pre else "cg_solve", kernel):
+            got = grad()
+        adjoint_launches = kernel.launches - reset
+        with plain_path():
+            want = grad()
+        cases.append({**base, "start": "adjoint", "rel_err": rel_err(got, want),
+                      "max_abs_err": float((got - want).abs().max()),
+                      "launches": adjoint_launches, f"ms_{lo}": ms[lo], f"ms_{hi}": ms[hi],
+                      "fixed_us_per_iter": us, "setup_ms": ms[lo] - lo * us / 1e3})
+        require(cases[-1]["rel_err"] <= rel_tol and adjoint_launches == 2,
+                f"{kernel.__name__} adjoint {cases[-1]}")
+    return cases
 
 
 def phase_kernels(device):
@@ -790,6 +964,7 @@ def phase_kernels(device):
     seconds["pcg_solve"] = time.perf_counter() - t0
     cg_cases = part("cg_solve", cg_kernel_cases, device)
     routes = part("pressure_route", pressure_route_cases, device)
+    cluster = part("cluster", cluster_kernel_cases, device)
     fixed_iter = part("fixed_iter", fixed_iter_cases, device)
     conv_cases, wgrad_cases = part("conv", conv_kernel_cases, device)
     bf16_cases, bf16_wgrad_cases = part("conv_bf16", conv_bf16_kernel_cases, device)
@@ -803,7 +978,8 @@ def phase_kernels(device):
           "conv_wgrad: aten.convolution_backward, weight gradient only; the bf16 kernels: "
           "the same calls on the bf16 tensors (cuDNN's bf16 conv)",
           "tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
-          "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+          "cg_solve": cg_cases, "cg_cluster": cluster, "conv_fwd": conv_cases,
+          "conv_wgrad": wgrad_cases,
           "conv_fwd_bf16": bf16_cases, "conv_wgrad_bf16": bf16_wgrad_cases,
           "fixed_iter": fixed_iter, "pressure_route": routes,
           "tolerances": {"tap_sum_abs": TAP_SUM_TOL, "tap_sum_bwd_dv_rel": TAP_SUM_BWD_DV_REL_TOL,
@@ -814,6 +990,8 @@ def phase_kernels(device):
                          "conv_wgrad_bf16_rel": CONV_WGRAD_BF16_REL_TOL}})
     return {"tap_sum_fwd": tap_cases, "tap_sum_bwd": bwd_cases, "pcg_solve": pcg_cases,
             "cg_solve": cg_cases, "conv_fwd": conv_cases, "conv_wgrad": wgrad_cases,
+            "pcg_cluster_solve": [c for c in cluster if c["precon"] == "fd"],
+            "cg_cluster_solve": [c for c in cluster if c["precon"] == "none"],
             "conv_fwd_bf16": bf16_cases, "conv_wgrad_bf16": bf16_wgrad_cases}
 
 
@@ -2233,6 +2411,59 @@ def phase_karman_gen_lores():
     return line["fd"]["launches"], line["none"]["launches"]
 
 
+KARMAN_R67 = os.path.join(REPO, "build", "smoke_karman_r67")
+R67_FRAMES = 6
+R67_REDUCED = {"simsteps": f"1500 -> {R67_FRAMES} frames, all kept (-s 0): "
+                           f"{R67_FRAMES - 1} steps from the initial state",
+               "Re": "the 6 runs of the Makefile's loop -> one (Re 160000)"}
+
+
+def r67_argv(precon: str, device: str):
+    """`karman-gen -r 67` (134x67), off the one-block layouts and off
+    multigrid's sizes, on `device`."""
+    return ["karman-gen", "-o", os.path.join(KARMAN_R67, f"{device}_{precon}"), "-r", "67", "-l",
+            "100", "--re", "160000", "--seed", "0", "-s", "0", "-t", str(R67_FRAMES),
+            "--pressure-precon", precon, "--device", device]
+
+
+def phase_karman_gen_r67():
+    """`karman-gen -r 67`, where the card refused the pressure solve before
+    the cluster layout, through the CLI with each --pressure-precon, every
+    launch count set to 0 just before each card run: one launch of the
+    cluster layout a step (pcg_cluster_solve with fd, cg_cluster_solve with
+    none) and nothing else, so no solve takes a plain loop or the CPU; its
+    frames 1, 3 and 5 against the same command on the CPU (--device cpu),
+    within ROLLOUT_REL_TOL."""
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch.parity import ROLLOUT_REL_TOL
+
+    shutil.rmtree(KARMAN_R67, ignore_errors=True)
+    steps = R67_FRAMES - 1
+    line = {"phase": "karman_gen_r67", "argv": r67_argv("fd", "cuda"), "reduced": R67_REDUCED,
+            "tolerance": ROLLOUT_REL_TOL}
+    for precon, kernel in (("fd", "pcg_cluster_solve"), ("none", "cg_cluster_solve")):
+        reset_launches()
+        frames = cli.main(r67_argv(precon, "cuda"))
+        launches = read_launches()
+        cpu = cli.main(r67_argv(precon, "cpu"))
+        errs, worst = _frames_errors(frames, lambda f, t: cpu[f][t - 1], steps=(1, 3, 5))
+        line[precon] = {"route": frames["route"], "launches": launches,
+                        "seconds_per_step": frames["rollout_seconds"] / steps,
+                        "cpu_seconds_per_step": cpu["rollout_seconds"] / steps,
+                        "cg_iters": frames["cg_iters"].cpu().flatten().tolist(),
+                        "cpu_cg_iters": cpu["cg_iters"].cpu().flatten().tolist(),
+                        "errors_vs_cpu": errs, "worst": worst}
+    emit(line)
+    for precon, kernel in (("fd", "pcg_cluster_solve"), ("none", "cg_cluster_solve")):
+        require(line[precon]["launches"] == counts(**{kernel: steps})
+                and line[precon]["route"] == ("pcg" if precon == "fd" else "cg"),
+                f"karman-gen -r 67 --pressure-precon {precon}: {line[precon]}")
+        require(line[precon]["worst"] <= ROLLOUT_REL_TOL,
+                f"karman-gen -r 67 --pressure-precon {precon} differs from the CPU: "
+                f"{line[precon]['errors_vs_cpu']}")
+    return line["fd"]["launches"], line["none"]["launches"]
+
+
 def phase_apply_cg():
     """karman-apply with --pressure-precon none at batch 1 and 5: a one-step
     warm-up, then the 500-step run with every launch count set to 0 just
@@ -2431,13 +2662,17 @@ def phase_pre_gen():
     """karman-pre-gen through the CLI at the Makefile's width (-r 32: 64x32
     corrected lo-res, 256x128 hi-res, Re 160000) with --beta 1.0 and
     --beta 0, cut to 30 frames, every launch count set to 0 just before
-    each: one pcg_solve per frame (the lo-res step), the hi-res step and the
-    projection on multigrid (no launch), no tap-sum (--advect gather); the
+    each: one pcg_solve per frame (the lo-res step), two pcg_cluster_solve
+    (the hi-res step and the projection, the cluster layout as the JAX
+    package takes its Pallas kernel there), no tap-sum (--advect gather); the
     kept frames 21, 25 and 29 against the JAX golden, every kept correction
     held to its constraint (G^T corr on the valid cells within PRE_DIV_TOL
     of its max); seconds per frame and their split, and the correction
     solve's iterations. --beta 1.0 runs PRE_SET_FRAMES frames, the
-    pre_train phase's set."""
+    pre_train phase's set. Then PRE_SPLIT_FRAMES frames twice, the hi-res
+    solves on multigrid (the card's route before the cluster layout) and on
+    the cluster layout, for the hi-res step's and the projection's seconds
+    a frame."""
     import numpy as np
 
     from solver_in_the_loop_torch import __main__ as cli
@@ -2485,9 +2720,9 @@ def phase_pre_gen():
                 "corr_divergence": {"max": max(div.values()), "tolerance": par.PRE_DIV_TOL,
                                     "frames": len(div)},
                 "errors_vs_jax_golden": errs, "worst": max(errs.values())}
-            require(launches == counts(pcg_solve=steps),
+            require(launches == counts(pcg_solve=steps, pcg_cluster_solve=2 * steps),
                     f"karman-pre-gen --beta {beta}: launches {launches}, expected {steps} "
-                    "pcg_solve and nothing else")
+                    f"pcg_solve, {2 * steps} pcg_cluster_solve and nothing else")
             require(res["frames"] == list(range(par.PRE_SKIP + 1, frames)),
                     f"karman-pre-gen --beta {beta} kept frames {res['frames']}")
             require(max(div.values()) <= par.PRE_DIV_TOL,
@@ -2495,9 +2730,41 @@ def phase_pre_gen():
             require(thumbs == 5 * len(res["frames"]), f"{thumbs} thumbnails")
             require(line[f"beta_{beta}"]["worst"] <= par.ROLLOUT_REL_TOL,
                     f"karman-pre-gen --beta {beta} frames differ from the JAX golden: {errs}")
+    line["hires_split"] = pre_gen_split()
     emit(line)
-    require(line["hires_route"] == "multigrid", f"hi-res route {line['hires_route']}")
+    require(line["hires_route"] == "pcg", f"hi-res route {line['hires_route']}")
     return launches_by_beta[par.PRE_BETAS[0]]
+
+
+PRE_SPLIT_FRAMES = 4
+
+
+def pre_gen_split():
+    """karman-pre-gen -r 32 for PRE_SPLIT_FRAMES frames with the hi-res
+    solves on multigrid ("multigrid", the JAX package's Pallas gate taken
+    away, so the route falls to it as it did on the card before the cluster
+    layout) and on the cluster layout ("kernel"): seconds a frame of each
+    stage."""
+    from unittest import mock
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.ops import poisson
+
+    argv = list(par.KARMAN_PRE_GEN_ARGV)
+    argv[argv.index("-t") + 1] = str(PRE_SPLIT_FRAMES)
+    argv[argv.index("-s") + 1] = "0"
+    split = {}
+    for route in ("multigrid", "kernel"):
+        with mock.patch.object(poisson, "jax_kernel_gate",
+                               poisson.jax_kernel_gate if route == "kernel"
+                               else lambda shape, precon="fd": False):
+            res = cli.main(["karman-pre-gen", "-o", os.path.join(PRE_SET, f"split_{route}"),
+                            *argv, "--beta", "1.0"])
+        sec = res["seconds"]
+        split[route] = {k: sec[k] / (PRE_SPLIT_FRAMES - 1) for k in
+                        ("hires_step", "lores_step", "projection", "lsq")}
+    return split
 
 
 def phase_burgers_pre_gen():
@@ -3040,6 +3307,8 @@ def phase_spatial():
             require(err <= SPATIAL_REL_TOL, f"{what}: {k} {err} from the unsharded step")
         require(case["max_fluid_divergence"] < 1e-3, f"{what}: divergence "
                 f"{case['max_fluid_divergence']}")
+        # the unsharded step's solve: the kernel at 64x32 and at 256x128
+        require(case["route_unsharded"] == "pcg", f"{what}: route {case['route_unsharded']}")
     for r in ranks:
         for case in r["cases"]:
             want = counts(tap_sum_fwd=3) if case["advection"] == "shift" else counts()
@@ -3078,6 +3347,80 @@ def cg_split(specs) -> int:
             emit({"phase": "cg_split", "label": label, "csrc": src,
                   "ptxas": {name: info["ptxas"] for name, info in report.items()},
                   **fixed_iter_cases(device)})
+    return 0
+
+
+# the shapes of the general layouts that csrc/cg_cluster.cu replaced: -r 48,
+# -r 65, and 128x64 at batch 2
+GENERAL_CASES = [(RE_B1, 48), (RE_B1, 65), (RE_B5[:2], 64)]
+
+
+def cg_general(src: str) -> int:
+    """`python3 chip_smoke.py --cg-general DIR`: the general layouts of
+    csrc/pcg.cu and csrc/cg.cu as they were before the cluster layout
+    replaced them, built from DIR (a copy of that csrc/, e.g. `git archive
+    c5e9cac solver_in_the_loop_torch/csrc`), against csrc/cg_cluster.cu at
+    GENERAL_CASES, both at FIXED_ITERS fixed iterations, in turns (old, new,
+    new, old): one JSON line, us per iteration and set-up of each."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from solver_in_the_loop_torch.kernels import build, cg
+    from solver_in_the_loop_torch.ops.poisson import fd_factors
+
+    device = torch.device("cuda", 0)
+    new_dir, new_build = build.CSRC, build.BUILD_DIR
+    build.CSRC, build.BUILD_DIR = Path(src).resolve(), Path(REPO, "build", "kernels_split", "old")
+    report = build._compile(["pcg", "cg"])
+    old = {name: ctypes.CDLL(str(build._lib_path(name))) for name in ("pcg", "cg")}
+    build.CSRC, build.BUILD_DIR = new_dir, new_build
+    fn_pcg, fn_cg = old["pcg"].silt_pcg_solve, old["cg"].silt_cg_solve
+    fn_pcg.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn_cg.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn_pcg.restype = fn_cg.restype = ctypes.c_int
+
+    def old_solve(pre, b, x0, fluid, face_u, face_v, vy, vx, invd, n):
+        bsz, h, w = b.shape
+        x = torch.empty_like(b)
+        iters = torch.empty((), dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if pre:  # the general layout's unpadded shared memory
+            smem = 4 * ((h + 2) * (w + 1) + 3 * h * w + h * h + w * w)
+            err = fn_pcg(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, vy, vx, invd, x,
+                                                  iters)), None, bsz, h, w, 0.0, n, smem, stream)
+        else:
+            err = fn_cg(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, x, iters)), None,
+                        bsz, h, w, 0.0, n, 4 * (h + 2) * (w + 1), stream)
+        build.check(err, "old general layout")
+        return x, iters
+
+    lo, hi = FIXED_ITERS
+    cases = []
+    for batch_re, res in GENERAL_CASES:
+        rhs, _, masks = karman_rhs(batch_re, device, res=res)
+        ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
+        fd = fd_factors(rhs.shape[1], rhs.shape[2], device)
+        for pre in (True, False):
+            runs = {"old": lambda n: old_solve(pre, *ops, *fd, n),
+                    "new": (lambda n: cg.pcg_cluster_solve(*ops, *fd, 0.0, n)) if pre
+                    else (lambda n: cg.cg_cluster_solve(*ops, 0.0, n))}
+            ms = {label: {lo: [], hi: []} for label in runs}
+            for label in ("old", "new", "new", "old"):
+                for n in (lo, hi):
+                    require(int(runs[label](n)[1]) == n, f"{label} ran other than {n} iterations")
+                    ms[label][n].append(time_ms(lambda: runs[label](n), 10))
+            case = {"shape": list(rhs.shape), "precon": "fd" if pre else "none"}
+            for label, t in ms.items():
+                us = [1e3 * (b - a) / (hi - lo) for a, b in zip(t[lo], t[hi])]
+                case[label] = {"us_per_iter": us, "setup_ms": [a - lo * u / 1e3 for a, u in
+                                                              zip(t[lo], us)]}
+            cases.append(case)
+    emit({"phase": "cg_general", "csrc": src,
+          "ptxas": {name: info["ptxas"] for name, info in report.items()}, "cases": cases})
     return 0
 
 
@@ -3218,6 +3561,8 @@ def main() -> int:
     disable_tf32()
     if sys.argv[1:2] == ["--cg-split"]:
         return cg_split(sys.argv[2:])
+    if sys.argv[1:2] == ["--cg-general"]:
+        return cg_general(sys.argv[2])
     if sys.argv[1:2] == ["--conv-split"]:
         return conv_split(sys.argv[2:])
     if sys.argv[1:2] == ["--dp-rank"]:
@@ -3256,6 +3601,7 @@ def main() -> int:
     gen_launches = timed("karman_gen", phase_karman_gen, device)
     timed("evaluate", phase_evaluate)
     lores_fd_launches, lores_cg_launches = timed("karman_gen_lores", phase_karman_gen_lores)
+    r67_fd_launches, r67_cg_launches = timed("karman_gen_r67", phase_karman_gen_r67)
     apply_cg_launches = timed("apply_cg", phase_apply_cg)
     train_cg_launches = timed("train_parity_cg", phase_train_parity_cg, device)
     b9_fd_launches, b9_cg_launches = timed("apply_b9", phase_apply_b9)
@@ -3280,6 +3626,10 @@ def main() -> int:
              at("tap_sum_bwd", (3, 64, 32), **tap_main)),
             ("pcg_solve", "pcg.cu", "cg_kernel.py:112", at("pcg_solve", (3, 64, 32), start="warm")),
             ("cg_solve", "cg.cu", "cg_kernel.py:39", at("cg_solve", (1, 64, 32), start="warm")),
+            ("pcg_cluster_solve", "cg_cluster.cu", "cg_kernel.py:112",
+             at("pcg_cluster_solve", (1, 256, 128), start="warm")),
+            ("cg_cluster_solve", "cg_cluster.cu", "cg_kernel.py:39",
+             at("cg_cluster_solve", (1, 134, 67), start="warm")),
             ("conv_fwd", "conv.cu", "conv_kernel.py:123",
              at("conv_fwd", (5, 32, 32, 32, 32, 5), act="leaky_relu", skip=True)),
             ("conv_wgrad", "conv.cu", "conv_kernel.py:191",
@@ -3289,12 +3639,16 @@ def main() -> int:
             ("conv_wgrad_bf16", "conv_bf16.cu", "conv_kernel.py:191",
              at("conv_wgrad_bf16", (5, 32, 32, 32, 32, 5)))]
     # the per-element TPU kernels that the same CUDA kernel replaces at batch 1
-    per_element = {"pcg_solve": "cg_kernel.py:180", "cg_solve": "cg_kernel.py:235"}
+    per_element = {"pcg_solve": "cg_kernel.py:180", "cg_solve": "cg_kernel.py:235",
+                   "pcg_cluster_solve": "cg_kernel.py:180", "cg_cluster_solve": "cg_kernel.py:235"}
     # the main path of each kernel: karman training for the tap-sum and the
     # PCG, Burgers training for the conv kernels, the lo-res karman-gen with
-    # the preconditioner off for the CG
+    # the preconditioner off for the CG; the PRE generator's hi-res solves
+    # for the cluster layout's PCG, karman-gen -r 67 without the
+    # preconditioner for its CG
     main_path = {"tap_sum_fwd": train_launches, "tap_sum_bwd": train_launches,
                  "pcg_solve": train_launches, "cg_solve": lores_cg_launches,
+                 "pcg_cluster_solve": pre_gen_launches, "cg_cluster_solve": r67_cg_launches,
                  "conv_fwd": burgers_train_launches, "conv_wgrad": burgers_train_launches,
                  "conv_fwd_bf16": bf16_launches, "conv_wgrad_bf16": bf16_launches}
     emit({"kernels": [
@@ -3310,6 +3664,8 @@ def main() -> int:
                               "karman_gen_hires": gen_launches[name],
                               "karman_gen_lores_fd": lores_fd_launches[name],
                               "karman_gen_lores_none": lores_cg_launches[name],
+                              "karman_gen_r67_fd": r67_fd_launches[name],
+                              "karman_gen_r67_none": r67_cg_launches[name],
                               "karman_apply_b1_cg": apply_cg_launches[name],
                               "karman_train_step_cg": train_cg_launches[name],
                               "karman_apply_b9_fd": b9_fd_launches[name],

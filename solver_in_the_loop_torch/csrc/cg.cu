@@ -37,13 +37,13 @@
 // up to 2,048 cells (the karman 64x32) 256 threads, which also keep each
 // cell's operator coefficients in registers, read once; up to 8,192 cells
 // 1,024 threads, which read them from global memory (L1) each iteration, as
-// 64 registers a thread do not hold them; up to 12,288 (CG_MAX_CELLS in
-// kernels/cg.py; (130, 65) has 8,450) the same 1,024 threads with 12 cells
-// each, which spill 384 bytes (about 7 us an iteration at (130, 65)). The two
-// reductions alternate two scratch buffers, so no barrier only guards their
-// reuse. On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py `kernels` and
-// `--cg-split`, PERF.md) an iteration at (3,64,32) takes 1.4 us, the two
-// reductions about 0.4 of it; as a cooperative grid (batch 9) 2.1 us.
+// 64 registers a thread do not hold them (CG_MAX_CELLS in kernels/cg.py).
+// A larger field runs csrc/cg_cluster.cu, one element over a cluster of
+// blocks (kernels/cg.py `cg_solve`). The two reductions alternate two
+// scratch buffers, so no barrier only guards their reuse. On an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py `kernels` and `--cg-split`, PERF.md) an
+// iteration at (3,64,32) takes 1.4 us, the two reductions about 0.4 of it;
+// as a cooperative grid (batch 9) 2.1 us.
 
 #include <cuda_runtime.h>
 
@@ -53,8 +53,7 @@ namespace {
 
 using silt::Cell;
 
-constexpr int kThreadCells = 8;  // per thread, at most, up to 1,024 * kThreadCells cells
-constexpr int kBigCells = 12;  // per thread, at most, beyond
+constexpr int kThreadCells = 8;  // per thread, at most: up to 1,024 * kThreadCells cells
 constexpr int kSmallCells = 2048;  // fields up to this many cells take 256 threads
 
 template <int kThreads, bool kRegCells, int kCells>
@@ -178,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, 1) cg_kernel(const float* __restrict
 }
 
 // the dynamic shared memory each instantiation is allowed so far, per device
-int g_smem_allowed[3][silt::kMaxDevices] = {};
+int g_smem_allowed[2][silt::kMaxDevices] = {};
 
 }  // namespace
 
@@ -192,7 +191,7 @@ extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid
                              const float* face_u, const float* face_v, float* x, int* iters,
                              int* flags, int batch, int h, int w, float tol2, int max_iter,
                              int smem_bytes, void* stream) {
-    if (h < 1 || w < 1 || batch < 1 || h * w > 1024 * kBigCells ||
+    if (h < 1 || w < 1 || batch < 1 || h * w > 1024 * kThreadCells ||
         smem_bytes < 4 * (h + 2) * (w + 1))
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -202,11 +201,7 @@ extern "C" int silt_cg_solve(const float* b, const float* x0, const float* fluid
             ? silt::launch_batch(cg_kernel<256, true, kThreadCells>, g_smem_allowed[0], batch,
                                  256, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
                                  kflags, batch, h, w, tol2, max_iter)
-        : h * w <= 1024 * kThreadCells
-            ? silt::launch_batch(cg_kernel<1024, false, kThreadCells>, g_smem_allowed[1], batch,
-                                 1024, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
-                                 kflags, batch, h, w, tol2, max_iter)
-            : silt::launch_batch(cg_kernel<1024, false, kBigCells>, g_smem_allowed[2], batch,
+            : silt::launch_batch(cg_kernel<1024, false, kThreadCells>, g_smem_allowed[1], batch,
                                  1024, smem_bytes, stream, b, x0, fluid, face_u, face_v, x, iters,
                                  kflags, batch, h, w, tol2, max_iter);
     return static_cast<int>(err);

@@ -1,9 +1,11 @@
 // The loop skeleton that csrc/pcg.cu and csrc/cg.cu share: the whole-batch
 // stop test, the block reductions, the operator on one cell, the halo layout
 // of p in shared memory, and the launch as one cluster or a cooperative grid.
+// csrc/cg_cluster.cu takes the block reductions, the operator and
+// `allow_smem` from here.
 //
-// Both kernels run one batch element per thread block and the standard (P)CG
-// recurrence of the TPU kernels (solver_in_the_loop_tpu/ops/pallas/
+// pcg.cu and cg.cu run one batch element per thread block and the standard
+// (P)CG recurrence of the TPU kernels (solver_in_the_loop_tpu/ops/pallas/
 // cg_kernel.py), all iterations in one launch. Per iteration each needs its
 // dot products summed over the block and the whole batch's stop flag; the
 // helpers here do each with as few barriers and serial steps as they can.
@@ -50,7 +52,8 @@ __device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags,
     return __any_sync(0xffffffffu, any) != 0;
 }
 
-// Block-wide sums of N per-thread partials, left in every thread. Each warp
+// Block-wide sums of N per-thread partials (float or double), left in every
+// thread. Each warp
 // reduces its 32 partials with a shuffle tree; lane 0 writes the warp's sums
 // to red (N x 32 floats) and, after one barrier, every warp reads the warps'
 // sums one per lane (lanes beyond the warp count, rounded up to a power of
@@ -59,8 +62,8 @@ __device__ inline bool batch_busy(bool mine, int* busy, int& parity, int* flags,
 // bits in every lane, so every thread gets the same totals on every launch.
 // The caller guarantees that nobody still reads `red` from its previous use
 // (each kernel alternates two scratch buffers).
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
+template <int N, class T>
+__device__ __forceinline__ void block_sum(T (&v)[N], T* red) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int warps = blockDim.x >> 5;
@@ -78,7 +81,7 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
     while (span < warps) span <<= 1;
     const int src = lane & (span - 1);
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = src < warps ? red[32 * i + src] : 0.0f;
+    for (int i = 0; i < N; ++i) v[i] = src < warps ? red[32 * i + src] : T(0);
     for (int o = span >> 1; o > 0; o >>= 1) {
 #pragma unroll
         for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);

@@ -53,20 +53,11 @@
 // and Vx twice each, in the orientations the products read, with row
 // strides that put every fragment load on 32 banks.
 //
-// Shapes. On a field whose sides are multiples of 16 and that has at most
-// 16 tiles (the karman 64x32) the kernel takes the layout above (`kFast`).
-// Any other shape the gate takes (pcg_kernel_fits) runs the same loop with
-// up to 16 warps, a warp owning up to three tiles one by one (six where the
-// field has more than 48 tiles: (130, 65) has 81), the stripe barriers
-// replaced by block barriers, and the tiles padded with zeros by predicated
-// loads: rows and columns of Vy, Vx, invd and the fields beyond the domain
-// read as 0, so padded cells stay 0. Its shared memory is unpadded (p's
-// halo, r, two temporaries, one Vy and one Vx: 220,748 bytes at (130, 65)),
-// and pcg_smem_bytes in kernels/cg.py mirrors both layouts. That path
-// spills registers (660 bytes at three tiles a warp, 1,980 at six) and is
-// for correctness, not speed: about 32 us an iteration at (96, 48) and 80
-// at (130, 65), where the fast layout takes 4.7 at 64x32 (chip_smoke.py
-// `kernels` `pressure_route`, PERF.md).
+// Shapes. The kernel takes a field whose sides are multiples of 16 and that
+// has at most 16 tiles in at most 15 stripes (the karman 64x32); every
+// other shape runs csrc/cg_cluster.cu, one element over a cluster of
+// blocks (kernels/cg.py `pcg_solve`). pcg_smem_bytes in kernels/cg.py
+// mirrors the layout's shared memory.
 //
 // What bounds it on the H100. One iteration is about 0.85 MFLOP per element
 // at 64x32 (the four products 4*H*W*(H+W) = 786 kFLOP, 2.4 MFLOP of TF32
@@ -92,42 +83,38 @@ using silt::Acc;
 using silt::Cell;
 using silt::split_tf32;
 
-constexpr int kMaxWarps = 16;  // 512 threads: a block's warps, at most
-constexpr int kFastWarps = 8;  // the fast layout's: two tiles each
-constexpr int kMaxTiles = 6;   // tiles per warp of the general layout, at most
+constexpr int kWarps = 8;  // two tiles each
 constexpr int kFlushSteps = 4;  // k-steps of 8 between flushes of the accumulators
 
 // The smallest stride >= n that is m modulo 32.
 __host__ __device__ inline int stride_mod32(int n, int m) { return n + (((m - n) % 32) + 32) % 32; }
 
-// Shared-memory layout in floats: strides and offsets. The fast layout pads
-// each stride so that a fragment's 32 lanes hit 32 banks: an A operand's
-// lanes read (m + g, k + t), g < 8, t < 4, so its row stride is 4 mod 32; a
-// B operand stored k-major reads (k + t, n + g), row stride 8 mod 32; so r
-// and t1 (B operands) take 8, t0 (an A operand) 4, and Vy and Vx are kept
-// twice, each copy in the orientation one product reads, with stride 4. The
-// general layout has no padding and one copy of each (the first product
-// reads Vy, the second Vx, across their rows).
+// Shared-memory layout in floats: strides and offsets. Each stride is padded
+// so that a fragment's 32 lanes hit 32 banks: an A operand's lanes read
+// (m + g, k + t), g < 8, t < 4, so its row stride is 4 mod 32; a B operand
+// stored k-major reads (k + t, n + g), row stride 8 mod 32; so r and t1 (B
+// operands) take 8, t0 (an A operand) 4, and Vy and Vx are kept twice, each
+// copy in the orientation one product reads, with stride 4.
 struct Layout {
     int ps, ldr, ld0, ldy, ldx;  // strides: p's halo, r and t1, t0, Vy, Vx
     int r, t0, t1, vy, vyt, vx, vxt, words;
 };
 
-__host__ __device__ inline Layout pcg_layout(int h, int w, bool fast) {
+__host__ __device__ inline Layout pcg_layout(int h, int w) {
     Layout l;
-    l.ps = fast ? stride_mod32(w + 1, 8) : w + 1;
-    l.ldr = fast ? stride_mod32(w, 8) : w;
-    l.ld0 = fast ? stride_mod32(w, 4) : w;
-    l.ldy = fast ? stride_mod32(h, 4) : h;
-    l.ldx = fast ? stride_mod32(w, 4) : w;
+    l.ps = stride_mod32(w + 1, 8);
+    l.ldr = stride_mod32(w, 8);
+    l.ld0 = stride_mod32(w, 4);
+    l.ldy = stride_mod32(h, 4);
+    l.ldx = stride_mod32(w, 4);
     l.r = (h + 2) * l.ps;
     l.t0 = l.r + h * l.ldr;
     l.t1 = l.t0 + h * l.ld0;
     l.vy = l.t1 + h * l.ldr;
     l.vyt = l.vy + h * l.ldy;
-    l.vx = l.vyt + (fast ? h * l.ldy : 0);
+    l.vx = l.vyt + h * l.ldy;
     l.vxt = l.vx + w * l.ldx;
-    l.words = l.vxt + (fast ? w * l.ldx : 0);
+    l.words = l.vxt + w * l.ldx;
     return l;
 }
 
@@ -140,37 +127,31 @@ struct View {
 // The C fragments d[q] of kN 16x8 tiles side by side, at rows mb and
 // columns nb + 8q, of A (m x k) times B (k x n), over k < klen, in 3xTF32:
 // the tiles share each A fragment, loaded and split once. Every kFlushSteps
-// k-steps the three accumulators are added into the total. kChecked:
-// elements of A or B beyond (m, klen) and (klen, n) read as 0, the zero
-// padding of the tiles.
-template <bool kChecked, int kN>
+// k-steps the three accumulators are added into the total.
+template <int kN>
 __device__ __forceinline__ void tile_product(float (&d)[kN][4], const View& a, const View& b,
-                                             int mb, int nb, int m, int n, int klen) {
+                                             int mb, int nb, int klen) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const float* pa = a.p + (mb + g) * a.s0 + t * a.s1;
     const float* pb = b.p + t * b.s0 + (nb + g) * b.s1;
     const int a8 = 8 * a.s0, a4 = 4 * a.s1, b4 = 4 * b.s0, b8 = 8 * b.s1;
     const int ak = 8 * a.s1, bk = 8 * b.s0;
-    const bool m0 = !kChecked || mb + g < m, m1 = !kChecked || mb + g + 8 < m;
-    const bool n0 = !kChecked || nb + g < n;
     Acc acc[kN];
 #pragma unroll
     for (int q = 0; q < kN; ++q) acc[q].zero();
     const int steps = (klen + 7) >> 3;
 #pragma unroll 4
     for (int s = 0; s < steps; ++s) {
-        const int k = 8 * s + t;
-        const bool k0 = !kChecked || k < klen, k1 = !kChecked || k + 4 < klen;
         unsigned ab[4], as[4];
-        split_tf32(m0 && k0 ? pa[0] : 0.0f, ab[0], as[0]);
-        split_tf32(m1 && k0 ? pa[a8] : 0.0f, ab[1], as[1]);
-        split_tf32(m0 && k1 ? pa[a4] : 0.0f, ab[2], as[2]);
-        split_tf32(m1 && k1 ? pa[a8 + a4] : 0.0f, ab[3], as[3]);
+        split_tf32(pa[0], ab[0], as[0]);
+        split_tf32(pa[a8], ab[1], as[1]);
+        split_tf32(pa[a4], ab[2], as[2]);
+        split_tf32(pa[a8 + a4], ab[3], as[3]);
 #pragma unroll
         for (int q = 0; q < kN; ++q) {
             unsigned bb[2], bs[2];
-            split_tf32(k0 && n0 ? pb[q * b8] : 0.0f, bb[0], bs[0]);
-            split_tf32(k1 && n0 ? pb[q * b8 + b4] : 0.0f, bb[1], bs[1]);
+            split_tf32(pb[q * b8], bb[0], bs[0]);
+            split_tf32(pb[q * b8 + b4], bb[1], bs[1]);
             acc[q].mma(ab, as, bb, bs);
             if (s % kFlushSteps == kFlushSteps - 1) acc[q].flush();
         }
@@ -185,38 +166,32 @@ __device__ __forceinline__ void tile_product(float (&d)[kN][4], const View& a, c
     }
 }
 
-// Waits for the warps of stripe `stripe` (the fast layout: two tiles per
-// warp, the stripe's nq / 2 warps consecutive) or, in the general layout,
-// for the block.
-template <bool kFast>
+// Waits for the warps of stripe `stripe` (two tiles per warp, the stripe's
+// nq / 2 warps consecutive).
 __device__ __forceinline__ void stripe_sync(int stripe, int nq) {
-    if (kFast) asm volatile("bar.sync %0, %1;" ::"r"(1 + stripe), "r"(16 * nq) : "memory");
-    else __syncthreads();
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + stripe), "r"(16 * nq) : "memory");
 }
 
-// kTiles: the tiles a warp owns, at most (2 in the fast layout, 3 or
-// kMaxTiles in the general one).
-template <bool kFast, int kTiles>
-__global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
+__global__ void __launch_bounds__(kWarps * 32, 1)
     pcg_kernel(const float* __restrict__ b_all, const float* __restrict__ x0_all,
                const float* __restrict__ fluid, const float* __restrict__ face_u,
                const float* __restrict__ face_v, const float* __restrict__ vy_g,
                const float* __restrict__ vx_g, const float* __restrict__ invd_g,
                float* __restrict__ x_all, int* __restrict__ iters, int* __restrict__ flags,
                int batch, int h, int w, float tol2, int max_iter) {
-    static_assert(!kFast || kTiles == 2, "the fast layout gives a warp two tiles");
+    constexpr int kTiles = 2;  // per warp
     constexpr int kC = 4 * kTiles;  // cells per thread
     extern __shared__ __align__(16) float smem[];
     __shared__ float red_a[32];
     __shared__ float red_b[3 * 32];
     __shared__ int busy[2];  // the cluster's double-buffered "not converged" flag
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int n = h * w;
-    const int nq = (w + 7) >> 3, ntiles = ((h + 15) >> 4) * nq;
+    const int nq = (w + 7) >> 3;
     const long long off = static_cast<long long>(blockIdx.x) * n;
-    const Layout lay = pcg_layout(h, w, kFast);
+    const Layout lay = pcg_layout(h, w);
     float* ps = smem;
     float* rs_ = smem + lay.r;
     float* t0 = smem + lay.t0;
@@ -231,39 +206,34 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
     for (int k = tid; k < h * h; k += blockDim.x) {
         const int j = k / h, a = k - j * h;
         vy[j * lay.ldy + a] = vy_g[k];
-        if (kFast) vyt[a * lay.ldy + j] = vy_g[k];
+        vyt[a * lay.ldy + j] = vy_g[k];
     }
 #pragma unroll 4
     for (int k = tid; k < w * w; k += blockDim.x) {
         const int i = k / w, c = k - i * w;
         vx[i * lay.ldx + c] = vx_g[k];
-        if (kFast) vxt[c * lay.ldx + i] = vx_g[k];
+        vxt[c * lay.ldx + i] = vx_g[k];
     }
 
-    // this thread's cells: tile u of the warp is 2 * warp + u in the fast
-    // layout (two neighbours in a stripe), warp + u * warps in the general
-    // one; cell 4u + e of the thread is element e of the tile's C fragment
+    // this thread's cells: tile u of the warp is 2 * warp + u (two
+    // neighbours in a stripe); cell 4u + e of the thread is element e of the
+    // tile's C fragment
     int mb[kTiles], nb[kTiles];
-    bool tile_ok[kTiles];
-    unsigned real = 0;  // bit c: cell c lies in the domain
     float x[kC], r[kC], p[kC], ap[kC], z[kC], inv[kC], bv[kC];
     Cell cell[kC];
 #pragma unroll
     for (int u = 0; u < kTiles; ++u) {
-        const int tile = kFast ? 2 * warp + u : warp + u * warps;
-        tile_ok[u] = kFast || tile < ntiles;
+        const int tile = 2 * warp + u;
         mb[u] = 16 * (tile / nq);
         nb[u] = 8 * (tile - (tile / nq) * nq);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int c = 4 * u + e;
             const int j = mb[u] + g + 8 * (e >> 1), i = nb[u] + 2 * t + (e & 1);
-            const bool ok = kFast || (tile_ok[u] && j < h && i < w);
-            cell[c] = ok ? silt::load_cell(fluid, face_u, face_v, j, i, w) : Cell{0, 0, 0, 0, 0, 0};
-            inv[c] = ok ? invd_g[j * w + i] : 0.0f;
-            x[c] = ok ? x0_all[off + j * w + i] : 0.0f;
-            bv[c] = ok ? b_all[off + j * w + i] : 0.0f;
-            if (ok) real |= 1u << c;
+            cell[c] = silt::load_cell(fluid, face_u, face_v, j, i, w);
+            inv[c] = invd_g[j * w + i];
+            x[c] = x0_all[off + j * w + i];
+            bv[c] = b_all[off + j * w + i];
         }
     }
 
@@ -279,52 +249,38 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int c = 4 * u + e;
-                out[c] = 0.0f;
-                if (kFast || (real >> c & 1u)) {
-                    const int k = silt::halo_index(row(u, e), col(u, e), lay.ps);
-                    const float pe = (e & 1) ? ps[k + 1] : v[c ^ 1];
-                    const float pw = (e & 1) ? v[c ^ 1] : ps[k - 1];
-                    out[c] = silt::apply_cell(cell[c], v[c], pe, pw, ps[k + lay.ps], ps[k - lay.ps]);
-                }
+                const int k = silt::halo_index(row(u, e), col(u, e), lay.ps);
+                const float pe = (e & 1) ? ps[k + 1] : v[c ^ 1];
+                const float pw = (e & 1) ? v[c ^ 1] : ps[k - 1];
+                out[c] = silt::apply_cell(cell[c], v[c], pe, pw, ps[k + lay.ps], ps[k - lay.ps]);
             }
         }
     };
     // the four cells of tile u (a C fragment) into a matrix of row stride ld
     auto store_tile = [&](float* dst, int ld, int u, const float (&d)[4]) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (kFast || (real >> (4 * u + e) & 1u)) dst[row(u, e) * ld + col(u, e)] = d[e];
+        for (int e = 0; e < 4; ++e) dst[row(u, e) * ld + col(u, e)] = d[e];
     };
-    // a product on this warp's tiles, out(u, d) on tile u's fragment: in the
-    // fast layout both tiles at once (they share the A fragments)
+    // a product on this warp's tiles, out(u, d) on tile u's fragment: both
+    // tiles at once (they share the A fragments)
     auto product = [&](const View& a, const View& b, int klen, auto&& out) {
-        if constexpr (kFast) {
-            float d[2][4];
-            tile_product<false, 2>(d, a, b, mb[0], nb[0], h, w, klen);
-            out(0, d[0]);
-            out(1, d[1]);
-        } else {
-#pragma unroll
-            for (int u = 0; u < kTiles; ++u) {
-                if (!tile_ok[u]) continue;
-                float d[1][4];
-                tile_product<true, 1>(d, a, b, mb[u], nb[u], h, w, klen);
-                out(u, d[0]);
-            }
-        }
+        float d[2][4];
+        tile_product<2>(d, a, b, mb[0], nb[0], klen);
+        out(0, d[0]);
+        out(1, d[1]);
     };
     // z = Vy ((Vy^T r Vx) * invd) Vx^T, r in shared memory, z into this
     // thread's cells; one block barrier, in the middle
-    const View a_vyt = kFast ? View{vyt, lay.ldy, 1} : View{vy, 1, lay.ldy};  // (a, j) = Vy[j, a]
+    const View a_vyt{vyt, lay.ldy, 1};  // (a, j) = Vy[j, a]
     const View a_vy{vy, lay.ldy, 1};
     const View a_t0{t0, lay.ld0, 1};
     const View b_r{rs_, lay.ldr, 1};
     const View b_t1{t1, lay.ldr, 1};
-    const View b_vx = kFast ? View{vxt, 1, lay.ldx} : View{vx, lay.ldx, 1};  // (i, c) = Vx[i, c]
+    const View b_vx{vxt, 1, lay.ldx};  // (i, c) = Vx[i, c]
     const View b_vxt{vx, 1, lay.ldx};  // (c, i) = Vx[i, c]
     auto minv = [&]() {
         product(a_vyt, b_r, h, [&](int u, const float (&d)[4]) { store_tile(t0, lay.ld0, u, d); });
-        stripe_sync<kFast>(mb[0] >> 4, nq);  // t0 = Vy^T r
+        stripe_sync(mb[0] >> 4, nq);  // t0 = Vy^T r
         product(a_t0, b_vx, w, [&](int u, const float (&d)[4]) {
             float v[4];
 #pragma unroll
@@ -333,7 +289,7 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
         });
         __syncthreads();  // t1 = (t0 Vx) * invd
         product(a_vy, b_t1, h, [&](int u, const float (&d)[4]) { store_tile(t0, lay.ld0, u, d); });
-        stripe_sync<kFast>(mb[0] >> 4, nq);  // t0 = Vy t1
+        stripe_sync(mb[0] >> 4, nq);  // t0 = Vy t1
 #pragma unroll
         for (int c = 0; c < kC; ++c) z[c] = 0.0f;
         product(a_t0, b_vxt, w, [&](int u, const float (&d)[4]) {
@@ -348,7 +304,6 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int c = 4 * u + e;
-                if (!kFast && !(real >> c & 1u)) continue;
                 if (into_r) rs_[row(u, e) * lay.ldr + col(u, e)] = r[c];
                 else ps[silt::halo_index(row(u, e), col(u, e), lay.ps)] = p[c];
             }
@@ -421,15 +376,14 @@ __global__ void __launch_bounds__(kFast ? kFastWarps * 32 : kMaxWarps * 32, 1)
 #pragma unroll
     for (int u = 0; u < kTiles; ++u)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (kFast || (real >> (4 * u + e) & 1u)) x_all[off + row(u, e) * w + col(u, e)] = x[4 * u + e];
+        for (int e = 0; e < 4; ++e) x_all[off + row(u, e) * w + col(u, e)] = x[4 * u + e];
     if (blockIdx.x == 0 && tid == 0) *iters = it;
     // no block of a cluster leaves while a peer may still read its flags
     if (flags == nullptr) silt::cgr::this_cluster().sync();
 }
 
-// the dynamic shared memory each instantiation is allowed so far, per device
-int g_smem_allowed[3][silt::kMaxDevices] = {};
+// the dynamic shared memory the kernel is allowed so far, per device
+int g_smem_allowed[silt::kMaxDevices] = {};
 
 }  // namespace
 
@@ -438,7 +392,8 @@ int g_smem_allowed[3][silt::kMaxDevices] = {};
 // ints of scratch, used (and required) only for a batch above kMaxCluster.
 // All contiguous, on the current device. smem_bytes is the dynamic shared
 // memory of one block (pcg_smem_bytes in kernels/cg.py), which the kernel's
-// layout must fit. Returns the cudaError_t of the launch (0 on success).
+// layout must fit. Returns the cudaError_t of the launch (0 on success);
+// cudaErrorInvalidValue for a shape the layout does not take.
 extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* fluid,
                               const float* face_u, const float* face_v, const float* vy,
                               const float* vx, const float* invd, float* x, int* iters,
@@ -446,25 +401,16 @@ extern "C" int silt_pcg_solve(const float* b, const float* x0, const float* flui
                               int smem_bytes, void* stream) {
     if (h < 1 || w < 1 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
     const int stripes = (h + 15) / 16, tiles = stripes * ((w + 7) / 8);
-    // the fast layout: both sides multiples of 16 (a warp owns two tiles side
-    // by side), a named barrier per stripe (ids 1..15; 0 is __syncthreads)
-    const bool fast = h % 16 == 0 && w % 16 == 0 && tiles <= 2 * kFastWarps && stripes <= 15 &&
-                      4 * pcg_layout(h, w, true).words <= smem_bytes;
-    if (!fast && (tiles > kMaxTiles * kMaxWarps || 4 * pcg_layout(h, w, false).words > smem_bytes))
+    // both sides multiples of 16 (a warp owns two tiles side by side), a
+    // named barrier per stripe (ids 1..15; 0 is __syncthreads)
+    if (h % 16 != 0 || w % 16 != 0 || tiles > 2 * kWarps || stripes > 15 ||
+        4 * pcg_layout(h, w).words > smem_bytes)
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch > silt::kMaxCluster && flags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     int* kflags = batch > silt::kMaxCluster ? flags : nullptr;
-    const int threads = 32 * (fast ? tiles / 2 : (tiles < kMaxWarps ? tiles : kMaxWarps));
     const cudaError_t err =
-        fast ? silt::launch_batch(pcg_kernel<true, 2>, g_smem_allowed[0], batch, threads,
-                                  smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
-                                  x, iters, kflags, batch, h, w, tol2, max_iter)
-        : tiles <= 3 * kMaxWarps
-            ? silt::launch_batch(pcg_kernel<false, 3>, g_smem_allowed[1], batch, threads,
-                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
-                                 x, iters, kflags, batch, h, w, tol2, max_iter)
-            : silt::launch_batch(pcg_kernel<false, kMaxTiles>, g_smem_allowed[2], batch, threads,
-                                 smem_bytes, stream, b, x0, fluid, face_u, face_v, vy, vx, invd,
-                                 x, iters, kflags, batch, h, w, tol2, max_iter);
+        silt::launch_batch(pcg_kernel, g_smem_allowed, batch, 32 * (tiles / 2), smem_bytes, stream,
+                           b, x0, fluid, face_u, face_v, vy, vx, invd, x, iters, kflags, batch, h,
+                           w, tol2, max_iter);
     return static_cast<int>(err);
 }

@@ -32,6 +32,7 @@ SOURCES: Dict[str, list] = {
     "advect": ["--fmad=false"],
     "pcg": [],
     "cg": [],
+    "cg_cluster": [],
     "conv": [],
     "conv_bf16": [],
 }

@@ -5,9 +5,13 @@ preconditioner: CUDA kernels and their plain twins.
 solver_in_the_loop_tpu/ops/pallas/cg_kernel.py `_pcg_kernel` and
 `_pcg_kernel_folded`, `cg_solve` the unpreconditioned `_cg_kernel` and
 `_cg_kernel_folded` (all dispatched by ops/pallas/cg.py). On a CUDA tensor
-each launches its kernel (csrc/pcg.cu, csrc/cg.cu), which runs the whole loop
-in one launch; on a CPU tensor each runs its plain twin, the XLA reference's
-loop (`pcg_solve_info` and `cg_solve_info`,
+each launches a kernel that runs the whole loop in one launch: its one-block
+layout (csrc/pcg.cu, csrc/cg.cu: one element per thread block, the karman
+64x32) where that takes the element, else the cluster layout
+(csrc/cg_cluster.cu through `pcg_cluster_solve` and `cg_cluster_solve`: one
+element over a cluster of up to 16 blocks, sized by `cluster_plan`). On a
+CPU tensor each runs its plain twin, the XLA reference's loop
+(`pcg_solve_info` and `cg_solve_info`,
 solver_in_the_loop_tpu/ops/poisson.py:92-135, 191-228) with `.item()` stop
 checks.
 
@@ -22,8 +26,10 @@ output (train/trainer.py), and each reaches its kernel only through the
 module-level wrapper (`pcg_solve`, `cg_solve`), so replacing that wrapper
 replaces the kernel in both directions. `pcg_plain_solve_op`
 (`torch.ops.silt.pcg_plain_solve`) is the same differentiable solve on the
-plain FD-PCG loop, on any device: the route of a batch above MAX_BATCH
-(ops/poisson.py `pressure_route`).
+plain FD-PCG loop, on any device: the route of a shape no kernel takes
+off multigrid's sizes (ops/poisson.py `pressure_route`), and
+`periodic_cg_solve_op` (`torch.ops.silt.periodic_cg_solve`) the plain CG
+loop on the periodic operator, the route of a periodic problem.
 """
 
 from __future__ import annotations
@@ -36,23 +42,35 @@ import torch
 from solver_in_the_loop_torch.kernels import build
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
 
-# One thread block per batch element. A batch of at most MAX_CLUSTER is one
-# thread-block cluster; a larger one a cooperative grid, whose blocks (one
-# SM each) must all be resident at once: at most the H100 SXM's 132 SMs,
-# rounded down.
+# The fast layouts (csrc/pcg.cu, csrc/cg.cu) run one thread block per batch
+# element. A batch of at most MAX_CLUSTER is one thread-block cluster; a
+# larger one a cooperative grid, whose blocks (one SM each) must all be
+# resident at once: at most the H100 SXM's 132 SMs, rounded down.
 MAX_CLUSTER = 8
 MAX_BATCH = 128
 # 227 KB of dynamic shared memory per block on Hopper, less room for the
 # kernel's static reduction scratch
 SMEM_LIMIT_BYTES = 232448 - 1024
-# csrc/cg.cu keeps each thread's cells of x, r, p and A p in registers: at
-# most 12 cells for each of its threads, 1,024 on the largest fields
-CG_MAX_CELLS = 1024 * 12
-# csrc/pcg.cu cuts the field into 16x8 tiles: in its fast layout (both sides
-# multiples of 16, at most PCG_FAST_TILES tiles in at most 15 stripes of 16
-# rows) 8 warps own two each; else up to 16 warps own up to 6 each
+# csrc/cg.cu keeps each thread's cells of x, r, p and A p in registers: 8
+# cells for each of 256 threads, up to 2,048 cells (the karman 64x32), or of
+# 1,024 threads, up to CG_MAX_CELLS
+CG_MAX_CELLS = 1024 * 8
+# csrc/pcg.cu cuts the field into 16x8 tiles, 8 warps owning two each: both
+# sides multiples of 16, at most PCG_FAST_TILES tiles in at most 15 stripes
+# of 16 rows
 PCG_FAST_TILES = 16
-PCG_MAX_TILES = 16 * 6
+# csrc/cg_cluster.cu, every other shape, with or without the preconditioner:
+# one element over a cluster of up to CLUSTER_MAX blocks of CLUSTER_THREADS,
+# each owning a band of whole 16-row stripes; a batch of several elements
+# meets at a barrier of the whole grid, so its clusters must all be
+# resident at once
+CLUSTER_MAX = 16
+CLUSTER_THREADS = 512
+# cudaOccupancyMaxActiveClusters of csrc/cg_cluster.cu by cluster size
+# (1..CLUSTER_MAX blocks, one block per SM), read on an NVIDIA H100 80GB
+# HBM3 by chip_smoke.py's build phase, which requires the card to keep at
+# least these resident
+CLUSTER_RESIDENT = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 
 
 def _stride_mod32(n: int, m: int) -> int:
@@ -60,41 +78,60 @@ def _stride_mod32(n: int, m: int) -> int:
     return n + (m - n) % 32
 
 
-def _pcg_tiles(h: int, w: int) -> int:
-    return -(-h // 16) * -(-w // 8)
-
-
-def _pcg_layout_words(h: int, w: int, fast: bool) -> int:
-    """The floats of csrc/pcg.cu `pcg_layout`: p in its halo, r, t0, t1, Vy
-    and Vx, each once (general) or padded and Vy and Vx twice (fast)."""
-    ps, ldr, ld0, ldy, ldx = ((_stride_mod32(w + 1, 8), _stride_mod32(w, 8), _stride_mod32(w, 4),
-                               _stride_mod32(h, 4), _stride_mod32(w, 4)) if fast
-                              else (w + 1, w, w, h, w))
-    copies = 2 if fast else 1
-    return (h + 2) * ps + h * (2 * ldr + ld0) + copies * (h * ldy + w * ldx)
+def _pcg_fast(h: int, w: int) -> bool:
+    """Whether csrc/pcg.cu takes an (h, w) element in its layout of 8 warps of
+    two 16x8 tiles each (at 64x32: 84,288 bytes of shared memory)."""
+    tiles = -(-h // 16) * -(-w // 8)
+    return (h % 16 == 0 and w % 16 == 0 and tiles <= PCG_FAST_TILES and h // 16 <= 15
+            and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES)
 
 
 def pcg_smem_bytes(h: int, w: int) -> int:
-    """Dynamic shared memory a block of csrc/pcg.cu gets: the bytes of the
-    layout it takes, the fast one (at 64x32: 84,288) where the field's sides
-    are multiples of 16, it has at most PCG_FAST_TILES tiles and the layout
-    fits SMEM_LIMIT_BYTES, else the unpadded one (at (130, 65): 220,748). The
-    kernel takes the fast layout exactly where it is given its bytes. The one
-    source of this size: the gate reads it and the launch passes it."""
-    fast = (h % 16 == 0 and w % 16 == 0 and _pcg_tiles(h, w) <= PCG_FAST_TILES and h // 16 <= 15
-            and 4 * _pcg_layout_words(h, w, True) <= SMEM_LIMIT_BYTES)
-    return 4 * _pcg_layout_words(h, w, fast)
+    """Dynamic shared memory of a block of csrc/pcg.cu (`pcg_layout`): p in
+    its halo, r, t0 and t1, and Vy and Vx twice each, with row strides that
+    put every fragment load on 32 banks. The one source of this size: the
+    gate reads it and the launch passes it."""
+    ps, ldr, ld0, ldy, ldx = (_stride_mod32(w + 1, 8), _stride_mod32(w, 8), _stride_mod32(w, 4),
+                              _stride_mod32(h, 4), _stride_mod32(w, 4))
+    return 4 * ((h + 2) * ps + h * (2 * ldr + ld0) + 2 * (h * ldy + w * ldx))
+
+
+def cluster_smem_bytes(band: int, w: int, precon: bool) -> int:
+    """Dynamic shared memory of a block of csrc/cg_cluster.cu: with the
+    preconditioner two band buffers (t0, then t2, and z), `band` rows each
+    at a row stride that is 4 mod 32 (`band_stride`); none without."""
+    return 4 * 2 * band * _stride_mod32(w, 4) if precon else 0
+
+
+def cluster_plan(shape, precon: bool):
+    """(blocks per element, rows per block) that csrc/cg_cluster.cu takes for
+    a (B, H, W) problem, or None: the element's 16-row stripes cut into the
+    most bands of whole stripes, at most CLUSTER_MAX, such that the batch's
+    clusters can all be resident at once (CLUSTER_RESIDENT) and a block's
+    band buffers fit its shared memory (cluster_smem_bytes). At 256x128: 16
+    blocks of 16 rows; at 534x267: 12 of 48."""
+    b, h, w = shape
+    if not 1 <= b <= MAX_BATCH or h < 1 or w < 1:
+        return None
+    stripes = -(-h // 16)
+    for blocks in range(min(CLUSTER_MAX, stripes), 0, -1):
+        per = -(-stripes // blocks)
+        if -(-stripes // per) != blocks:  # the same bands as more blocks would take
+            continue
+        if (b <= CLUSTER_RESIDENT[blocks - 1]
+                and cluster_smem_bytes(16 * per, w, precon) <= SMEM_LIMIT_BYTES):
+            return blocks, 16 * per
+    return None
 
 
 def pcg_kernel_fits(shape) -> bool:
-    """Whether the fused kernel takes a (B, H, W) problem: the batch fits one
-    resident grid (MAX_BATCH), and one element's tiles the block's warps
-    (PCG_MAX_TILES) and its layout the block's shared memory. It stands for
-    the VMEM gate of solver_in_the_loop_tpu/ops/pallas/cg.py, which takes
-    far larger fields (16 live fields in 12 MiB: 196,608 cells)."""
+    """Whether the FD-preconditioned kernels take a (B, H, W) problem: the
+    fast layout of csrc/pcg.cu (a batch up to MAX_BATCH) or the cluster
+    layout of csrc/cg_cluster.cu (cluster_plan). Between them they take
+    every OPEN shape the VMEM gate of solver_in_the_loop_tpu/ops/pallas/
+    cg.py takes (ops/poisson.py `jax_kernel_gate`)."""
     b, h, w = shape
-    return (1 <= b <= MAX_BATCH and _pcg_tiles(h, w) <= PCG_MAX_TILES
-            and pcg_smem_bytes(h, w) <= SMEM_LIMIT_BYTES)
+    return (1 <= b <= MAX_BATCH and _pcg_fast(h, w)) or cluster_plan(shape, True) is not None
 
 
 def cg_smem_bytes(h: int, w: int) -> int:
@@ -105,11 +142,12 @@ def cg_smem_bytes(h: int, w: int) -> int:
 
 
 def cg_kernel_fits(shape) -> bool:
-    """Whether the unpreconditioned kernel takes a (B, H, W) problem: the
-    batch fits one resident grid and an element's cells the block's registers
-    (then its shared memory, cg_smem_bytes, is at most 96 KB)."""
+    """Whether the unpreconditioned kernels take a (B, H, W) problem:
+    csrc/cg.cu where an element's cells fit its block's registers (up to
+    CG_MAX_CELLS, a batch up to MAX_BATCH), else the cluster layout of
+    csrc/cg_cluster.cu (cluster_plan)."""
     b, h, w = shape
-    return 1 <= b <= MAX_BATCH and h * w <= CG_MAX_CELLS
+    return (1 <= b <= MAX_BATCH and h * w <= CG_MAX_CELLS) or cluster_plan(shape, False) is not None
 
 
 def batch_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -233,9 +271,8 @@ def _check(b, x0, fluid, face_u, face_v, vy, vx, invd):
             raise ValueError(f"pcg_solve: {name} must be a contiguous float32 {want[name]} "
                              f"tensor on {b.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not pcg_kernel_fits(b.shape):
-        raise ValueError(f"pcg_solve: {tuple(b.shape)} does not fit the kernel "
-                         f"(batch <= {MAX_BATCH}, at most {PCG_MAX_TILES} tiles, "
-                         f"{pcg_smem_bytes(h, w)} B shared memory <= {SMEM_LIMIT_BYTES} B)")
+        raise ValueError(f"pcg_solve: {tuple(b.shape)} does not fit the kernels (csrc/pcg.cu's "
+                         "layout, csrc/cg_cluster.cu's plans: kernels/cg.py cluster_plan)")
 
 
 def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: int):
@@ -244,15 +281,19 @@ def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: 
     b, x0 (B, H, W); fluid (1, H, W); face_u (1, H, W+1); face_v (1, H+1, W);
     vy (H, H), vx (W, W), invd (H, W) from ops.poisson.fd_factors. The whole
     batch stops together. Returns (x, iterations as a 0-d int32 tensor).
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    CPU tensors take the plain twin; CUDA tensors launch the kernel: the
+    fast layout of csrc/pcg.cu where it takes the element, else the cluster
+    layout (`pcg_cluster_solve`)."""
     if b.device.type == "cpu":
         return pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
     if b.device.type != "cuda":
         raise ValueError(f"pcg_solve: unsupported device {b.device}")
     _check(b, x0, fluid, face_u, face_v, vy, vx, invd)
+    bsz, h, w = b.shape
+    if not (bsz <= MAX_BATCH and _pcg_fast(h, w)):
+        return pcg_cluster_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
     fn = build.function("pcg", "silt_pcg_solve", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    bsz, h, w = b.shape
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
     flags = _stop_flags(b)
@@ -267,6 +308,74 @@ def pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: 
 
 
 pcg_solve.launches = 0
+
+
+def cg_cluster_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
+    """`cg_solve` in the cluster layout of csrc/cg_cluster.cu (z = r): the
+    shapes csrc/cg.cu does not take. CPU tensors take the plain twin."""
+    if b.device.type == "cpu":
+        return cg_solve_plain(b, x0, fluid, face_u, face_v, tol, max_iter)
+    _check_cg(b, x0, fluid, face_u, face_v)
+    out = _cluster_launch("cg_cluster_solve", b, x0, fluid, face_u, face_v, None, tol, max_iter)
+    cg_cluster_solve.launches += 1
+    return out
+
+
+cg_cluster_solve.launches = 0
+
+
+def _cluster_launch(what: str, b, x0, fluid, face_u, face_v, fd, tol: float, max_iter: int):
+    """One launch of csrc/cg_cluster.cu on the plan `cluster_plan` gives the
+    shape, with the FD factors `fd` (vy, vx, invd) or without (None):
+    returns (x, iterations as a 0-d int32 tensor)."""
+    bsz, h, w = b.shape
+    plan = cluster_plan(b.shape, fd is not None)
+    if plan is None:
+        raise ValueError(f"{what}: csrc/cg_cluster.cu takes no plan for {tuple(b.shape)} "
+                         "(kernels/cg.py cluster_plan)")
+    blocks, band = plan
+    fn = build.function("cg_cluster", "silt_cg_cluster_solve",
+                        [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    x = torch.empty_like(b)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    work = torch.empty((bsz, 3 if fd is None else 4, h, w), dtype=torch.float32, device=b.device)
+    # the grid barrier's counter and the stop flags of a batch of clusters
+    sync = torch.zeros(1 + 2 * bsz, dtype=torch.int32, device=b.device) if bsz > 1 else None
+    ptr = [None if t is None else t.data_ptr()
+           for t in (b, x0, fluid, face_u, face_v, *(fd or (None,) * 3), x, iters, work, sync)]
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(int(fd is not None), *ptr, bsz, h, w, blocks, band, tol * tol, max_iter, stream)
+    build.check(err, what)
+    return x, iters
+
+
+def pcg_cluster_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, max_iter: int):
+    """`pcg_solve` in the cluster layout of csrc/cg_cluster.cu, one element
+    over a cluster of blocks: the shapes the fast layout does not take.
+    CPU tensors take the plain twin."""
+    if b.device.type == "cpu":
+        return pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
+    _check(b, x0, fluid, face_u, face_v, vy, vx, invd)
+    out = _cluster_launch("pcg_cluster_solve", b, x0, fluid, face_u, face_v, (vy, vx, invd), tol,
+                          max_iter)
+    pcg_cluster_solve.launches += 1
+    return out
+
+
+pcg_cluster_solve.launches = 0
+
+
+def cluster_resident(precon: bool, w: int, blocks: int, band: int) -> int:
+    """The clusters of csrc/cg_cluster.cu (`blocks` blocks of `band` rows, at
+    width w) the current card keeps resident at once
+    (cudaOccupancyMaxActiveClusters): CLUSTER_RESIDENT's source."""
+    fn = build.function("cg_cluster", "silt_cg_cluster_resident",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    most = ctypes.c_int(0)
+    build.check(fn(int(precon), w, blocks, band, ctypes.addressof(most)), "cluster_resident")
+    return most.value
 
 
 @torch.library.custom_op(
@@ -307,9 +416,10 @@ pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)
            "Tensor vx, Tensor invd, float tol, int max_iter) -> (Tensor, Tensor)")
 def pcg_plain_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
     """The FD-preconditioned loop in plain PyTorch (`pcg_solve_plain`) as a
-    differentiable op in b, on any device: the pressure route of a batch
-    above MAX_BATCH (ops/poisson.py `pressure_route`, "pcg_plain"), as the
-    JAX package takes its XLA FD-PCG there. Returns (x, iterations)."""
+    differentiable op in b, on any device: the pressure route of a shape
+    that neither the kernels nor multigrid take, a batch above MAX_BATCH
+    (ops/poisson.py `pressure_route`, "pcg_plain"), as the JAX package takes
+    its XLA FD-PCG there. Returns (x, iterations)."""
     x, iters = pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
     return (x.clone() if x is x0 else x), iters
 
@@ -325,6 +435,30 @@ def _pcg_plain_backward(ctx, grad_x, _grad_iters):
 
 
 pcg_plain_solve_op.register_autograd(_pcg_plain_backward, setup_context=_pcg_setup)
+
+
+@torch.library.custom_op(
+    "silt::periodic_cg_solve", mutates_args=(),
+    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, float tol, "
+           "int max_iter) -> (Tensor, Tensor)")
+def periodic_cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
+    """The plain CG loop on the PERIODIC operator as a differentiable op in b,
+    on any device: the route of a periodic problem (ops/poisson.py
+    `pressure_route`, "periodic_cg"), the JAX package's XLA CG loop there on
+    every backend. Returns (x, iterations)."""
+    x, iters = cg_solve_info(masked_matvec(fluid, face_u, face_v, True), b, tol, max_iter, x0)
+    return (x.clone() if x is x0 else x), torch.tensor(iters, dtype=torch.int32, device=b.device)
+
+
+def _periodic_cg_backward(ctx, grad_x, _grad_iters):
+    """The cotangent of b is A^-1 grad_x (A is symmetric): a cold solve by the
+    same loop, as the JAX package's custom_linear_solve transposes it."""
+    grad_b = None
+    if ctx.needs_input_grad[0]:
+        g = grad_x.contiguous()
+        grad_b, _ = cg_solve_info(masked_matvec(*ctx.saved_tensors, True), g, ctx.tol,
+                                  ctx.max_iter, torch.zeros_like(g))
+    return (grad_b,) + (None,) * 6
 
 
 def cg_solve_plain(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
@@ -346,8 +480,9 @@ def _check_cg(b, x0, fluid, face_u, face_v):
             raise ValueError(f"cg_solve: {name} must be a contiguous float32 {want[name]} "
                              f"tensor on {b.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not cg_kernel_fits(b.shape):
-        raise ValueError(f"cg_solve: {tuple(b.shape)} does not fit the kernel "
-                         f"(batch <= {MAX_BATCH}, at most {CG_MAX_CELLS} cells per element)")
+        raise ValueError(f"cg_solve: {tuple(b.shape)} does not fit the kernels (csrc/cg.cu's "
+                         f"layouts: batch <= {MAX_BATCH}, at most {CG_MAX_CELLS} cells per "
+                         "element; csrc/cg_cluster.cu's plans: kernels/cg.py cluster_plan)")
 
 
 def cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
@@ -355,15 +490,19 @@ def cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
 
     b, x0 (B, H, W); fluid (1, H, W); face_u (1, H, W+1); face_v (1, H+1, W).
     The whole batch stops together. Returns (x, iterations as a 0-d int32
-    tensor). CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    tensor). CPU tensors take the plain twin; CUDA tensors launch the kernel:
+    csrc/cg.cu where an element's cells fit its registers, else the cluster
+    layout (`cg_cluster_solve`)."""
     if b.device.type == "cpu":
         return cg_solve_plain(b, x0, fluid, face_u, face_v, tol, max_iter)
     if b.device.type != "cuda":
         raise ValueError(f"cg_solve: unsupported device {b.device}")
     _check_cg(b, x0, fluid, face_u, face_v)
+    bsz, h, w = b.shape
+    if not (bsz <= MAX_BATCH and h * w <= CG_MAX_CELLS):
+        return cg_cluster_solve(b, x0, fluid, face_u, face_v, tol, max_iter)
     fn = build.function("cg", "silt_cg_solve", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    bsz, h, w = b.shape
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
     flags = _stop_flags(b)
@@ -407,3 +546,4 @@ def _cg_backward(ctx, grad_x, _grad_iters):
 
 
 cg_solve_op.register_autograd(_cg_backward, setup_context=_cg_setup)
+periodic_cg_solve_op.register_autograd(_periodic_cg_backward, setup_context=_cg_setup)

@@ -4,16 +4,17 @@ Port of solver_in_the_loop_tpu/ops/poisson.py: matrix-free CG on the masked
 5-point Poisson operator, with the fast-diagonalization (FD) preconditioner,
 without it, or with a multigrid V-cycle. `solve_pressure` dispatches as the
 JAX package does (`pressure_route`): on CUDA to the fused kernel of
-kernels/cg.py that the preconditioner option names (csrc/pcg.cu or
-csrc/cg.cu) wherever its gate takes the shape, else to multigrid
-(ops/multigrid.py) where the JAX package takes it; on the CPU to multigrid
-where the JAX package takes it off the TPU, else to the kernel's plain twin;
-on either device a batch above the kernels' MAX_BATCH, off multigrid, to the
-plain FD-PCG loop, the JAX package's route there. The plain loops, `pcg_solve_info` and
-`cg_solve_info`, live beside the kernels in kernels/cg.py. The OPEN-boundary
-solve is differentiable in its right-hand side on every route: the backward
-is a cold solve of the same system by the same solver (`pcg_solve_op`,
-`cg_solve_op`, `mg_solve_op`, `pcg_plain_solve_op`).
+kernels/cg.py that the preconditioner option names wherever the JAX
+package's Pallas gate takes the shape, else to multigrid (ops/multigrid.py)
+where the JAX package takes it, else to the kernel where it takes the shape
+and to the plain FD-PCG loop where it does not; on the CPU to multigrid
+where the JAX package takes it off the TPU, else to the kernel's plain twin
+(the plain FD-PCG loop above the kernels' MAX_BATCH). A periodic problem
+takes the plain CG loop on either device. The plain loops, `pcg_solve_info`
+and `cg_solve_info`, live beside the kernels in kernels/cg.py. The solve is
+differentiable in its right-hand side on every route: the backward is a cold
+solve of the same system by the same solver (`pcg_solve_op`, `cg_solve_op`,
+`mg_solve_op`, `pcg_plain_solve_op`, `periodic_cg_solve_op`).
 """
 
 from __future__ import annotations
@@ -30,13 +31,12 @@ from solver_in_the_loop_torch.core.grids import Domain, StaggeredGrid
 from solver_in_the_loop_torch.kernels.cg import (
     MAX_BATCH,
     cg_kernel_fits,
-    cg_solve_info,
     cg_solve_op,
     fd_apply,
-    masked_matvec,
     pcg_kernel_fits,
     pcg_plain_solve_op,
     pcg_solve_op,
+    periodic_cg_solve_op,
 )
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
 
@@ -111,53 +111,71 @@ def fd_minv(ny: int, nx: int, device=None):
     return fd_apply(*fd_factors(ny, nx, torch.device(device or "cpu")))
 
 
+# The JAX package's gate of its fused Pallas CG kernel, the port's own copy
+# of its arithmetic (solver_in_the_loop_tpu/ops/pallas/cg.py:17-60
+# `_vmem_estimate`), as the kernel runs with both hardware markers of
+# artifacts/perf/ (batched_cg_ok, and fd_pcg_ok where precon is "fd"): 16
+# live (B, H, W) fields, and for a batch the (B*W)^2 segment-sum matrix (with
+# the preconditioner also kron(I_B, Vx) twice, Vy twice and invd), under 12
+# MiB of VMEM.
+_JAX_VMEM_BUDGET_BYTES = 12 * 1024 * 1024
+_JAX_CG_BUFFERS = 16
+
+
+def jax_kernel_gate(shape, precon: str = "fd") -> bool:
+    """Whether the JAX package runs its Pallas CG kernel on a (B, H, W) OPEN
+    problem on the TPU: at 256x128 a batch up to 3 with the preconditioner
+    and up to 5 without; one element up to (534, 267) and (626, 313)."""
+    b, h, w = shape
+    field = 4 * h * w
+    fd = precon == "fd"
+    if b > 1:
+        bw = b * w
+        total = _JAX_CG_BUFFERS * b * field + 4 * bw * bw
+        if fd:
+            total += 8 * bw * bw + 8 * h * h + b * field
+    else:
+        total = _JAX_CG_BUFFERS * field
+        if fd:
+            total += 8 * h * h + 8 * w * w + field
+    return total < _JAX_VMEM_BUDGET_BYTES
+
+
 def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") -> str:
     """The solver `solve_pressure` runs for a (B, H, W) problem on `device`:
-    "pcg" or "cg" (the fused kernel with the FD preconditioner or without it
-    on CUDA, its plain twin on the CPU), "multigrid", "pcg_plain" (the plain
-    FD-PCG loop, a batch above MAX_BATCH) or "periodic_cg" (the plain CG
-    loop, CPU only).
+    "pcg" or "cg" (the fused kernels with the FD preconditioner or without it
+    on CUDA, their plain twin on the CPU), "multigrid", "pcg_plain" (the
+    plain FD-PCG loop) or "periodic_cg" (the plain CG loop).
 
-    On CUDA it takes the kernel where its gate takes the shape (a batch of
-    at most MAX_BATCH: one cluster up to 8, a cooperative grid above), as
-    the JAX package takes its Pallas kernel where the VMEM gate of
-    ops/pallas/cg.py takes it, and else multigrid where the JAX package
-    would (`_mg_applicable`); on the CPU multigrid where the JAX package
-    takes it off the TPU and else the kernel's twin. A batch above MAX_BATCH
-    that multigrid does not take runs the plain FD-PCG loop on either
-    device, whichever `precon` names: that is the JAX package's route there.
-    Its VMEM gate (ops/pallas/cg.py:29-60) sizes the batched kernel, 16 live
-    (B, H, W) fields and the (B*W)^2 segment-sum and Vx matrices, far above
-    its 12 MiB budget at (129, 64, 32), and its XLA route off the Pallas
-    kernel (ops/poisson.py:292-299) is FD-preconditioned in either case. The
-    route depends on the shape alone: no kernel error lands there. Raises
-    NotImplementedError for what no route of the port solves on the card:
-    a periodic problem, and an element beyond both kernels' gates off
-    multigrid's sizes (with the preconditioner, (1, 134, 67))."""
+    On CUDA it follows the JAX package on the TPU: the kernel wherever the
+    JAX package's Pallas gate takes the shape (`jax_kernel_gate`), which the
+    port's kernels all take (the fast layouts of csrc/pcg.cu and csrc/cg.cu,
+    else the cluster layout of csrc/cg_cluster.cu); else multigrid where the
+    JAX package takes it (`_mg_applicable`); else the kernel where it takes
+    the shape (a batch up to MAX_BATCH at 64x32, where the JAX package runs
+    its XLA FD-PCG loop), and the plain FD-PCG loop, which that loop is,
+    where it does not. The JAX package's XLA route off its Pallas kernel
+    (ops/poisson.py:275-283) is FD-preconditioned whichever precon names.
+    On the CPU multigrid where the JAX package takes it off the TPU, the
+    plain FD-PCG loop above MAX_BATCH, else the kernel's twin. A periodic
+    problem takes the plain CG loop on either device, the JAX package's
+    route there on any backend. The route depends on the shape alone: no
+    kernel error lands on another route."""
     if precon not in PRECONS:
         raise ValueError(f"precon must be one of {PRECONS}, got {precon!r}")
-    on_card = torch.device(device).type == "cuda"
     if periodic:
-        if on_card:
-            raise NotImplementedError(
-                "periodic pressure solve on CUDA: the JAX package solves periodic systems "
-                "with its XLA CG loop (ops/poisson.py cg_solve_info), which is no Pallas "
-                "kernel and is on no ported path yet")
         return "periodic_cg"
     kernel = "pcg" if precon == "fd" else "cg"
-    fits = pcg_kernel_fits if precon == "fd" else cg_kernel_fits
-    if on_card and fits(shape):
-        return kernel
+    if torch.device(device).type == "cuda":
+        fits = (pcg_kernel_fits if precon == "fd" else cg_kernel_fits)(shape)
+        if fits and jax_kernel_gate(shape, precon):
+            return kernel
+        if _mg_applicable(shape):
+            return "multigrid"
+        return kernel if fits else "pcg_plain"
     if _mg_applicable(shape):
         return "multigrid"
-    if shape[0] > MAX_BATCH:
-        return "pcg_plain"
-    if on_card:
-        raise NotImplementedError(
-            f"pressure solve at {tuple(shape)} on CUDA: the fused {kernel.upper()} kernel does "
-            "not take the element (kernels/cg.py pcg_kernel_fits, cg_kernel_fits) and the JAX "
-            "package would not take multigrid there (ops/poisson.py _mg_applicable)")
-    return kernel
+    return "pcg_plain" if shape[0] > MAX_BATCH else kernel
 
 
 def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = False,
@@ -178,9 +196,7 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
           else torch.where(fluid > 0, x0.detach(), 0.0)).contiguous()
     route = pressure_route(rhs.shape, div.device, periodic, precon)
     if route == "periodic_cg":
-        x, iters = cg_solve_info(masked_matvec(fluid, masks.face_u, masks.face_v, True),
-                                 rhs, tol, max_iter, x0)
-        return x, torch.tensor(iters, dtype=torch.int32, device=div.device)
+        return periodic_cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
     if route == "multigrid":
         from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
 

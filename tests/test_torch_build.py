@@ -87,7 +87,10 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     assert [p.name for p in build._inputs("pcg")] == ["pcg.cu", "cg_common.cuh", "tf32.cuh"]
     assert [p.name for p in build._inputs("conv")] == ["conv.cu", "tf32.cuh"]
-    for header, users in (("cg_common.cuh", {"pcg", "cg"}), ("tf32.cuh", {"pcg", "conv"})):
+    assert [p.name for p in build._inputs("cg_cluster")] == ["cg_cluster.cu", "cg_common.cuh",
+                                                             "tf32.cuh"]
+    for header, users in (("cg_common.cuh", {"pcg", "cg", "cg_cluster"}),
+                          ("tf32.cuh", {"pcg", "conv", "cg_cluster"})):
         before = {name: build._lib_path(name) for name in build.SOURCES}
         with open(csrc / header, "a") as f:
             f.write("// edited\n")

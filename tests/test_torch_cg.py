@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from solver_in_the_loop_tpu.ops import poisson as jp
+from solver_in_the_loop_tpu.ops.pallas import cg as jax_pallas_cg
 from solver_in_the_loop_tpu.ops.pallas.cg_kernel import fused_cg_solve
 from solver_in_the_loop_tpu.physics import karman as jk
 
@@ -167,12 +168,14 @@ def test_cg_solve_wrapper_takes_plain_twin_on_cpu():
 def test_cg_kernel_gate():
     for batch in (1, 5, 8):
         assert tcg.cg_kernel_fits((batch, 64, 32))
-    assert tcg.cg_kernel_fits((8, 128, 64))  # 8 cells per thread
-    assert tcg.cg_kernel_fits((1, 130, 65))  # 12 cells per thread
-    assert not tcg.cg_kernel_fits((1, 158, 79))  # beyond 12 cells per thread
+    assert tcg.cg_kernel_fits((8, 128, 64))  # 8 cells per thread of csrc/cg.cu
+    # beyond csrc/cg.cu's registers: the cluster layout, up to the largest
+    # element and 256x128 batch the JAX package's gate takes without the
+    # preconditioner
+    for shape in ((1, 130, 65), (1, 158, 79), (5, 256, 128), (1, 626, 313)):
+        assert tcg.cg_kernel_fits(shape) and tcg.cluster_plan(shape, False) is not None
     assert tcg.cg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
     assert not tcg.cg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
-    assert not tcg.cg_kernel_fits((1, 256, 128))  # hi-res: multigrid
     assert not tcg.cg_kernel_fits((0, 64, 32))
     assert tcg.cg_smem_bytes(64, 32) == 4 * 66 * 33  # p in a halo of zeros
 
@@ -192,31 +195,90 @@ def test_pressure_route(shape, device, precon, route):
     assert tp.pressure_route(shape, device, precon=precon) == route
 
 
-def test_pressure_route_refusals():
-    with pytest.raises(NotImplementedError, match="periodic"):
-        tp.pressure_route((1, 32, 32), "cuda", periodic=True)
-    assert tp.pressure_route((1, 32, 32), "cpu", periodic=True) == "periodic_cg"
-    # more than one cluster: the kernel as a cooperative grid, as the JAX
-    # package's Pallas kernel takes it; more than one resident grid: the
-    # plain FD-PCG loop on either device, the JAX package's XLA route there,
-    # either precon
-    for precon, kernel in (("fd", "pcg"), ("none", "cg")):
-        assert tp.pressure_route((9, 64, 32), "cuda", precon=precon) == kernel
-        assert tp.pressure_route((9, 64, 32), "cpu", precon=precon) == kernel
-        assert tp.pressure_route((129, 64, 32), "cuda", precon=precon) == "pcg_plain"
-        assert tp.pressure_route((129, 64, 32), "cpu", precon=precon) == "pcg_plain"
+# the widths of the grid of OPEN (B, 2W, W) shapes the CUDA route is held to:
+# every 12th from 32 to 300, and the karman resolutions at the JAX gate's
+# edges (-r 67 and -r 79, refused on the card before the cluster layout;
+# 128 and 192; 267 and 268, the largest element and the first beyond)
+ROUTE_GRID_W = sorted(set(range(32, 301, 12)) | {64, 67, 79, 128, 192, 267, 268, 300})
+
+
+def _jax_route(shape, precon):
+    """The JAX package's route on the TPU, with both hardware markers: its
+    Pallas kernel where its VMEM gate takes the shape, else multigrid where
+    it applies, else its XLA FD-PCG loop."""
+    est = jax_pallas_cg._vmem_estimate(shape, batched=True, precon=precon == "fd")
+    if est < jax_pallas_cg._VMEM_BUDGET_BYTES:
+        return "kernel"
+    return "multigrid" if jp._mg_applicable(shape) else "xla"
+
+
+@pytest.mark.parametrize("case", [("grid", w) for w in ROUTE_GRID_W] + [
+    ("periodic",), ("cluster",), ("above_max_batch",), ("general",), ("refused_before",),
+    ("precon",)])
+def test_pressure_route_refusals(case):
+    """No OPEN or periodic shape raises on either device. On the grid (B up to
+    16 at each width, both precons) the CUDA route is the kernel wherever the
+    JAX package's gate takes the shape (its own function, imported), and the
+    kernel takes it; multigrid where the JAX package takes that; elsewhere
+    the kernel where it takes the shape, else the plain FD-PCG loop, the
+    JAX package's XLA route. The port's copy of the gate agrees with it; the
+    CPU route is multigrid where it applies, else the kernel's twin."""
+    kind = case[0]
+    if kind == "grid":
+        w = case[1]
+        for precon, kernel in (("fd", "pcg"), ("none", "cg")):
+            fits = tcg.pcg_kernel_fits if precon == "fd" else tcg.cg_kernel_fits
+            for b in range(1, 17):
+                shape = (b, 2 * w, w)
+                jax_route = _jax_route(shape, precon)
+                route = tp.pressure_route(shape, "cuda", precon=precon)
+                assert tp.jax_kernel_gate(shape, precon) == (jax_route == "kernel"), shape
+                if jax_route == "kernel":
+                    assert route == kernel and fits(shape), (shape, precon, route)
+                elif jax_route == "multigrid":
+                    assert route == "multigrid", (shape, precon, route)
+                else:
+                    assert route == (kernel if fits(shape) else "pcg_plain"), (shape, precon)
+                cpu = tp.pressure_route(shape, "cpu", precon=precon)
+                assert cpu == ("multigrid" if jp._mg_applicable(shape) else kernel), shape
+    elif kind == "periodic":
+        # the plain CG loop on either device, the JAX package's route there
+        for device in ("cuda", "cpu"):
+            for precon in ("fd", "none"):
+                assert tp.pressure_route((1, 32, 32), device, periodic=True,
+                                         precon=precon) == "periodic_cg"
+    elif kind == "cluster":
+        # more than one cluster: the kernel as a cooperative grid, as the JAX
+        # package's Pallas kernel takes it
+        for precon, kernel in (("fd", "pcg"), ("none", "cg")):
+            assert tp.pressure_route((9, 64, 32), "cuda", precon=precon) == kernel
+            assert tp.pressure_route((9, 64, 32), "cpu", precon=precon) == kernel
+    elif kind == "above_max_batch":
+        # more than one resident grid: the plain FD-PCG loop on either device,
+        # the JAX package's XLA route there, either precon
+        for precon in ("fd", "none"):
+            assert tp.pressure_route((129, 64, 32), "cuda", precon=precon) == "pcg_plain"
+            assert tp.pressure_route((129, 64, 32), "cpu", precon=precon) == "pcg_plain"
+    elif kind == "general":
         # -r 48 and -r 65: off multigrid, where the JAX package takes its
-        # Pallas kernel, the kernels' general layouts
-        for shape in ((1, 96, 48), (1, 130, 65)):
-            assert tp.pressure_route(shape, "cuda", precon=precon) == kernel
-            assert tp.pressure_route(shape, "cpu", precon=precon) == kernel
-    # beyond the PCG's shared memory, off multigrid: refused on the card,
-    # where the plain CG kernel still takes it; beyond both
-    with pytest.raises(NotImplementedError, match="does not take the element"):
-        tp.pressure_route((1, 134, 67), "cuda", precon="fd")
-    assert tp.pressure_route((1, 134, 67), "cuda", precon="none") == "cg"
-    assert tp.pressure_route((1, 134, 67), "cpu", precon="fd") == "pcg"
-    with pytest.raises(NotImplementedError, match="does not take the element"):
-        tp.pressure_route((1, 158, 79), "cuda", precon="none")
-    with pytest.raises(ValueError):
-        tp.pressure_route((1, 64, 32), "cpu", precon="jacobi")
+        # Pallas kernel
+        for precon, kernel in (("fd", "pcg"), ("none", "cg")):
+            for shape in ((1, 96, 48), (1, 130, 65)):
+                assert tp.pressure_route(shape, "cuda", precon=precon) == kernel
+                assert tp.pressure_route(shape, "cpu", precon=precon) == kernel
+    elif kind == "refused_before":
+        # beyond the one-block layouts off multigrid's sizes, once refused on
+        # the card: the cluster layout
+        assert tp.pressure_route((1, 134, 67), "cuda", precon="fd") == "pcg"
+        assert tp.pressure_route((1, 134, 67), "cuda", precon="none") == "cg"
+        assert tp.pressure_route((1, 134, 67), "cpu", precon="fd") == "pcg"
+        assert tp.pressure_route((1, 158, 79), "cuda", precon="none") == "cg"
+        assert tp.pressure_route((1, 534, 267), "cuda", precon="fd") == "pcg"
+        # the PRE generator's hi-res solves: the kernel, as the JAX package
+        # takes its Pallas kernel at (1..3, 256, 128), multigrid at 6
+        assert tp.pressure_route((3, 256, 128), "cuda", precon="fd") == "pcg"
+        assert tp.pressure_route((5, 256, 128), "cuda", precon="none") == "cg"
+        assert tp.pressure_route((6, 256, 128), "cuda", precon="fd") == "multigrid"
+    else:
+        with pytest.raises(ValueError):
+            tp.pressure_route((1, 64, 32), "cpu", precon="jacobi")

@@ -526,15 +526,17 @@ def test_rollout_without_preconditioner_matches_plain(device):
 
 
 def test_multigrid_route_on_the_card_matches_cpu(device):
-    """At 256x128 neither kernel takes the element: the card takes multigrid
-    (no kernel launch), with the CPU's result and a gradient."""
-    rhs, masks = _cg_problem(device, 2, karman_domain(128), seed=6)
+    """At 256x128 and batch 6, beyond the JAX package's Pallas gate, the card
+    takes multigrid as the JAX package does (no kernel launch), with the
+    CPU's result and a gradient."""
+    rhs, masks = _cg_problem(device, 6, karman_domain(128), seed=6)
     assert pressure_route(rhs.shape, device) == "multigrid"
-    launches = (cg_solve.launches, pcg_solve.launches)
+    kernels = (cg_solve, pcg_solve, cg.cg_cluster_solve, cg.pcg_cluster_solve)
+    launches = [k.launches for k in kernels]
     div = (-rhs).requires_grad_()
     p, iters = solve_pressure(div, masks)
     p.sum().backward()
-    assert (cg_solve.launches, pcg_solve.launches) == launches
+    assert [k.launches for k in kernels] == launches
     cpu_masks = KarmanFlow(karman_domain(128), advection="shift").masks
     p_cpu, _ = solve_pressure(-rhs.cpu(), cpu_masks)
     assert 0 < int(iters) < 200 and torch.isfinite(div.grad).all()
@@ -604,15 +606,16 @@ def test_plain_fd_pcg_route_on_the_card_matches_cpu(device, precon):
 @pytest.mark.parametrize("batch,res,precon", [(1, 48, "fd"), (1, 65, "fd"), (1, 65, "none"),
                                               (2, 64, "fd")])
 def test_general_layout_route_on_the_card_matches_cpu(device, batch, res, precon):
-    """Off multigrid's sizes (-r 48, -r 65) and at 128x64 the kernel that
-    precon names takes the element in its general layout (the PCG's three
-    or six tiles a warp, the plain CG's 12 cells a thread), forward and
-    adjoint: the card's solution and gradient against the CPU's with the
-    same precon (at 128x64 the CPU's multigrid), its iterations against
-    the kernel's twin on the CPU."""
+    """Off multigrid's sizes (-r 48, -r 65) and at 128x64, where the general
+    layouts of the one-block kernels ran until the cluster layout replaced
+    them, the kernel that precon names takes the element in the cluster
+    layout (csrc/cg_cluster.cu), forward and adjoint, two launches: the
+    card's solution and gradient against the CPU's with the same precon (at
+    128x64 the CPU's multigrid), its iterations against the kernel's twin
+    on the CPU in float32."""
     rhs, masks = _cg_problem(device, batch, karman_domain(res), seed=res)
-    kernel, twin, tol = {"fd": (pcg_solve, pcg_solve_plain, parity.PCG_ITER_TOL),
-                         "none": (cg_solve, cg_solve_plain, parity.CG_ITER_TOL)}[precon]
+    kernel, twin, tol = {"fd": (cg.pcg_cluster_solve, pcg_solve_plain, parity.PCG_ITER_TOL),
+                         "none": (cg.cg_cluster_solve, cg_solve_plain, parity.CG_ITER_TOL)}[precon]
     assert pressure_route(rhs.shape, device, precon=precon) == {"fd": "pcg", "none": "cg"}[precon]
     cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(12),
                       device=device)
@@ -632,6 +635,96 @@ def test_general_layout_route_on_the_card_matches_cpu(device, batch, res, precon
     assert 0 < int(iters) < 1000 and abs(int(iters) - int(iters_cpu)) <= tol
     assert _rel(p.detach().cpu(), p_cpu.detach()) <= parity.PCG_REL_TOL
     assert _rel(grad.cpu(), grad_cpu) <= parity.TRAIN_PARITY_TOL["head_grad"]
+
+
+# (batch, res, precon) of the cluster layout where the JAX package's gate
+# takes its Pallas kernel and the card refused the shape or took multigrid
+# before: -r 67, -r 79, 256x128 at its batches, -r 192, -r 267
+CLUSTER_CASES = [(1, 67, "fd"), (1, 79, "none"), (1, 128, "fd"), (3, 128, "fd"),
+                 (5, 128, "none"), (1, 192, "fd"), (1, 267, "fd")]
+
+
+@pytest.mark.parametrize("batch,res,precon", CLUSTER_CASES)
+def test_cluster_layout_matches_plain(device, batch, res, precon):
+    """csrc/cg_cluster.cu, the route there, through its wrapper against the
+    plain twin, cold and warm, one launch each: the solution within
+    PCG_REL_TOL / CG_REL_TOL of the twin's on the card, the same bits from a
+    second launch; and the adjoint, a cold solve by the same layout through
+    the differentiable op, against the plain path's. The iteration count is
+    not held here: on these random fields the float32 loop's count is
+    rounding's, the twin's on the card and on the CPU parting by up to 2 at
+    534x267 and the kernel's from both by 6 (220 against 212 and 214);
+    chip_smoke.py's `pressure_route` cases hold it on karman fields."""
+    from unittest import mock
+
+    rhs, masks = _cg_problem(device, batch, karman_domain(res), seed=res + batch)
+    pre = precon == "fd"
+    assert pressure_route(rhs.shape, device, precon=precon) == ("pcg" if pre else "cg")
+    kernel, twin, op = ((cg.pcg_cluster_solve, pcg_solve_plain, cg.pcg_solve_op) if pre
+                        else (cg.cg_cluster_solve, cg_solve_plain, cg.cg_solve_op))
+    rel_tol = parity.PCG_REL_TOL if pre else parity.CG_REL_TOL
+    ops = (masks.fluid, masks.face_u, masks.face_v,
+           *(fd_factors(rhs.shape[1], rhs.shape[2], device) if pre else ()))
+    for x0 in (torch.zeros_like(rhs), (0.1 * rhs).contiguous()):
+        args = (rhs, x0, *ops, 1e-5, 4000)
+        launches = kernel.launches
+        x_k, it_k = kernel(*args)
+        assert kernel.launches == launches + 1
+        x_p, _ = twin(*args)
+        assert 0 < int(it_k) < 4000 and _rel(x_k, x_p) <= rel_tol
+        x_again, it_again = kernel(*args)  # fixed-order sums: the same bits
+        assert torch.equal(x_k, x_again) and int(it_k) == int(it_again)
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(13),
+                      device=device)
+
+    def grad():
+        b = rhs.clone().requires_grad_()
+        x, _ = op(b, torch.zeros_like(rhs), *ops, 1e-5, 4000)
+        return torch.autograd.grad(x, b, cot)[0]
+
+    launches = kernel.launches
+    with mock.patch.object(cg, "pcg_solve" if pre else "cg_solve", kernel):
+        got = grad()
+    assert kernel.launches == launches + 2  # forward and adjoint
+    with parity.plain_path():
+        want = grad()
+    assert _rel(got, want) <= rel_tol
+
+
+def test_periodic_solve_on_the_card_matches_cpu(device):
+    """A periodic problem takes the plain CG loop on the card as on the CPU,
+    the JAX package's route there, forward and a cold adjoint, no kernel
+    launch: the card's solution and gradient against the CPU's. The right-
+    hand side and the cotangent have zero mean on the fluid cells, whose
+    constants are the periodic operator's null space."""
+    h, w = 48, 40
+    fluid = torch.ones(1, h, w)
+    fluid[:, 18:26, 14:22] = 0.0
+    dom = Domain((h, w), (float(h), float(w)), Boundary.PERIODIC)
+    masks = masks_from_fluid_cells(fluid.to(device), dom)
+    cpu_masks = masks_from_fluid_cells(fluid, dom)
+    gen = torch.Generator().manual_seed(14)
+
+    def zero_mean(a):
+        a = a * fluid
+        return (a - fluid * a.sum(dim=(1, 2), keepdim=True) / fluid.sum()).contiguous()
+
+    div, cot = zero_mean(torch.randn(2, h, w, generator=gen)), zero_mean(
+        torch.randn(2, h, w, generator=gen))
+    assert pressure_route(div.shape, device, periodic=True) == "periodic_cg"
+    kernels = (cg_solve, pcg_solve, cg.cg_cluster_solve, cg.pcg_cluster_solve)
+    launches = [k.launches for k in kernels]
+    results = []
+    for where, ms in ((device, masks), ("cpu", cpu_masks)):
+        d = div.to(where).requires_grad_()
+        p, iters = solve_pressure(d, ms, periodic=True)
+        (g,) = torch.autograd.grad(p, d, cot.to(where))
+        results.append((p.detach().cpu(), g.cpu(), int(iters)))
+    assert [k.launches for k in kernels] == launches
+    (p_k, g_k, it_k), (p_c, g_c, it_c) = results
+    assert 0 < it_k < 1000 and abs(it_k - it_c) <= parity.CG_ITER_TOL
+    assert _rel(p_k, p_c) <= parity.PCG_REL_TOL
+    assert _rel(g_k, g_c) <= parity.TRAIN_PARITY_TOL["head_grad"]
 
 
 def _dp_case():

@@ -159,14 +159,17 @@ def test_kernel_gate():
     assert tcg.pcg_kernel_fits((8, 64, 32))
     assert tcg.pcg_kernel_fits((9, 64, 32))  # more than one cluster: a cooperative grid
     assert not tcg.pcg_kernel_fits((129, 64, 32))  # more blocks than a grid keeps resident
-    assert not tcg.pcg_kernel_fits((1, 256, 128))  # hi-res: multigrid in the JAX package
-    # -r 48 and -r 65 (off multigrid) and 128x64 in the general layout
-    for shape in ((1, 96, 48), (1, 130, 65), (3, 128, 64)):
-        assert tcg.pcg_kernel_fits(shape)
-    assert not tcg.pcg_kernel_fits((1, 134, 67))  # beyond shared memory
-    # the fast layout at 64x32, the general one at (130, 65) (csrc/pcg.cu pcg_layout)
+    # off the fast layout, the cluster layout: -r 48, -r 65, 128x64, -r 67
+    # (once beyond shared memory), 256x128 at the JAX gate's batches and the
+    # largest element it takes
+    for shape in ((1, 96, 48), (1, 130, 65), (3, 128, 64), (1, 134, 67), (1, 256, 128),
+                  (3, 256, 128), (1, 534, 267)):
+        assert tcg.pcg_kernel_fits(shape) and tcg.cluster_plan(shape, True) is not None
+    assert tcg.cluster_plan((1, 64, 32), True) == (4, 16)  # takes it, but the fast layout runs
+    # the fast layout at 64x32 (csrc/pcg.cu pcg_layout); the cluster layout's
+    # two band buffers at 256x128, 16 rows of stride 132
     assert tcg.pcg_smem_bytes(64, 32) == 4 * 21072
-    assert tcg.pcg_smem_bytes(130, 65) == 4 * 55187
+    assert tcg.cluster_smem_bytes(16, 128, True) == 4 * 2 * 16 * 132
 
 
 def test_multigrid_sizes_raise_on_cpu():
@@ -233,17 +236,18 @@ def test_plain_fd_pcg_route_matches_jax(case, warm):
     assert 0 < int(iters) < 1000
 
 
-# (B, H, W, precon) off multigrid's sizes that only the kernels' general
-# layouts take: -r 48 (the PCG's 36 tiles, three a warp) and -r 65 (81
-# tiles, six a warp; 12 cells a thread in the plain CG)
-GENERAL_LAYOUT_CASES = [(1, 96, 48, "fd"), (1, 130, 65, "fd"), (1, 130, 65, "none")]
+# (B, H, W, precon) off multigrid's sizes and off the one-block layouts,
+# where the JAX package takes its Pallas kernel and the port the cluster
+# layout: -r 48, -r 65, and -r 67 and -r 79, which the card once refused
+GENERAL_LAYOUT_CASES = [(1, 96, 48, "fd"), (1, 130, 65, "fd"), (1, 130, 65, "none"),
+                        (1, 134, 67, "fd"), (1, 158, 79, "none")]
 
 
 @pytest.mark.parametrize("case", GENERAL_LAYOUT_CASES)
 @pytest.mark.parametrize("warm", [False, True])
 def test_general_layout_route_matches_jax(case, warm):
     """Where the JAX package takes its Pallas kernel off multigrid's sizes
-    and the port's kernels take the element only in their general layouts,
+    and the port's kernels take the element only in their cluster layout,
     solve_pressure takes the kernel the precon names, here its plain twin:
     the solution and gradient against the JAX package's solve_pressure
     (its XLA FD-PCG off the TPU), with the tolerances above."""
@@ -258,6 +262,45 @@ def test_general_layout_route_matches_jax(case, warm):
     div_t = torch.from_numpy(div).requires_grad_()
     p_t, iters = tp.solve_pressure(div_t, tm, x0=x0[1], precon=precon)
     assert f"silt_{route}_solve" in p_t.grad_fn.name()
+    (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
+    _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
+    _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])
+    assert 0 < int(iters) < 1000
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_periodic_solve_matches_jax(warm):
+    """A periodic problem takes the plain CG loop on either device
+    (`pressure_route` "periodic_cg"), the JAX package's XLA CG there, as a
+    differentiable op whose backward is a cold solve of the same system, as
+    the JAX package's custom_linear_solve transposes it: the solution and
+    the gradient of a random cotangent against JAX solve_pressure(periodic=
+    True), with the tolerances above and the train-gradient tolerance. The
+    right-hand side and the cotangent have zero mean on the fluid cells,
+    whose constants are the periodic operator's null space."""
+    h, w = 24, 20
+    fluid = np.ones((1, h, w), np.float32)
+    fluid[:, 8:14, 6:11] = 0.0
+    jm = jp.masks_from_fluid_cells(jnp.asarray(fluid),
+                                   jg.Domain((h, w), (float(h), float(w)), jg.Boundary.PERIODIC))
+    tm = tp.masks_from_fluid_cells(torch.from_numpy(fluid),
+                                   tg.Domain((h, w), (float(h), float(w)), tg.Boundary.PERIODIC))
+    rng = np.random.RandomState(15 + warm)
+
+    def zero_mean(a):
+        a = a * fluid
+        return (a - fluid * a.sum(axis=(1, 2), keepdims=True) / fluid.sum()).astype(np.float32)
+
+    div, cot = zero_mean(rng.randn(2, h, w)), zero_mean(rng.randn(2, h, w))
+    p0 = (0.1 * rng.randn(2, h, w) * fluid).astype(np.float32)
+    x0 = (jnp.asarray(p0), torch.from_numpy(p0)) if warm else (None, None)
+    assert tp.pressure_route(div.shape, "cuda", periodic=True) == "periodic_cg"
+    p_j, vjp = jax.vjp(lambda d: jp.solve_pressure(d, jm, periodic=True, x0=x0[0]),
+                       jnp.asarray(div))
+    (want,) = vjp(jnp.asarray(cot))
+    div_t = torch.from_numpy(div).requires_grad_()
+    p_t, iters = tp.solve_pressure(div_t, tm, periodic=True, x0=x0[1])
+    assert "silt_periodic_cg_solve" in p_t.grad_fn.name()
     (got,) = torch.autograd.grad(p_t, div_t, torch.from_numpy(cot))
     _rel_close(p_t.detach().numpy(), p_j, parity.PCG_REL_TOL)
     _rel_close(got.numpy(), want, parity.TRAIN_PARITY_TOL["head_grad"])

@@ -159,9 +159,23 @@ each printing one JSON line:
                   without --dp
 28. spatial     — the same launcher with `--spatial-rank DIR`: the y-sharded
                   karman step (parallel/spatial.py) on two ranks at 64x32
-                  and 256x128, batch 1, `--advect gather` and `shift`,
+                  and 256x128, batch 1, `--advect gather` and `shift`, on
+                  the FD-PCG (pressure_backend "xla"); at 256x128, batch 1
+                  and 6, `shift`, on multigrid ("auto"), its iterations
+                  against the unsharded `mg_solve`'s, and one backward at
+                  batch 1 against the unsharded step's gradient; each
                   against the unsharded step on the card, the tap-sum
-                  launches per rank, ms per step of both
+                  launches per rank (each held against its plain twin on
+                  the rank's haloed block), ms per step of both
+29. flags       — the paths no other phase runs, each through its CLI for 2
+                  iterations or 20 steps: karman-train with `--advect
+                  gather`, `-m 1`, `--remat-policy pressure` and
+                  `pressure+advect`, `--no-remat`, `--pressure-precon
+                  none`, `--model mercury`; karman-apply `--arch mercury`;
+                  burgers-gen, -train and -apply with `--noforce`; the
+                  SOL-32 train step at batch 9 (cooperative grid). Launches
+                  against the code's count, first losses (the CPU's first
+                  iteration) and frames against the same argv on the CPU
 
 The kernels phase also checks the CG kernel's adjoint and the conv kernels
 (forward, input gradient and weight gradient) at the Burgers and karman shapes,
@@ -196,6 +210,7 @@ them under `torch.distributed.run`. """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import glob
 import json
@@ -3036,9 +3051,14 @@ DP_SHARED_INIT = ["--init", "zero"]
 # a SOL-32 iteration's launches with --conv kernel, in every rank
 DP_KARMAN_PER_ITER = dict(tap_sum_fwd=192, tap_sum_bwd=62, pcg_solve=63, conv_fwd=767,
                           conv_wgrad=384)
-SPATIAL_RES = (32, 128)  # 64x32 (SOL-32) and 256x128 (the hi-res set)
+SPATIAL_RES = (32, 128)  # 64x32 (SOL-32) and 256x128 (the hi-res set), pressure_backend "xla"
 SPATIAL_REL_TOL = 1e-4  # of each field's largest value: the sharded gather test's tolerance
 SPATIAL_STEPS = 3  # timed steps, after one warm-up step, of each configuration
+# the multigrid cases at 256x128 (pressure_backend "auto"): batch 1, and the
+# hi-res generator's batch of 6 (its Re); the backward at batch 1
+SPATIAL_MG_BATCHES = (1, 6)
+SPATIAL_MG_ITER_TOL = 1  # sharded against unsharded multigrid iterations
+SPATIAL_GRAD_REL_TOL = 1e-4  # of each input's largest gradient
 
 
 def dp_karman_argv(tf):
@@ -3205,22 +3225,79 @@ def phase_dp_shared():
         [{**ranks[r]["burgers"]["launches"]} for r in range(2)]
 
 
-def _moving_state(res, device):
+def _moving_state(res, device, batch: int = 1):
     """The karman initial state at res, perturbed from a seed: density, u
-    and v with room to move."""
+    and v with room to move, each batch element its own draw."""
     import numpy as np
     import torch
 
     from solver_in_the_loop_torch.physics import karman
 
     dom = karman.karman_domain(res)
-    d0, v0 = karman.initial_state(dom, 1)
+    d0, v0 = karman.initial_state(dom, batch)
     rng = np.random.RandomState(res)
     noise = [rng.rand(*d0.values.shape), rng.randn(*v0.u.shape), rng.randn(*v0.v.shape)]
     fields = [d0.values + 0.5 * torch.from_numpy(noise[0]).float(),
               v0.u + 0.3 * torch.from_numpy(noise[1]).float(),
               v0.v + 0.3 * torch.from_numpy(noise[2]).float()]
     return dom, [f.to(device) for f in fields]
+
+
+@contextlib.contextmanager
+def recorded_tap_sums():
+    """Within it every tap-sum wrapper call appends (name, args, output) to
+    the list it yields: the inputs the path gave the kernel and what the
+    kernel returned. The wrappers stay the kernels' own (the solver reaches
+    them through kernels/advect.py's module names) and their launch counts
+    run on across it."""
+    from solver_in_the_loop_torch.kernels import advect
+
+    calls, own = [], {}
+    for name in ("tap_sum_fwd", "tap_sum_bwd"):
+        fn = own[name] = getattr(advect, name)
+
+        def record(*args, _fn=fn, _name=name):
+            out = _fn(*args)
+            calls.append((_name, args, out))
+            return out
+
+        record.launches = fn.launches  # the wrapper counts under its module name
+        setattr(advect, name, record)
+    try:
+        yield calls
+    finally:
+        for name, fn in own.items():
+            fn.launches = getattr(advect, name).launches
+            setattr(advect, name, fn)
+
+
+def held_tap_sums(calls) -> list:
+    """Each recorded tap-sum launch's output against its plain twin on the
+    same inputs: the forward, ddy and ddx within TAP_SUM_TOL, dV within
+    TAP_SUM_BWD_DV_REL_TOL of its largest (the karman fields are OPEN). One
+    entry a launch, with its shape and "ok"."""
+    import torch
+
+    from solver_in_the_loop_torch.kernels.advect import tap_sum_bwd_plain, tap_sum_fwd_plain
+    from solver_in_the_loop_torch.parity import TAP_SUM_BWD_DV_REL_TOL, TAP_SUM_TOL
+
+    held = []
+    for name, args, got in calls:
+        args = [a.detach() if torch.is_tensor(a) else a for a in args]
+        got = [t.detach() for t in got] if isinstance(got, tuple) else got.detach()
+        entry = {"kernel": name, "shape": list(args[0].shape)}
+        if name == "tap_sum_fwd":
+            entry["max_abs_err"] = float((got - tap_sum_fwd_plain(*args)).abs().max())
+            entry["ok"] = entry["max_abs_err"] <= TAP_SUM_TOL
+        else:
+            want = tap_sum_bwd_plain(*args)
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            entry.update(dv_rel_err=errs[0] / float(want[0].abs().max()), ddy_abs_err=errs[1],
+                         ddx_abs_err=errs[2])
+            entry["ok"] = (entry["dv_rel_err"] <= TAP_SUM_BWD_DV_REL_TOL
+                           and max(errs[1:]) <= TAP_SUM_TOL)
+        held.append(entry)
+    return held
 
 
 def spatial_rank(out: str) -> int:
@@ -3243,9 +3320,10 @@ def spatial_rank(out: str) -> int:
             for advection in ("gather", "shift"):
                 flow = karman.KarmanFlow(dom, advection=advection, max_shift=2, pressure_tol=1e-6,
                                          pressure_max_iter=1000, device=mesh.device)
-                step = spatial.make_sharded_step_y(flow, mesh)
+                step = spatial.make_sharded_step_y(flow, mesh, "xla")
                 blocks = spatial.shard_staggered_y(mesh, *full)
-                step(*blocks, re)  # warm-up
+                with recorded_tap_sums() as calls:
+                    step(*blocks, re)  # warm-up
                 reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3253,9 +3331,10 @@ def spatial_rank(out: str) -> int:
                     got = step(*blocks, re)
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0) / SPATIAL_STEPS
-                case = {"res": [dom.ny, dom.nx], "advection": advection,
+                case = {"res": [dom.ny, dom.nx], "advection": advection, "backend": "xla",
+                        "batch": 1, "route": "pcg_plain",
                         "launches": {k: v / SPATIAL_STEPS for k, v in read_launches().items()},
-                        "ms_per_step_sharded": ms}
+                        "ms_per_step_sharded": ms, "tap_sums_held": held_tap_sums(calls)}
                 whole = [spatial.gather_y(mesh, a, n)
                          for a, n in zip(got, (dom.ny, dom.ny, dom.ny + 1))]
                 if mesh.rank == 0:
@@ -3280,6 +3359,9 @@ def spatial_rank(out: str) -> int:
                     case["max_fluid_divergence"] = float(div.abs().max())
                     case["finite"] = bool(all(torch.isfinite(a).all() for a in whole))
                 line["cases"].append(case)
+        for batch in SPATIAL_MG_BATCHES:
+            line["cases"].append(spatial_mg_case(mesh, batch))
+        line["backward"] = spatial_backward(mesh)
         with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
             json.dump(line, f)
     finally:
@@ -3287,34 +3369,419 @@ def spatial_rank(out: str) -> int:
     return 0
 
 
+def _spatial_mg_flow(batch, mesh):
+    import torch
+
+    from solver_in_the_loop_torch.parallel import spatial
+    from solver_in_the_loop_torch.parity import KARMAN_HIRES_RE
+    from solver_in_the_loop_torch.physics import karman
+
+    dom, full = _moving_state(128, mesh.device, batch)
+    flow = karman.KarmanFlow(dom, advection="shift", max_shift=2, pressure_tol=1e-6,
+                             pressure_max_iter=1000, device=mesh.device)
+    re = torch.tensor(KARMAN_HIRES_RE[:batch], device=mesh.device)
+    return dom, full, flow, spatial.YShardedKarman(flow, mesh), re
+
+
+def spatial_mg_case(mesh, batch: int) -> dict:
+    """The sharded `shift` step at 256x128 and `batch` on the route
+    pressure_backend "auto" takes there (multigrid): ms per step after a
+    warm-up step, the launches a step, and the iterations of its solve; on
+    rank 0 the unsharded step on the card (its fields, ms per step, route)
+    and the unsharded `mg_solve`'s iterations on the same right-hand side."""
+    import torch
+
+    from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+    from solver_in_the_loop_torch.ops.multigrid import mg_solve
+    from solver_in_the_loop_torch.parallel import spatial
+
+    dom, full, flow, shard, re = _spatial_mg_flow(batch, mesh)
+    blocks = spatial.shard_staggered_y(mesh, *full)
+    with recorded_tap_sums() as calls:
+        shard.step(*blocks, re)  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SPATIAL_STEPS):
+        got = shard.step(*blocks, re)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SPATIAL_STEPS
+    case = {"res": [dom.ny, dom.nx], "advection": "shift", "backend": "auto", "batch": batch,
+            "route": shard.pressure_route,
+            "sharded_levels_rows_per_rank": [lv.blocks[0][1] for lv in shard.mg_levels],
+            "levels": len(shard.mg.levels),
+            "launches": {k: v / SPATIAL_STEPS for k, v in read_launches().items()},
+            "ms_per_step_sharded": ms, "tap_sums_held": held_tap_sums(calls)}
+    _, u, v = shard.pre_projection(blocks[0], blocks[1], shard.to_faces(blocks[2]), re)
+    case["iters_sharded"] = int(shard.project_faces(u, v)[3])
+    whole = [spatial.gather_y(mesh, a, n) for a, n in zip(got, (dom.ny, dom.ny, dom.ny + 1))]
+    if mesh.rank == 0:
+        def plain():
+            d, vel, _, _ = flow.step(CenteredGrid(full[0], dom),
+                                     StaggeredGrid(full[1], full[2], dom), re)
+            return d.values, vel.u, vel.v
+
+        plain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_STEPS):
+            want = plain()
+        torch.cuda.synchronize()
+        case["ms_per_step_unsharded"] = 1e3 * (time.perf_counter() - t0) / SPATIAL_STEPS
+        case["route_unsharded"] = flow.pressure_route(batch)
+        case["max_abs_err_rel"] = {k: float((a - b).abs().max() / b.abs().max())
+                                   for k, a, b in zip(("dens", "u", "v"), whole, want)}
+        div = ((whole[1][:, :, 1:] - whole[1][:, :, :-1])
+               + (whole[2][:, 1:] - whole[2][:, :-1])) * flow.masks.fluid
+        case["max_fluid_divergence"] = float(div.abs().max())
+        case["finite"] = bool(all(torch.isfinite(a).all() for a in whole))
+        m = flow.masks
+        _, vel = flow.pre_projection(CenteredGrid(full[0], dom),
+                                     StaggeredGrid(full[1], full[2], dom), re)
+        div = ((vel.u * m.face_u)[:, :, 1:] - (vel.u * m.face_u)[:, :, :-1]
+               + (vel.v * m.face_v)[:, 1:] - (vel.v * m.face_v)[:, :-1])
+        rhs = torch.where(m.fluid > 0, -div, 0.0).contiguous()
+        case["iters_mg_unsharded"] = int(mg_solve(rhs, torch.zeros_like(rhs), m.fluid, m.face_u,
+                                                  m.face_v, flow.pressure_tol,
+                                                  flow.pressure_max_iter)[1])
+    return case
+
+
+def spatial_backward(mesh) -> dict:
+    """One backward through the sharded (1, 256, 128) multigrid step: the
+    gradient of sum(w * outputs) in its inputs (its adjoint a cold sharded
+    multigrid solve), every launch count set to 0 just before the step and
+    read after its backward; on rank 0 the unsharded step's gradient on the
+    card and the largest difference, relative to each input's largest."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
+    from solver_in_the_loop_torch.parallel import spatial
+
+    dom, full, flow, shard, re = _spatial_mg_flow(1, mesh)
+    rng = np.random.RandomState(7)
+    w = [torch.from_numpy(rng.randn(*a.shape).astype(np.float32)).to(mesh.device) for a in full]
+    ins = [b.clone().requires_grad_() for b in spatial.shard_staggered_y(mesh, *full)]
+    w_s = spatial.shard_staggered_y(mesh, *w)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_tap_sums() as calls:
+        out = shard.step(*ins, re)
+        sum((a * b).sum() for a, b in zip(w_s, out)).backward()
+    torch.cuda.synchronize()
+    line = {"res": [dom.ny, dom.nx], "batch": 1, "route": shard.pressure_route,
+            "ms_step_and_backward": 1e3 * (time.perf_counter() - t0), "launches": read_launches(),
+            "tap_sums_held": held_tap_sums(calls)}
+    grads = [spatial.gather_y(mesh, t.grad, n) for t, n in zip(ins, (dom.ny, dom.ny, dom.ny + 1))]
+    if mesh.rank == 0:
+        ref = [a.clone().requires_grad_() for a in full]
+        d, vel, _, _ = flow.step(CenteredGrid(ref[0], dom), StaggeredGrid(ref[1], ref[2], dom), re)
+        sum((a * b).sum() for a, b in zip(w, (d.values, vel.u, vel.v))).backward()
+        line["route_unsharded"] = flow.pressure_route(1)
+        line["grad_err_rel"] = {k: float((g - r.grad).abs().max() / r.grad.abs().max())
+                                for k, g, r in zip(("dens", "u", "v"), grads, ref)}
+        line["finite"] = bool(all(torch.isfinite(g).all() for g in grads))
+    return line
+
+
 def phase_spatial():
     """The y-sharded karman step (parallel/spatial.py) on two ranks
     time-sliced on the one card over gloo, against the unsharded step on the
     card: each field within SPATIAL_REL_TOL of its largest value, the fluid
-    divergence under 1e-3, 3 tap-sums a `shift` step in each rank."""
+    divergence under 1e-3, 3 tap-sums a `shift` step in each rank; at
+    pressure_backend "xla" (64x32 and 256x128, both advection modes) and
+    "auto", multigrid (256x128, batch 1 and 6), there also the solve's
+    iterations within SPATIAL_MG_ITER_TOL of the unsharded `mg_solve`'s,
+    and one backward: 3 tap-sums and their 3 backward launches in each rank,
+    the gradient within SPATIAL_GRAD_REL_TOL of the unsharded step's. Every
+    tap-sum launch of a warm-up step and of the backward, on its rank's
+    haloed block, is held against its plain twin (`held_tap_sums`)."""
     t0 = time.perf_counter()
     ranks = torchrun("--spatial-rank", os.path.join(DP_DIR, "spatial"))
     line = {"phase": "spatial", "note": "two ranks time-sliced on one card over gloo, the rows "
             "moved through host memory: a correctness run, not a scaling figure",
             "torchrun_seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
-            "cases": ranks[0]["cases"],
-            "launches_by_rank": [[c["launches"] for c in r["cases"]] for r in ranks]}
+            "cases": ranks[0]["cases"], "backward": ranks[0]["backward"],
+            "launches_by_rank": [[c["launches"] for c in r["cases"]] for r in ranks],
+            "backward_launches_by_rank": [r["backward"]["launches"] for r in ranks],
+            "tap_sums_held_by_rank": [[c["tap_sums_held"] for c in r["cases"]]
+                                      + [r["backward"]["tap_sums_held"]] for r in ranks]}
     emit(line)
     for case in ranks[0]["cases"]:
-        what = f"spatial {case['res']} {case['advection']}"
+        what = f"spatial {case['res']} b{case['batch']} {case['advection']} {case['backend']}"
         require(case["finite"], f"{what}: a field is not finite")
         for k, err in case["max_abs_err_rel"].items():
             require(err <= SPATIAL_REL_TOL, f"{what}: {k} {err} from the unsharded step")
         require(case["max_fluid_divergence"] < 1e-3, f"{what}: divergence "
                 f"{case['max_fluid_divergence']}")
         # the unsharded step's solve: the kernel at 64x32 and at 256x128
-        require(case["route_unsharded"] == "pcg", f"{what}: route {case['route_unsharded']}")
+        # batch 1, multigrid at the hi-res generator's batch
+        want = "multigrid" if case["batch"] == 6 else "pcg"
+        require(case["route_unsharded"] == want, f"{what}: route {case['route_unsharded']}")
+        if case["backend"] == "auto":
+            require(case["route"] == "multigrid", f"{what}: sharded route {case['route']}")
+            require(abs(case["iters_sharded"] - case["iters_mg_unsharded"]) <= SPATIAL_MG_ITER_TOL,
+                    f"{what}: {case['iters_sharded']} sharded multigrid iterations, "
+                    f"{case['iters_mg_unsharded']} unsharded")
+    bwd = ranks[0]["backward"]
+    require(bwd["route"] == "multigrid" and bwd["finite"], f"spatial backward {bwd}")
+    for k, err in bwd["grad_err_rel"].items():
+        require(err <= SPATIAL_GRAD_REL_TOL, f"spatial backward: {k} gradient {err} from the "
+                "unsharded step's")
     for r in ranks:
         for case in r["cases"]:
             want = counts(tap_sum_fwd=3) if case["advection"] == "shift" else counts()
-            require(case["launches"] == want, f"rank {r['rank']} {case['res']} "
-                    f"{case['advection']}: launches {case['launches']} a step")
-    return [[c["launches"] for c in r["cases"]] for r in ranks]
+            require(case["launches"] == want, f"rank {r['rank']} {case['res']} b{case['batch']} "
+                    f"{case['advection']} {case['backend']}: launches {case['launches']} a step")
+        # the three advected fields' tap-sums, and each one's backward
+        want = counts(tap_sum_fwd=3, tap_sum_bwd=3)
+        require(r["backward"]["launches"] == want,
+                f"rank {r['rank']} backward launches {r['backward']['launches']}")
+        for case in [*r["cases"], {**r["backward"], "advection": "shift", "backend": "backward"}]:
+            held = case["tap_sums_held"]
+            want = {"tap_sum_fwd": 3 if case["advection"] == "shift" else 0,
+                    "tap_sum_bwd": 3 if case["backend"] == "backward" else 0}
+            got = {k: sum(e["kernel"] == k for e in held) for k in want}
+            require(got == want and all(e["ok"] for e in held),
+                    f"rank {r['rank']} {case['res']} b{case['batch']} {case['backend']}: tap-sums "
+                    f"held against their twins {held}")
+    return ([[c["launches"] for c in r["cases"]] for r in ranks],
+            [r["backward"]["launches"] for r in ranks])
+
+
+FLAGS_DIR = os.path.join(REPO, "build", "smoke_flags")
+FLAGS_TRAIN_FRAMES = 33  # (6 sims / batch 3) x (33 - msteps 32) = 2 iterations
+# karman-train's flags that no other phase runs on the card, each added to
+# the train phase's command
+FLAGS_KARMAN = {"advect_gather": ["--advect", "gather"], "non": ["-m", "1"],
+                "remat_pressure": ["--remat-policy", "pressure"],
+                "remat_pressure_advect": ["--remat-policy", "pressure+advect"],
+                "no_remat": ["--no-remat"], "precon_none": ["--pressure-precon", "none"],
+                "mercury": ["--model", "mercury"]}
+FLAGS_BURGERS_SET = os.path.join(FLAGS_DIR, "burgers_noforce_set")
+FLAGS_BURGERS_SIMS = 5
+FLAGS_BURGERS_FRAMES = 6  # (5 sims / batch 5) x (6 - msteps 4) = 2 iterations
+FLAGS_APPLY_STEPS = 20
+FLAGS_LOSS_RTOL = 1e-4  # the first loss on the card against the same argv on the CPU
+FLAGS_B9_ROWS = 9  # one more than a cluster: the CG kernels' cooperative grid
+FLAGS_REDUCED = {
+    "karman-train": f"the train phase's set and settings, -t {FLAGS_TRAIN_FRAMES} (-t 2 at -m 1): "
+                    "2 iterations",
+    "karman-apply": f"{FLAGS_APPLY_STEPS} frames from the 2-iteration mercury checkpoint",
+    "burgers-gen": f"the Makefile's -r 128 -s 30 command, seeds 0-{FLAGS_BURGERS_SIMS - 1}, "
+                   f"{FLAGS_BURGERS_FRAMES} frames",
+    "burgers-train": f"SOL-04 on that set, -n {FLAGS_BURGERS_SIMS} -t {FLAGS_BURGERS_FRAMES}: "
+                     "2 iterations",
+    "burgers-apply": f"{FLAGS_APPLY_STEPS} frames of that 2-iteration net from sim 0's frame 0"}
+
+
+def flags_karman_argv(name: str, tf: str):
+    """The train phase's karman-train command at FLAGS_TRAIN_FRAMES frames
+    with the flag FLAGS_KARMAN names; -m 1 (NON) at -t 2."""
+    args = train_argv()
+    args[args.index("--tf") + 1] = tf
+    extra = FLAGS_KARMAN[name]
+    if extra[0] == "-m":
+        args[args.index("-m") + 1] = extra[1]
+        args[args.index("-t") + 1] = str(int(extra[1]) + 1)
+        extra = []
+    else:
+        args[args.index("-t") + 1] = str(FLAGS_TRAIN_FRAMES)
+    return ["karman-train", *args, *extra]
+
+
+def flags_karman_per_iter(name: str) -> dict:
+    """A karman-train iteration's launches under the flag FLAGS_KARMAN
+    names, from the train phase's count: the tap-sums (none with --advect
+    gather) once forward and once more where the remat policy recomputes
+    the advection (pressure+conv and pressure do, pressure+advect and
+    --no-remat keep it), their backward for steps 1..m-1; a solve a step and
+    an adjoint a step but step 0 by the kernel the precon names."""
+    m = 1 if name == "non" else 32
+    taps = 0 if name == "advect_gather" else 3
+    passes = 1 if name in ("remat_pressure_advect", "no_remat") else 2
+    solve = "cg_solve" if name == "precon_none" else "pcg_solve"
+    return counts(tap_sum_fwd=passes * taps * m, tap_sum_bwd=(2 if taps else 0) * (m - 1),
+                  **{solve: 2 * m - 1})
+
+
+def flags_burgers_train_argv(train: str, tf: str):
+    return ["burgers-train", "--train", train, "--tf", tf, "--epochs", "1", "--lr", "0.0001",
+            "--dt", "0.1", "-t", str(FLAGS_BURGERS_FRAMES), "-s", "4", "-m", "4",
+            "-n", str(FLAGS_BURGERS_SIMS), "-b", str(FLAGS_BURGERS_SIMS), "--seed", "0",
+            "--noforce"]
+
+
+def cpu_first_loss(argv) -> float:
+    """The first loss of the train command `argv` with --device cpu, in this
+    process: its epoch schedule cut to the first iteration, which the cut
+    leaves as it was (the same shuffle draws the same first batch)."""
+    from unittest import mock
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch.train.dataset import EpochSchedule
+
+    whole = EpochSchedule.epoch_indices
+    with mock.patch.object(EpochSchedule, "epoch_indices",
+                           lambda self, msteps: whole(self, msteps)[:1]):
+        return cli.main(argv + ["--device", "cpu"]).losses[0]
+
+
+def _train_entry(result, launches, per_iter, argv):
+    import numpy as np
+
+    iters = len(result.losses)
+    return {"argv": argv, "iterations": iters, "losses": result.losses,
+            "guard_skipped": result.notfinite, "updates_applied": iters - result.notfinite,
+            "sec_per_iter": result.iter_seconds, "launches": launches,
+            "predicted_per_iter": per_iter,
+            "finite": bool(np.all(np.isfinite(result.losses))),
+            "launches_ok": launches == {k: v * iters for k, v in per_iter.items()}}
+
+
+def _apply_entry(argv, per_step, fields):
+    """`argv` (karman-apply or burgers-apply, FLAGS_APPLY_STEPS frames) on
+    the card, every launch count set to 0 just before it, and on the CPU:
+    launches, and frames 1, 5 and the last against the CPU's."""
+    import torch
+
+    from solver_in_the_loop_torch.parity import ROLLOUT_REL_TOL
+
+    reset_launches()
+    frames, _ = run_cli_argv(argv)
+    launches = read_launches()
+    cpu, _ = run_cli_argv(argv + ["--device", "cpu"])
+    steps = FLAGS_APPLY_STEPS - 1
+    errs, worst = _frames_errors(frames, lambda f, t: cpu[f][t - 1], fields, (1, 5, steps))
+    want = counts(**{k: v * steps for k, v in per_step.items()})
+    return {"argv": argv, "steps": steps, "launches": launches, "predicted": want,
+            "launches_ok": launches == want, "vs_cpu": errs, "worst": worst,
+            "tolerance": ROLLOUT_REL_TOL,
+            "finite": all(bool(torch.isfinite(frames[k]).all()) for k in fields)}
+
+
+def phase_flags(device):
+    """The paths no other phase runs on the card, each through its CLI in
+    this process, cut as FLAGS_REDUCED says, every launch count set to 0
+    just before it: karman-train with each flag of FLAGS_KARMAN, karman-apply
+    --arch mercury from the mercury run's checkpoint, burgers-gen,
+    burgers-train and burgers-apply with --noforce, and the SOL-32 train step
+    at batch 9 (the CG kernels' cooperative grid, forward and adjoint).
+    Finite losses, an update applied, the launches against the count the
+    code predicts; the first loss within FLAGS_LOSS_RTOL of the same argv
+    on the CPU (its first iteration, `cpu_first_loss`), the
+    generated and applied frames against the CPU's, the batch-9 step against
+    the plain path within the train parity's tolerances."""
+    import numpy as np
+    import torch
+
+    from solver_in_the_loop_torch import __main__ as cli
+    from solver_in_the_loop_torch import parity as par
+    from solver_in_the_loop_torch.io.scene import Scene, read_array
+
+    shutil.rmtree(FLAGS_DIR, ignore_errors=True)
+    os.makedirs(FLAGS_DIR)
+    line = {"phase": "flags", "reduced": FLAGS_REDUCED}
+    # burgers-gen --noforce first: burgers-train runs on its set
+    gen_argv = ["burgers-gen", "-r", "128", "-l", "32", "--dt", "0.1", "-s", "30",
+                "-t", str(FLAGS_BURGERS_FRAMES), "--noforce"]
+    reset_launches()
+    t0 = time.perf_counter()
+    for seed in range(FLAGS_BURGERS_SIMS):
+        cli.main(gen_argv + ["-o", FLAGS_BURGERS_SET, "--seed", str(seed)])
+    gen_seconds = time.perf_counter() - t0
+    gen_launches = read_launches()
+    cpu_set = os.path.join(FLAGS_DIR, "burgers_noforce_cpu")
+    cli.main(gen_argv + ["-o", cpu_set, "--seed", "0", "--device", "cpu"])
+    card0, cpu0 = Scene.list(FLAGS_BURGERS_SET)[0], Scene.list(cpu_set)[0]
+    gen_err = max(rel_err(*(torch.from_numpy(read_array(sc.frame_path("velo", t)))
+                            for sc in (card0, cpu0)))
+                  for t in range(FLAGS_BURGERS_FRAMES))
+    line["burgers_gen_noforce"] = {
+        "argv": gen_argv, "sims": len(Scene.list(FLAGS_BURGERS_SET)), "seconds": gen_seconds,
+        "launches": gen_launches, "sim0_vs_cpu": gen_err, "tolerance": par.BURGERS_GEN_REL_TOL}
+    runs, launches, cpu_argv = {}, {}, {}
+    for name in FLAGS_KARMAN:
+        argv = flags_karman_argv(name, os.path.join(FLAGS_DIR, name))
+        reset_launches()
+        result = cli.main(argv)
+        launches[name] = read_launches()
+        runs[name] = _train_entry(result, launches[name], flags_karman_per_iter(name), argv)
+        cpu_argv[name] = flags_karman_argv(name, os.path.join(FLAGS_DIR, "cpu", name))
+    tf = os.path.join(FLAGS_DIR, "mercury")
+    runs["karman_apply_mercury"] = _apply_entry(
+        ["karman-apply", "-o", OUT_DIR, "--model", os.path.join(tf, "model.msgpack"),
+         "--stats", os.path.join(tf, "dataStats.json"), "--arch", "mercury", "-r", "32",
+         "-l", "100", "-t", str(FLAGS_APPLY_STEPS), "--re", "240000"],
+        {"tap_sum_fwd": 3, "pcg_solve": 1}, ("dens", "u", "v"))
+    tf = os.path.join(FLAGS_DIR, "burgers_tf")
+    argv = flags_burgers_train_argv(FLAGS_BURGERS_SET, tf)
+    reset_launches()
+    result = cli.main(argv)
+    launches["burgers_noforce"] = read_launches()
+    # the train phase's Burgers count without the conv kernels (cuDNN)
+    runs["burgers_noforce"] = _train_entry(result, launches["burgers_noforce"],
+                                           counts(tap_sum_fwd=16, tap_sum_bwd=6), argv)
+    cpu_argv["burgers_noforce"] = flags_burgers_train_argv(FLAGS_BURGERS_SET,
+                                                           os.path.join(FLAGS_DIR, "cpu", "burgers"))
+    sim0 = os.path.join(FLAGS_BURGERS_SET, "sim_000000")
+    runs["burgers_apply_noforce"] = _apply_entry(
+        ["burgers-apply", "-o", OUT_DIR, "--noforce",
+         "--stats", os.path.join(tf, "dataStats.json"),
+         "--model", os.path.join(tf, "model.msgpack"),
+         "--initvH", os.path.join(sim0, "velo_000000.npz"), "-d", "4", "-r", "32",
+         "-l", "32", "--dt", "0.1", "-t", str(FLAGS_APPLY_STEPS)],
+        {"tap_sum_fwd": 2}, ("u", "v"))
+    reset_launches()
+    b9 = par.parity_summary(par.parity_step(device, rows=FLAGS_B9_ROWS))
+    launches["train_step_b9"] = read_launches()
+    with par.plain_path():
+        b9_plain = par.parity_summary(par.parity_step(device, rows=FLAGS_B9_ROWS))
+    msteps = par.PARITY_MSTEPS
+    want = counts(tap_sum_fwd=2 * 3 * msteps, tap_sum_bwd=2 * (msteps - 1),
+                  pcg_solve=2 * msteps - 1)
+    runs["train_step_b9"] = {"rows": FLAGS_B9_ROWS, "loss": b9[0], "plain_loss": b9_plain[0],
+                             "launches": launches["train_step_b9"], "predicted": want,
+                             "launches_ok": launches["train_step_b9"] == want,
+                             "finite": bool(np.isfinite(b9[0])),
+                             "vs_plain": par.parity_errors(b9, b9_plain)}
+    t0 = time.perf_counter()
+    for name, argv in cpu_argv.items():
+        first = cpu_first_loss(argv)
+        runs[name]["cpu_first_loss"] = first
+        runs[name]["first_loss_rel_err_vs_cpu"] = abs(runs[name]["losses"][0] - first) / abs(first)
+    line["cpu_first_losses_seconds"] = time.perf_counter() - t0
+    line.update(runs)
+    emit(line)
+    gen = line["burgers_gen_noforce"]
+    require(gen["sims"] == FLAGS_BURGERS_SIMS and gen["launches"] == counts(),
+            f"burgers-gen --noforce: {gen['sims']} sims, launches {gen['launches']}")
+    require(gen["sim0_vs_cpu"] <= gen["tolerance"], f"burgers-gen --noforce frames "
+            f"{gen['sim0_vs_cpu']} from the CPU's")
+    for name in (*FLAGS_KARMAN, "burgers_noforce"):
+        run = runs[name]
+        require(run["iterations"] == 2 and run["finite"], f"flags {name}: {run['iterations']} "
+                f"iterations, losses {run['losses']}")
+        require(run["updates_applied"] >= 1, f"flags {name}: no update applied")
+        require(run["launches_ok"], f"flags {name}: launches {run['launches']}, predicted "
+                f"{run['predicted_per_iter']} an iteration")
+        require(run["first_loss_rel_err_vs_cpu"] <= FLAGS_LOSS_RTOL, f"flags {name}: first "
+                f"loss {run['losses'][0]}, on the CPU {run['cpu_first_loss']}")
+    for name in ("karman_apply_mercury", "burgers_apply_noforce"):
+        run = runs[name]
+        require(run["finite"] and run["launches_ok"], f"flags {name}: finite {run['finite']}, "
+                f"launches {run['launches']} != {run['predicted']}")
+        require(run["worst"] <= run["tolerance"], f"flags {name}: frames {run['worst']} from "
+                "the CPU's")
+        launches[name] = run["launches"]
+    run = runs["train_step_b9"]
+    require(run["finite"] and run["launches_ok"], f"flags train_step_b9: {run}")
+    for key, tol in par.TRAIN_PARITY_TOL.items():
+        require(run["vs_plain"][key] <= tol, f"flags train_step_b9 {key}: "
+                f"{run['vs_plain'][key]} > {tol}")
+    return launches
 
 
 def cg_split(specs) -> int:
@@ -3612,7 +4079,8 @@ def main() -> int:
     timed("pretf", phase_pretf, device)
     dp_single_launches = timed("dp_single", phase_dp_single)
     dp_karman_launches, dp_burgers_launches = timed("dp_shared", phase_dp_shared)
-    spatial_launches = timed("spatial", phase_spatial)
+    spatial_launches, spatial_bwd_launches = timed("spatial", phase_spatial)
+    flags_launches = timed("flags", phase_flags, device)
     emit({"phase": "seconds", **seconds})
 
     def at(name, shape, **match):
@@ -3684,7 +4152,10 @@ def main() -> int:
                               **{f"burgers_train_dp_rank{r}": dp_burgers_launches[r][name]
                                  for r in range(2)},
                               **{f"spatial_step_rank{r}": [c[name] for c in spatial_launches[r]]
-                                 for r in range(2)}},
+                                 for r in range(2)},
+                              **{f"spatial_backward_rank{r}": spatial_bwd_launches[r][name]
+                                 for r in range(2)},
+                              **{f"flags_{k}": v[name] for k, v in flags_launches.items()}},
          "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),

@@ -9,7 +9,9 @@ the V-cycle is symmetric (equal pre- and post-smoothing), so it is a valid
 PCG preconditioner.
 
 Plain PyTorch ops, as the JAX package runs it as XLA ops (no Pallas kernel).
-The loop stops on a host read of the residuals once per iteration.
+The loop is kernels/cg.py `pcg_solve_info` with the V-cycle as its
+preconditioner, and stops on a host read of the residuals once per
+iteration; parallel/spatial.py runs the same V-cycle on y-sharded rows.
 `mg_solve_op` (`torch.ops.silt.mg_solve`) is the solve the pressure
 projection calls on this route: differentiable in the right-hand side, with a
 cold multigrid solve of the same system as its backward (the JAX
@@ -20,12 +22,13 @@ a selective-checkpoint policy can save it (train/trainer.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import torch
 
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
-from solver_in_the_loop_torch.kernels.cg import batch_dot
+from solver_in_the_loop_torch.kernels.cg import pcg_solve_info
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
 
@@ -70,27 +73,27 @@ def build_mg_hierarchy(masks: ProjectionMasks, domain: Domain, min_size: int = 8
     return MgHierarchy(levels, smooth_iters, omega)
 
 
-def _apply_a(level: MgLevel, p: torch.Tensor) -> torch.Tensor:
+def apply_a(level: MgLevel, p: torch.Tensor) -> torch.Tensor:
     lp = masked_laplacian(p, level.masks.face_u, level.masks.face_v)
     return torch.where(level.masks.fluid > 0, -lp, p)
 
 
-def _smooth(level: MgLevel, x: torch.Tensor, b: torch.Tensor, iters: int,
-            omega: float) -> torch.Tensor:
+def smooth(level: MgLevel, x: torch.Tensor, b: torch.Tensor, iters: int,
+           omega: float) -> torch.Tensor:
     """Damped Jacobi sweeps."""
     for _ in range(iters):
-        r = b - _apply_a(level, x)
+        r = b - apply_a(level, x)
         x = x + omega * r / level.diag
     return x
 
 
-def _restrict(r: torch.Tensor) -> torch.Tensor:
+def restrict(r: torch.Tensor) -> torch.Tensor:
     """2x2 sum."""
     b, ny, nx = r.shape
     return r.reshape(b, ny // 2, 2, nx // 2, 2).sum(dim=(2, 4))
 
 
-def _prolong(e: torch.Tensor) -> torch.Tensor:
+def prolong(e: torch.Tensor) -> torch.Tensor:
     """Each coarse value to its 2x2 children."""
     return e.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
@@ -98,15 +101,15 @@ def _prolong(e: torch.Tensor) -> torch.Tensor:
 def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0) -> torch.Tensor:
     """One V-cycle from zero: the preconditioner apply M^-1 b."""
     lvl = h.levels[level]
-    x = _smooth(lvl, torch.zeros_like(b), b, h.smooth_iters, h.omega)
+    x = smooth(lvl, torch.zeros_like(b), b, h.smooth_iters, h.omega)
     if level + 1 < len(h.levels):
-        r = b - _apply_a(lvl, x)
-        rc = _restrict(r) * torch.where(h.levels[level + 1].masks.fluid > 0, 1.0, 0.0)
+        r = b - apply_a(lvl, x)
+        rc = restrict(r) * torch.where(h.levels[level + 1].masks.fluid > 0, 1.0, 0.0)
         ec = v_cycle(h, rc, level + 1)
-        x = x + _prolong(ec) * torch.where(lvl.masks.fluid > 0, 1.0, 0.0)
-        x = _smooth(lvl, x, b, h.smooth_iters, h.omega)
+        x = x + prolong(ec) * torch.where(lvl.masks.fluid > 0, 1.0, 0.0)
+        x = smooth(lvl, x, b, h.smooth_iters, h.omega)
     else:
-        x = _smooth(lvl, x, b, 8, h.omega)  # extra smoothing as the coarse solve
+        x = smooth(lvl, x, b, 8, h.omega)  # extra smoothing as the coarse solve
     return x
 
 
@@ -114,29 +117,24 @@ def mg_pcg_solve(h: MgHierarchy, b: torch.Tensor, tol: float = 1e-5, max_iter: i
                  x0=None):
     """CG preconditioned with the V-cycle; stops when every batch element's
     r.r is at most tol^2 max(b.b, 1e-30), the threshold from b also when
-    warm-started at x0, or at max_iter. Returns (x, iterations)."""
-    thresh = (tol * tol) * torch.clamp_min(batch_dot(b, b), 1e-30)
-    if x0 is None:
-        x, r = torch.zeros_like(b), b
-    else:
-        x, r = x0, b - _apply_a(h.levels[0], x0)
-    z = v_cycle(h, r)
-    p = z
-    rz = batch_dot(r, z)
-    i = 0
-    while i < max_iter and bool((batch_dot(r, r) > thresh).any().item()):
-        ap = _apply_a(h.levels[0], p)
-        pap = batch_dot(p, ap)
-        alpha = torch.where(pap == 0, 0.0, rz / torch.where(pap == 0, 1.0, pap))
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = v_cycle(h, r)
-        rz_new = batch_dot(r, z)
-        beta = rz_new / torch.where(rz == 0, 1.0, rz)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
-    return x, i
+    warm-started at x0, or at max_iter. Returns (x, iterations).
+
+    The JAX package's loop is `pcg_solve_info`'s line for line (the pap == 0
+    and rz == 0 guards, the threshold from b), so it is that loop with the
+    V-cycle as the preconditioner; parallel/spatial.py runs the same loop on
+    y-sharded rows."""
+    return pcg_solve_info(functools.partial(apply_a, h.levels[0]),
+                          functools.partial(v_cycle, h), b, tol, max_iter, x0)
+
+
+def level_rows(level: MgLevel, lo: int, hi: int) -> MgLevel:
+    """The level's operator on its cell rows [lo, hi): their masks, the faces
+    around them and their smoother diagonal. Rows outside take the OPEN
+    boundary's zero padding, so `apply_a` of it is the whole level's on every
+    row but the cut's edges inside the field."""
+    m = level.masks
+    return MgLevel(ProjectionMasks(m.fluid[:, lo:hi], m.face_u[:, lo:hi], m.face_v[:, lo:hi + 1]),
+                   level.diag[:, lo:hi])
 
 
 # hierarchies of the latest mask sets, keyed by the masks' identity: a flow's

@@ -16,17 +16,36 @@ where rows move (parallel/mesh.py `move_rows`, differentiable):
   kernel on the block; `gather` takes as many as the back-trace reaches,
   from the largest |v| dt / dy of the whole field (all-reduced), so a wide
   reach gathers rows from ranks beyond the neighbours;
-* the projection: the divergence on one face row from below, the
-  FD-preconditioned CG on the rank's rows (a halo of one row a matvec; the
-  preconditioner's y-transform summed over the ranks; the inner products
-  all-reduced, so every rank stops at the iteration the unsharded loop
-  stops at) and the pressure gradient on one row from above.
+* the projection: the divergence on one face row from below, the pressure
+  solve on the rank's rows, and the pressure gradient on one row from above.
+
+The pressure solve is `pcg_solve_info` on the rank's rows: a halo of one row
+a matvec, the inner products all-reduced, so that every rank takes the
+branch the unsharded loop takes and stops at its iteration. Its
+preconditioner follows the route `sharded_pressure_route` names, which is the
+JAX package's for a sharded field off its Pallas kernel (that kernel is
+single-device in both packages, and its `solve_pressure` never looks at the
+sharding): the multigrid V-cycle (ops/multigrid.py) where `_mg_applicable`
+holds for the global shape, else the FD preconditioner, whose y-transform is
+summed over the ranks.
+
+The sharded V-cycle runs `multigrid.v_cycle`'s sweeps on each rank's window
+of a level: its block of rows and smooth_iters rows each side, exchanged
+once before the pre-smoothing and once before the post-smoothing. A sweep
+spoils one row at each window edge inside the field, so smooth_iters sweeps
+leave the block exact (the pre-smoothing starts from zero, which the window
+holds exactly). A level is sharded while its parent's blocks have an
+even number of rows (restriction and prolongation stay local) and its own
+blocks hold at least MG_MIN_ROWS rows; below the last sharded level every
+rank gathers that level's residual, restricts it and runs the rest of the
+V-cycle replicated, then keeps its own rows of the prolonged correction. The
+coarsest level is always replicated: a hierarchy of one level (an odd side,
+66x33) gathers the right-hand side and runs the whole V-cycle on every rank,
+each keeping its own rows.
 
 A block's edge inside the field is a halo; the OPEN boundary's padding and
 the advection's clamp act only at the field's first and last rows, which
-the haloed block then holds. The sharded solve is the JAX package's own
-route for sharded fields, its XLA FD-PCG (`pressure_backend="xla"`), not a
-kernel: neither package runs its fused CG kernel on a sharded field.
+the haloed block then holds.
 
 Layouts: dens (B, ny, nx) and u (B, ny, nx+1) in blocks of ny / size rows;
 v's ny+1 rows zero-padded to a multiple of the size and cut in equal blocks
@@ -35,7 +54,6 @@ of the padded field shard by shard. Inside the step v is moved to the rows
 the rank updates, the faces above its cells and, on the last rank, the
 field's last face.
 """
-
 from __future__ import annotations
 
 import logging
@@ -46,9 +64,10 @@ import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.kernels.cg import batch_dot, masked_matvec, pcg_solve_info
+from solver_in_the_loop_torch.ops import multigrid as mg
 from solver_in_the_loop_torch.ops.advection import semi_lagrangian
 from solver_in_the_loop_torch.ops.diffusion import diffuse_explicit
-from solver_in_the_loop_torch.ops.poisson import fd_factors
+from solver_in_the_loop_torch.ops.poisson import _mg_applicable, fd_factors
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
 from solver_in_the_loop_torch.parallel.mesh import (
     Mesh,
@@ -62,6 +81,29 @@ log = logging.getLogger(__name__)
 
 # the group is the same whichever axis it shards: JAX names its one axis 'y'
 spatial_mesh = data_parallel_mesh
+
+# the JAX names of KarmanFlow's pressure_backend that a sharded field takes
+SHARDED_BACKENDS = ("auto", "xla", "mg")
+# the fewest rows a rank's block of a sharded multigrid level holds; a
+# coarser level runs replicated. A sharded level costs two row exchanges a
+# V-cycle, a replicated one none, and a level under 8 rows a rank is a few
+# thousand cells on every rank, cheaper than two exchanges (each a host round
+# trip over gloo); 8 rows also keep the 2-row halo inside the neighbours.
+MG_MIN_ROWS = 8
+
+
+def sharded_pressure_route(shape, backend: str = "auto") -> str:
+    """The pressure solve of a y-sharded (B, ny, nx) karman field under the
+    JAX name of the backend: "multigrid" (the V-cycle preconditioner) where
+    `backend` is "mg", or "auto" and `_mg_applicable` holds for the global
+    shape, as the JAX package's `solve_pressure` takes it off its Pallas
+    kernel; else "pcg_plain" (the FD preconditioner), JAX's "xla"."""
+    if backend not in SHARDED_BACKENDS:
+        raise ValueError(f"a sharded field's pressure_backend is one of {SHARDED_BACKENDS}, got "
+                         f"{backend!r} (the fused CG kernel is single-device)")
+    if backend == "mg" or (backend == "auto" and _mg_applicable(shape)):
+        return "multigrid"
+    return "pcg_plain"
 
 
 def y_blocks(mesh: Mesh, rows: int):
@@ -127,32 +169,71 @@ def gather_y(mesh: Mesh, block: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 class _ShardedSolve(torch.autograd.Function):
-    """The distributed FD-PCG, differentiable in its right-hand side: the
-    backward is a cold solve of the same symmetric system, as the
-    unsharded `solve_pressure`'s is."""
+    """The distributed pressure solve (`YShardedKarman.solve`),
+    differentiable in its right-hand side: the backward is a cold solve of
+    the same symmetric system by the same solver, with the forward's
+    tolerance and limit, as the unsharded `solve_pressure`'s is."""
 
     @staticmethod
     def forward(ctx, rhs, x0, shard):
         ctx.shard = shard
-        x, iters = shard.pcg(rhs, x0)
+        x, iters = shard.solve(rhs, x0)
         iters = torch.tensor(iters, dtype=torch.int32, device=rhs.device)
         ctx.mark_non_differentiable(iters)
         return x, iters
 
     @staticmethod
     def backward(ctx, gx, _giters):
-        gb, _ = ctx.shard.pcg(gx.contiguous(), torch.zeros_like(gx))
+        gb, _ = ctx.shard.solve(gx.contiguous(), torch.zeros_like(gx))
         return gb, None, None
+
+
+class _ShardedLevel:
+    """A sharded level of the multigrid hierarchy on one rank: every rank's
+    block of the level's cell rows, and this rank's window of them (its
+    block and `halo` rows each side, cut at the field's edges) with the
+    level's operator there."""
+
+    def __init__(self, level: mg.MgLevel, blocks, mesh: Mesh, halo: int):
+        rows = level.masks.fluid.shape[1]
+        self.blocks, self.mesh, self.rows = blocks, mesh, rows
+        self.windows = [(max(lo - halo, 0), min(hi + halo, rows)) for lo, hi in blocks]
+        lo, hi = blocks[mesh.rank]
+        c0, c1 = self.windows[mesh.rank]
+        self.own = slice(lo - c0, hi - c0)
+        self.op = mg.level_rows(level, c0, c1)
+        self.fluid = level.masks.fluid[:, lo:hi]
+
+    def window(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's window of a level field from every rank's block."""
+        return move_rows(x, self.blocks, self.windows, self.mesh)
+
+
+def _sharded_levels(h: mg.MgHierarchy, cells, mesh: Mesh):
+    """The levels of `h` that run sharded on the ranks' `cells` of level 0
+    (see the module doc): each finer than the coarsest, from level 0 on,
+    while its parent's blocks are even and its own hold MG_MIN_ROWS rows;
+    none where level 0 is the coarsest."""
+    levels, blocks = [], cells
+    while len(levels) < len(h.levels) - 1:
+        levels.append(_ShardedLevel(h.levels[len(levels)], blocks, mesh, h.smooth_iters))
+        if any((hi - lo) % 2 or (hi - lo) // 2 < MG_MIN_ROWS for lo, hi in blocks):
+            break
+        blocks = [(lo // 2, hi // 2) for lo, hi in blocks]
+    return levels
 
 
 class YShardedKarman:
     """`KarmanFlow.step` on y-blocks of its fields over `mesh`'s ranks (see
-    the module doc); the flow's domain has ny rows that the size divides."""
+    the module doc); the flow's domain has ny rows that the size divides.
+    `pressure_backend` is the JAX package's name ("auto", "xla", "mg";
+    `sharded_pressure_route`), and `pressure_route` the solve it names."""
 
-    def __init__(self, flow: KarmanFlow, mesh: Mesh):
+    def __init__(self, flow: KarmanFlow, mesh: Mesh, pressure_backend: str = "auto"):
         dom = flow.domain
         ny, size, r = dom.ny, mesh.size, mesh.rank
         self.flow, self.mesh, self.ny = flow, mesh, ny
+        self.pressure_route = sharded_pressure_route((1, ny, dom.nx), pressure_backend)
         self.cells = y_blocks(mesh, ny)
         last = [int(q == size - 1) for q in range(size)]
         # the faces each rank updates, and v's padded blocks (their true rows)
@@ -173,8 +254,13 @@ class YShardedKarman:
         self.matvec = masked_matvec(masks.fluid[:, c0:c1], masks.face_u[:, c0:c1],
                                     masks.face_v[:, c0:c1 + 1])
         self.fluid = masks.fluid[:, lo:hi]
-        vy, self.vx, self.invd = fd_factors(ny, dom.nx, dev)
-        self.vy = vy[lo:hi]
+        if self.pressure_route == "multigrid":
+            # built on the global masks, which every rank holds
+            self.mg = mg.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
+            self.mg_levels = _sharded_levels(self.mg, self.cells, mesh)
+        else:
+            vy, self.vx, self.invd = fd_factors(ny, dom.nx, dev)
+            self.vy = vy[lo:hi]
 
     def _cell_window(self, k: int):
         return [(max(lo - k, 0), min(hi + k, self.ny)) for lo, hi in self.cells]
@@ -252,9 +338,37 @@ class YShardedKarman:
         t = torch.einsum("yj,bjx->byx", self.vy, t)
         return torch.einsum("byj,xj->byx", t, self.vx)
 
-    def pcg(self, b, x0):
-        """The FD-PCG of `pcg_solve_info` on this rank's rows: (x, iterations)."""
-        return pcg_solve_info(self._matvec, self._minv, b, self.flow.pressure_tol,
+    def v_cycle(self, b: torch.Tensor, level: int = 0) -> torch.Tensor:
+        """`multigrid.v_cycle` of this rank's block of a sharded level's
+        right-hand side: the same sweeps on the rank's window, the
+        restriction and prolongation on its rows, and below the last sharded
+        level the rest gathered and replicated (see the module doc)."""
+        h = self.mg
+        if not self.mg_levels:  # one level, the coarsest: replicated whole
+            whole = gather_y(self.mesh, b, self.ny)
+            return mg.v_cycle(h, whole)[:, slice(*self.cells[self.mesh.rank])]
+        lv = self.mg_levels[level]
+        s, omega = h.smooth_iters, h.omega
+        b_w = lv.window(b)
+        x_w = mg.smooth(lv.op, torch.zeros_like(b_w), b_w, s, omega)
+        r = (b_w - mg.apply_a(lv.op, x_w))[:, lv.own]
+        coarse = level + 1
+        if coarse < len(self.mg_levels):
+            rc = mg.restrict(r) * torch.where(self.mg_levels[coarse].fluid > 0, 1.0, 0.0)
+            e = mg.prolong(self.v_cycle(rc, coarse))
+        else:
+            rc = mg.restrict(gather_y(self.mesh, r, lv.rows))
+            rc = rc * torch.where(h.levels[coarse].masks.fluid > 0, 1.0, 0.0)
+            e = mg.prolong(mg.v_cycle(h, rc, coarse))[:, slice(*lv.blocks[self.mesh.rank])]
+        x = x_w[:, lv.own] + e * torch.where(lv.fluid > 0, 1.0, 0.0)
+        return mg.smooth(lv.op, lv.window(x), b_w, s, omega)[:, lv.own]
+
+    def solve(self, b, x0):
+        """The pressure solve on this rank's rows, by `pressure_route`:
+        `pcg_solve_info` with the sharded V-cycle or the FD preconditioner.
+        Returns (x, iterations)."""
+        minv = self.v_cycle if self.pressure_route == "multigrid" else self._minv
+        return pcg_solve_info(self._matvec, minv, b, self.flow.pressure_tol,
                               self.flow.pressure_max_iter, x0, dot=self._dot)
 
     def project_faces(self, u, v, p0=None):
@@ -288,8 +402,9 @@ class YShardedKarman:
         return dens, u, self.to_padded(v)
 
 
-def make_sharded_step_y(flow: KarmanFlow, mesh: Mesh):
+def make_sharded_step_y(flow: KarmanFlow, mesh: Mesh, pressure_backend: str = "auto"):
     """(dens, u, v_pad, re, dt=1.0) -> (dens, u, v_pad): the karman step on
     `shard_staggered_y`'s layout, as JAX's wrapper of the same name returns
-    it for its step function. Every rank calls it together."""
-    return YShardedKarman(flow, mesh).step
+    it for its step function around a KarmanFlow of that pressure_backend.
+    Every rank calls it together."""
+    return YShardedKarman(flow, mesh, pressure_backend).step

@@ -189,18 +189,19 @@ def train_set():
         return {k: f[k] for k in ("dens", "u", "v", "re")}
 
 
-def train_parity_inputs():
+def train_parity_inputs(rows: int = len(PARITY_RE)):
     """The inputs of the train-parity step: three batch rows (Re 160000 *
-    2^i) that start from the built-in initial state, with ground-truth frames
-    1..32 that are that state plus noise from numpy's RandomState(PARITY_SEED),
-    and the trained SOL-32 checkpoint's statistics. Returns (data of numpy
-    arrays, idx (3, 2), stats)."""
+    2^i, PARITY_RE; `rows` of them cycle through it) that start from the
+    built-in initial state, with ground-truth frames 1..32 that are that
+    state plus noise from numpy's RandomState(PARITY_SEED), and the trained
+    SOL-32 checkpoint's statistics. Returns (data of numpy arrays, idx
+    (rows, 2), stats)."""
     from solver_in_the_loop_torch.physics.karman import initial_state, karman_domain
 
     dom = karman_domain(32)
     d0, v0 = initial_state(dom, 1)
     rng = np.random.RandomState(PARITY_SEED)
-    rows, frames = len(PARITY_RE), PARITY_MSTEPS + 1
+    frames = PARITY_MSTEPS + 1
 
     def window(field):
         x = np.broadcast_to(field.numpy()[None], (rows, frames) + tuple(field.shape[1:]))
@@ -209,7 +210,7 @@ def train_parity_inputs():
         return (x + noise).astype(np.float32)
 
     data = {"dens": window(d0.values), "u": window(v0.u), "v": window(v0.v),
-            "re": np.asarray(PARITY_RE, np.float32)}
+            "re": np.asarray([PARITY_RE[i % len(PARITY_RE)] for i in range(rows)], np.float32)}
     idx = np.stack([np.arange(rows), np.zeros(rows, np.int64)], axis=1)
     with open(os.path.join(CKPT, "dataStats.json")) as f:
         stats = json.load(f)
@@ -252,17 +253,19 @@ def pretf_model(device, pretf_dir: str, conv: str = "library"):
 
 
 def parity_step(device, conv: str = "library", precon: str = "fd",
-                compute_dtype: torch.dtype = torch.float32, pretf: str = None):
+                compute_dtype: torch.dtype = torch.float32, pretf: str = None,
+                rows: int = len(PARITY_RE)):
     """One SOL-32 train step's loss and gradients on `device` (no update),
     its pressure solves preconditioned as `precon` says, the net computing
-    in `compute_dtype`: (loss, step_losses (32,), forward CG iterations,
-    {param name: grad}). With `pretf` (a PRE net's directory) the net and
-    the velocity scales are those `karman-train --pretf` adopts."""
+    in `compute_dtype`, at a batch of `rows` (`train_parity_inputs`): (loss,
+    step_losses (32,), forward CG iterations, {param name: grad}). With
+    `pretf` (a PRE net's directory) the net and the velocity scales are
+    those `karman-train --pretf` adopts."""
     from solver_in_the_loop_torch.models.features import Normalization
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.trainer import SolTrainConfig, karman_loss
 
-    data, idx, stats = train_parity_inputs()
+    data, idx, stats = train_parity_inputs(rows)
     flow = KarmanFlow(karman_domain(32), advection="shift", max_shift=2, pressure_precon=precon,
                       device=device)
     if pretf is None:

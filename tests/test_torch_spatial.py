@@ -2,9 +2,10 @@
 package's spatial tests (tests/test_spatial.py) on the CPU.
 
 The port's ranks are processes over gloo (tests/torch_dist_ranks.py), 2 and
-4 of them on `karman_domain(16)` (32x16: v's 33 rows padded to 34 and 36);
-the JAX side runs unsharded with its XLA FD-PCG (`pressure_backend="xla"`),
-the route its own sharded runs take:
+4 of them on `karman_domain(16)` (32x16: v's 33 rows padded to 34 and 36),
+both sides at `pressure_backend="xla"`, the FD-PCG, as the JAX package's
+spatial tests pin it (tests/test_torch_spatial_mg.py holds the multigrid
+route); the JAX side runs unsharded:
 
 * the projection of random fields (CG tolerance 1e-7): pressure and u
   within atol 2e-4, the JAX test's;
@@ -109,7 +110,7 @@ CASES = {
 def sharded(world: int) -> dict:
     """Every case on `world` ranks, in one group: rank 0's results and
     every rank's padding maximum and v block rows, by case name."""
-    cases = [dict(c, res=RES) for c in CASES.values()]
+    cases = [dict(c, res=RES, backend="xla") for c in CASES.values()]
     got = ranks.spawn(ranks.spatial_rank, world, cases)
     out = {}
     for i, name in enumerate(CASES):

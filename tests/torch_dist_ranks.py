@@ -181,12 +181,15 @@ def numpy_tree(tree):
 
 def spatial_rank(cases, device="cpu"):
     """The y-sharded karman step (parallel/spatial.py) on this rank, for
-    each case: {"kind": "project" | "step" | "grad", "res", "advection",
-    "ptol", "pmaxiter", "fields": (dens, u, v) numpy, "weights" for "grad"}.
+    each case: {"kind": "project" | "step" | "grad" | "vcycle", "res",
+    "advection", "ptol", "pmaxiter", "backend" (the JAX pressure_backend),
+    "fields": (dens, u, v) numpy, "weights" for "grad", "rhs" for "vcycle"}.
     Returns per case the whole fields gathered from every rank (numpy), the
-    largest |value| of this rank's padding rows of v, and, for "grad", the
-    gradients of sum(w * outputs) in the inputs. With `device` "cuda" every
-    rank runs on cuda:0 and the tap-sum launches of each case are counted."""
+    largest |value| of this rank's padding rows of v, the solve's route,
+    and, for "grad", the gradients of sum(w * outputs) in the inputs; for
+    "vcycle" the sharded V-cycle of "rhs" gathered, and each sharded level's
+    rows a rank. With `device` "cuda" every rank runs on cuda:0 and the
+    tap-sum launches of each case are counted."""
     from solver_in_the_loop_torch.kernels import advect
     from solver_in_the_loop_torch.parallel import spatial
     from solver_in_the_loop_torch.physics import karman
@@ -199,12 +202,20 @@ def spatial_rank(cases, device="cpu"):
             flow = karman.KarmanFlow(dom, advection=case["advection"], max_shift=2,
                                      pressure_tol=case["ptol"],
                                      pressure_max_iter=case["pmaxiter"], device=mesh.device)
-            shard = spatial.YShardedKarman(flow, mesh)
+            shard = spatial.YShardedKarman(flow, mesh, case["backend"])
+            ny = dom.ny
+            res = {"route": shard.pressure_route}
+            if case["kind"] == "vcycle":
+                b = torch.from_numpy(case["rhs"]).to(mesh.device)
+                x = shard.v_cycle(b[:, spatial.y_sharding(mesh, ny)].contiguous())
+                res["x"] = spatial.gather_y(mesh, x, ny)
+                res["level_rows"] = [lv.blocks[0][1] for lv in shard.mg_levels]
+                out.append({k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                            for k, v in res.items()})
+                continue
             full = [torch.from_numpy(a).to(mesh.device) for a in case["fields"]]
             dens, u, v_pad = spatial.shard_staggered_y(mesh, *full)
-            ny = dom.ny
             advect.tap_sum_fwd.launches = advect.tap_sum_bwd.launches = 0
-            res = {}
             if case["kind"] == "project":
                 u, v_pad, p, iters = shard.project(u, v_pad)
                 res["p"] = spatial.gather_y(mesh, p, ny)

@@ -188,7 +188,18 @@ line; without CUDA, or outside a checkout, it exits 1 at once.
     python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]
 
 runs only the CG kernels' fixed-iteration timing, built from each DIR (see
-`cg_split`),
+`cg_split`): the 64x32 kernels label by label, the cluster layout's two
+instantiations at CG_SPLIT_CLUSTER with the labels in turns, e.g. `old=`
+an unpacked `git archive HEAD solver_in_the_loop_torch/csrc`
+`new=solver_in_the_loop_torch/csrc` for a change's before and after on one
+card;
+
+    python3 chip_smoke.py --cg-ablate DIR [LABEL=DIR ...]
+
+the same on a cluster layout's csrc/ (DIR: this one, or the earlier one
+from `git archive 04510b4 solver_in_the_loop_torch/csrc` unpacked) and on
+copies of it with a part of the iteration cut out (`CG_ABLATIONS`,
+`CG_ABLATIONS_SPLIT_ROWS`), and any further labels;
 
     python3 chip_smoke.py --cg-general DIR
 
@@ -488,6 +499,8 @@ def phase_build():
     require(all(want <= got for want, got in zip(resident["planned"], resident["least"])),
             f"kernels/cg.py CLUSTER_RESIDENT {resident['planned']} above the card's "
             f"{resident['least']}")
+    require(all(native == mirror for native, mirror in resident["smem"].values()),
+            f"kernels/cg.py cluster_smem_bytes against csrc/cg_cluster.cu: {resident['smem']}")
     # no spill in the conv kernels, but for the bf16 forward at K = 7 (no net
     # of the repo has a 7x7 conv): it spills 4 bytes, more with its tap loop
     # rolled or its channel loop rolled (measured on the H100)
@@ -502,20 +515,32 @@ def phase_build():
         require(not spills, f"the {name} kernels spill registers: {spills}")
 
 
+# (precon, on chip, h, w, band) of csrc/cg_cluster.cu whose residency and
+# shared memory the build phase reads: each variant at 256x128 (the most
+# shared memory on chip: 208 KB with the preconditioner), 134x67, and the
+# L2 variant at the largest elements the JAX gate takes
+CLUSTER_VARIANTS = [(False, True, 256, 128, 16), (True, True, 256, 128, 16),
+                    (True, True, 134, 67, 16), (False, True, 134, 67, 16),
+                    (True, False, 534, 267, 48), (False, False, 626, 313, 48)]
+
+
 def cluster_residency():
-    """cudaOccupancyMaxActiveClusters of csrc/cg_cluster.cu by cluster size,
-    for each instantiation at the least shared memory (CG, 128 wide) and at
-    the most the JAX-gated shapes give it (PCG, 48 rows of 267); "least" is
-    the smallest of them, which kernels/cg.py CLUSTER_RESIDENT ("planned")
-    must not exceed."""
+    """cudaOccupancyMaxActiveClusters of csrc/cg_cluster.cu by cluster size
+    for each of CLUSTER_VARIANTS; "least" is the smallest of them, which
+    kernels/cg.py CLUSTER_RESIDENT ("planned") must not exceed; and each
+    variant's shared memory by the kernel's count against kernels/cg.py's
+    mirror (`smem`: [native, mirror])."""
     from solver_in_the_loop_torch.kernels import cg
 
     sizes = range(1, cg.CLUSTER_MAX + 1)
-    got = {f"{'pcg' if precon else 'cg'}_w{w}_band{band}": [cg.cluster_resident(precon, w, c, band)
-                                                          for c in sizes]
-           for precon, w, band in ((False, 128, 16), (True, 128, 16), (True, 267, 48))}
+    got, smem = {}, {}
+    for precon, on_chip, h, w, band in CLUSTER_VARIANTS:
+        key = f"{'pcg' if precon else 'cg'}_{'chip' if on_chip else 'l2'}_{h}x{w}_band{band}"
+        got[key] = [cg.cluster_resident(precon, on_chip, h, w, c, band) for c in sizes]
+        smem[key] = [cg.cluster_smem_native(precon, on_chip, h, w, band),
+                     cg.cluster_smem_bytes(band, h, w, precon, on_chip)]
     return {**got, "least": [min(v[c - 1] for v in got.values()) for c in sizes],
-            "planned": list(cg.CLUSTER_RESIDENT)}
+            "planned": list(cg.CLUSTER_RESIDENT), "smem": smem}
 
 
 def karman_rhs(batch_re, device, steps=30, res=32):
@@ -814,12 +839,14 @@ def fixed_iter_cases(device):
 # (Re values, res, precon) of the cluster layout (csrc/cg_cluster.cu): the
 # shapes the card refused before it at -r 67 (the lo-res karman-gen with
 # either precon) and -r 79, the PRE generator's 256x128 at the batches the
-# JAX package's gate takes, -r 192 and its largest element, -r 267; and
-# 256x128 at batch 6, multigrid's route, the kernel timed for ROADMAP B5
+# JAX package's gate takes, -r 192 and its largest elements, -r 267 with
+# the preconditioner and -r 313 without (both in the L2 variant, as -r 192
+# with it; the others on chip); and 256x128 at batch 6, multigrid's route,
+# the kernel timed for ROADMAP B5
 RE_B3, RE_B6 = RE_B5[:3], RE_B5 + RE_B8[5:6]
 CLUSTER_CASES = [(RE_B1, 67, "fd"), (RE_B1, 67, "none"), (RE_B1, 79, "none"), (RE_B1, 128, "fd"),
                  (RE_B3, 128, "fd"), (RE_B5, 128, "none"), (RE_B1, 192, "fd"), (RE_B1, 267, "fd"),
-                 (RE_B6, 128, "fd")]
+                 (RE_B1, 313, "none"), (RE_B6, 128, "fd")]
 
 
 def _wall_ms(fn) -> float:
@@ -869,7 +896,8 @@ def cluster_kernel_cases(device):
                              else (cg.cg_cluster_solve, cg.cg_solve_plain, cg.cg_solve_op))
         extra = fd if pre else ()
         rel_tol = PCG_REL_TOL if pre else CG_REL_TOL
-        base = {"shape": list(shape), "precon": precon, "plan": cg.cluster_plan(shape, pre)}
+        base = {"shape": list(shape), "precon": precon, "plan": cg.cluster_plan(shape, pre),
+                "on_chip": cg.cluster_on_chip(shape, pre)}
         for start in ("cold", "warm"):
             x0 = warm if start == "warm" else torch.zeros_like(rhs)
             args = (rhs, x0, *ops, *extra, tol, max_iter)
@@ -3784,53 +3812,71 @@ def phase_flags(device):
     return launches
 
 
-def cg_split(specs) -> int:
-    """`python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]`: only the
-    fixed-iteration timing of both CG kernels (fixed_iter_cases), built from
-    each DIR in turn, one JSON line per label. A DIR is csrc/ or a copy of it
-    with a part of the PCG iteration taken out (the preconditioner's
-    products, the reductions): its us_per_iter subtracted from the kernel's
-    is that part's share of an iteration."""
-    from pathlib import Path
-    from unittest import mock
+# (Re values, res, precon) of --cg-split's cluster timing: the PRE
+# generator's 256x128 at batch 1 and 3, the largest element with the
+# preconditioner (534x267, its fields in L2), -r 67 both ways and 256x128 at
+# batch 5 without
+CG_SPLIT_CLUSTER = [(RE_B1, 128, "fd"), (RE_B3, 128, "fd"), (RE_B1, 267, "fd"),
+                    (RE_B1, 67, "fd"), (RE_B1, 67, "none"), (RE_B5, 128, "none")]
+
+
+def cluster_solver(lib, device):
+    """A caller of `silt_cg_cluster_solve` in a library of csrc/cg_cluster.cu
+    (a ctypes CDLL) on the plan kernels/cg.py gives the shape: (b, x0, fluid,
+    face_u, face_v, fd or None, max_iter) -> (x, iterations) at tol 0, which
+    runs max_iter iterations. It takes either ABI: this layout's (the
+    on-chip flag after precon) or the earlier layout's (no flag; its library
+    has no `silt_cg_cluster_smem`), with the scratch each one takes."""
+    import ctypes
 
     import torch
 
     from solver_in_the_loop_torch.kernels import build, cg
 
-    device = torch.device("cuda", 0)
-    # a copy of an earlier version may carve more shared memory in the plain
-    # CG (the fluid and both face masks beside p): every launch gets that room
-    cg_bytes = cg.cg_smem_bytes
-    with mock.patch.object(cg, "cg_smem_bytes", lambda h, w: max(
-            cg_bytes(h, w), 4 * (2 * h * w + h * (w + 1) + (h + 1) * w))):
-        for spec in specs:
-            label, src = spec.split("=", 1)
-            build.CSRC = Path(src).resolve()
-            build.BUILD_DIR = Path(REPO, "build", "kernels_split", label)
-            build._loaded.clear()
-            build._functions.clear()
-            report = build._compile(["pcg", "cg"])
-            emit({"phase": "cg_split", "label": label, "csrc": src,
-                  "ptxas": {name: info["ptxas"] for name, info in report.items()},
-                  **fixed_iter_cases(device)})
-    return 0
+    flagged = hasattr(lib, "silt_cg_cluster_smem")
+    fn = lib.silt_cg_cluster_solve
+    fn.argtypes = ([ctypes.c_int] * (2 if flagged else 1) + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def solve(b, x0, fluid, face_u, face_v, fd, max_iter):
+        bsz, h, w = b.shape
+        pre = fd is not None
+        blocks, band = cg.cluster_plan(b.shape, pre)
+        on_chip = cg.cluster_on_chip(b.shape, pre)
+        x = torch.empty_like(b)
+        iters = torch.empty((), dtype=torch.int32, device=device)
+        shape = (cg.cluster_work_shape(b.shape, pre, on_chip) if flagged
+                 else (bsz, 5 if pre else 4, h, w))
+        work = None if shape is None else torch.empty(shape, dtype=torch.float32, device=device)
+        sync = torch.zeros(1 + 2 * bsz, dtype=torch.int32, device=device) if bsz > 1 else None
+        ptr = [None if t is None else t.data_ptr()
+               for t in (b, x0, fluid, face_u, face_v, *(fd or (None,) * 3), x, iters, work, sync)]
+        flags = [int(pre), int(on_chip)] if flagged else [int(pre)]
+        err = fn(*flags, *ptr, bsz, h, w, blocks, band, 0.0, max_iter,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check(err, "cluster_solver")
+        return x, iters
+
+    return solve
 
 
-# the shapes of the general layouts that csrc/cg_cluster.cu replaced: -r 48,
-# -r 65, and 128x64 at batch 2
-GENERAL_CASES = [(RE_B1, 48), (RE_B1, 65), (RE_B5[:2], 64)]
-
-
-def cg_general(src: str) -> int:
-    """`python3 chip_smoke.py --cg-general DIR`: the general layouts of
-    csrc/pcg.cu and csrc/cg.cu as they were before the cluster layout
-    replaced them, built from DIR (a copy of that csrc/, e.g. `git archive
-    c5e9cac solver_in_the_loop_torch/csrc`), against csrc/cg_cluster.cu at
-    GENERAL_CASES, both at FIXED_ITERS fixed iterations, in turns (old, new,
-    new, old): one JSON line, us per iteration and set-up of each."""
+def cg_split(specs) -> int:
+    """`python3 chip_smoke.py --cg-split LABEL=DIR [LABEL=DIR ...]`: only the
+    fixed-iteration timing of the CG kernels, built from each DIR (csrc/ or a
+    copy of it: an earlier version, or one with a part of the iteration
+    taken out, whose us_per_iter subtracted from the kernel's is that part's
+    share of an iteration), one nvcc per source and DIR, all started
+    together. Both 64x32 kernels (fixed_iter_cases) label by label, one JSON
+    line per label with its ptxas report; then both instantiations of the
+    cluster layout at CG_SPLIT_CLUSTER, every label in turn at each shape,
+    the labels in order and then in reverse (old, new, new, old), at
+    FIXED_ITERS iterations, one JSON line per shape: each label's us per
+    iteration and set-up in each turn, the iterations run, and the largest
+    difference of its solution from the first label's."""
     import ctypes
     from pathlib import Path
+    from unittest import mock
 
     import torch
 
@@ -3839,56 +3885,132 @@ def cg_general(src: str) -> int:
 
     device = torch.device("cuda", 0)
     new_dir, new_build = build.CSRC, build.BUILD_DIR
-    build.CSRC, build.BUILD_DIR = Path(src).resolve(), Path(REPO, "build", "kernels_split", "old")
-    report = build._compile(["pcg", "cg"])
-    old = {name: ctypes.CDLL(str(build._lib_path(name))) for name in ("pcg", "cg")}
+    labels, dirs, procs = [], {}, []
+    for spec in specs:
+        label, src = spec.split("=", 1)
+        labels.append(label)
+        dirs[label] = (Path(src).resolve(), Path(REPO, "build", "kernels_split", label))
+        build.CSRC, build.BUILD_DIR = dirs[label]
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for name in ("pcg", "cg", "cg_cluster"):
+            cmd = [build.nvcc_path(), *build.COMMON_FLAGS, *build.SOURCES[name], "-o",
+                   str(build._lib_path(name)), str(build.CSRC / f"{name}.cu")]
+            procs.append((label, name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                        stderr=subprocess.STDOUT, text=True)))
+    ptxas = {label: {} for label in labels}
+    for label, name, proc in procs:
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc failed for {label} {name}:\n{log}")
+        ptxas[label][name] = [ln.strip() for ln in log.splitlines()
+                              if "ptxas info" in ln or "spill" in ln]
+    solvers = {}
+    # a copy of an earlier version may carve more shared memory in the plain
+    # CG (the fluid and both face masks beside p): every launch gets that room
+    cg_bytes = cg.cg_smem_bytes
+    with mock.patch.object(cg, "cg_smem_bytes", lambda h, w: max(
+            cg_bytes(h, w), 4 * (2 * h * w + h * (w + 1) + (h + 1) * w))):
+        for label in labels:
+            build.CSRC, build.BUILD_DIR = dirs[label]
+            build._loaded.clear()
+            build._functions.clear()
+            solvers[label] = cluster_solver(ctypes.CDLL(str(build._lib_path("cg_cluster"))),
+                                            device)
+            emit({"phase": "cg_split", "label": label, "csrc": str(dirs[label][0]),
+                  "ptxas": ptxas[label], **fixed_iter_cases(device)})
     build.CSRC, build.BUILD_DIR = new_dir, new_build
-    fn_pcg, fn_cg = old["pcg"].silt_pcg_solve, old["cg"].silt_cg_solve
-    fn_pcg.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn_cg.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn_pcg.restype = fn_cg.restype = ctypes.c_int
-
-    def old_solve(pre, b, x0, fluid, face_u, face_v, vy, vx, invd, n):
-        bsz, h, w = b.shape
-        x = torch.empty_like(b)
-        iters = torch.empty((), dtype=torch.int32, device=device)
-        stream = torch.cuda.current_stream().cuda_stream
-        if pre:  # the general layout's unpadded shared memory
-            smem = 4 * ((h + 2) * (w + 1) + 3 * h * w + h * h + w * w)
-            err = fn_pcg(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, vy, vx, invd, x,
-                                                  iters)), None, bsz, h, w, 0.0, n, smem, stream)
-        else:
-            err = fn_cg(*(t.data_ptr() for t in (b, x0, fluid, face_u, face_v, x, iters)), None,
-                        bsz, h, w, 0.0, n, 4 * (h + 2) * (w + 1), stream)
-        build.check(err, "old general layout")
-        return x, iters
-
+    build._loaded.clear()
+    build._functions.clear()
     lo, hi = FIXED_ITERS
-    cases = []
-    for batch_re, res in GENERAL_CASES:
+    for batch_re, res, precon in CG_SPLIT_CLUSTER:
         rhs, _, masks = karman_rhs(batch_re, device, res=res)
-        ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
-        fd = fd_factors(rhs.shape[1], rhs.shape[2], device)
-        for pre in (True, False):
-            runs = {"old": lambda n: old_solve(pre, *ops, *fd, n),
-                    "new": (lambda n: cg.pcg_cluster_solve(*ops, *fd, 0.0, n)) if pre
-                    else (lambda n: cg.cg_cluster_solve(*ops, 0.0, n))}
-            ms = {label: {lo: [], hi: []} for label in runs}
-            for label in ("old", "new", "new", "old"):
-                for n in (lo, hi):
-                    require(int(runs[label](n)[1]) == n, f"{label} ran other than {n} iterations")
-                    ms[label][n].append(time_ms(lambda: runs[label](n), 10))
-            case = {"shape": list(rhs.shape), "precon": "fd" if pre else "none"}
-            for label, t in ms.items():
-                us = [1e3 * (b - a) / (hi - lo) for a, b in zip(t[lo], t[hi])]
-                case[label] = {"us_per_iter": us, "setup_ms": [a - lo * u / 1e3 for a, u in
-                                                              zip(t[lo], us)]}
-            cases.append(case)
-    emit({"phase": "cg_general", "csrc": src,
-          "ptxas": {name: info["ptxas"] for name, info in report.items()}, "cases": cases})
+        shape = tuple(rhs.shape)
+        pre = precon == "fd"
+        ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v,
+               fd_factors(shape[1], shape[2], device) if pre else None)
+        runs = {label: {lo: [], hi: []} for label in labels}
+        iters = {label: set() for label in labels}
+        first = {}
+        for label in labels + labels[::-1]:
+            for n in (lo, hi):
+                x, it = solvers[label](*ops, n)
+                iters[label].add((n, int(it)))
+                first.setdefault(label, x)
+                runs[label][n].append(time_ms(lambda: solvers[label](*ops, n), 10))
+        line = {"phase": "cg_split_cluster", "shape": list(shape), "precon": precon,
+                "plan": cg.cluster_plan(shape, pre), "on_chip": cg.cluster_on_chip(shape, pre)}
+        for label in labels:
+            t = runs[label]
+            us = [1e3 * (b - a) / (hi - lo) for a, b in zip(t[lo], t[hi])]
+            line[label] = {"iters": sorted(iters[label]), f"ms_{lo}": t[lo], f"ms_{hi}": t[hi],
+                           "us_per_iter": us,
+                           "setup_ms": [a - lo * u / 1e3 for a, u in zip(t[lo], us)],
+                           "max_abs_diff_vs_first": float((first[label] - first[labels[0]])
+                                                          .abs().max())}
+        emit(line)
     return 0
+
+
+# Cuts of csrc/cg_cluster.cu for --cg-ablate, each (text, replacement, how
+# many times it occurs), for the earlier layout (git archive 04510b4) and
+# for this one. The earlier one's: "products" runs the preconditioner's
+# four products with no k-step (z = 0; the loop still runs its iterations,
+# its updates and its barriers); "l1" reads the cross-band operands r and
+# t1 through L1 (__ldg) instead of L2 (__ldcg), as if they were near, at
+# the same addresses; "barriers" keeps the stop test's cluster barrier and
+# drops the others (the reductions' and those that publish r and t1), each
+# a block barrier instead, so its sums read stale posts and its solution
+# is wrong; its stop test is max_iter alone, so that no block of a cluster
+# stops before the others (tol 0 stops nothing early). This layout's:
+# "products", "l1" (the B fragments of Vy^T r and Vy t1) and "barriers" as
+# the earlier one's (every cluster barrier of the loop cut); "threads256"
+# runs blocks of 256 threads.
+CG_ABLATIONS = {
+    "products": [("const int steps = (klen + 7) >> 3;", "const int steps = 0;", 1)],
+    "l1": [("tile<kConst, kLive>", "tile<kConst, kConst>", 2)],
+    "barriers": [("    cluster.sync();\n    const int lane = threadIdx.x & 31;",
+                  "    __syncthreads();\n    const int lane = threadIdx.x & 31;", 1),
+                 ("cluster.sync();  // t1 complete", "__syncthreads();  // t1 complete", 1),
+                 ("cluster.sync();  // r complete", "__syncthreads();  // r complete", 1),
+                 ("const bool any = busy(rs > thresh);", "const bool any = busy(true);", 1)],
+}
+CG_ABLATIONS_SPLIT_ROWS = {
+    "products": [("const int steps = h8 >> 3;", "const int steps = 0;", 1),
+                 ("const int steps = w8 >> 3;", "const int steps = 0;", 1),
+                 ("const int steps = (klen + 7) >> 3;", "const int steps = 0;", 1)],
+    "l1": [("b0[u] = __ldcg(", "b0[u] = __ldg(", 1), ("b1[u] = __ldcg(", "b1[u] = __ldg(", 1),
+           ("tile<kConst, kLive>", "tile<kConst, kConst>", 2)],
+    "barriers": [("    cluster_arrive();\n}", "    __syncthreads();\n}", 1),
+                 ("    cluster_wait();\n", "", 1),
+                 ("cluster.sync();  // t1 complete", "__syncthreads();  // t1 complete", 2),
+                 ("const bool any = busy(rs > thresh);", "const bool any = busy(true);", 1)],
+    "threads256": [("constexpr int kThreads = 512;", "constexpr int kThreads = 256;", 1)],
+}
+
+
+def cg_ablate(src: str, more) -> int:
+    """`python3 chip_smoke.py --cg-ablate DIR [LABEL=DIR ...]`: a cluster
+    layout split into its parts. Writes a copy of DIR (a csrc/) for each
+    cut of CG_ABLATIONS (the earlier layout) or CG_ABLATIONS_SPLIT_ROWS (this
+    one's, whose source has `split_step`) under build/cg_ablate/ and runs
+    cg_split on DIR (label "base"), the cuts and any further labels."""
+    from pathlib import Path
+
+    root = Path(REPO, "build", "cg_ablate")
+    source = (Path(src) / "cg_cluster.cu").read_text()
+    ablations = CG_ABLATIONS_SPLIT_ROWS if "split_step" in source else CG_ABLATIONS
+    specs = [f"base={src}"]
+    for name, cuts in ablations.items():
+        dst = root / name
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src, dst)
+        text = source
+        for old, new, count in cuts:
+            require(text.count(old) == count, f"--cg-ablate {name}: {old!r} occurs "
+                    f"{text.count(old)} times in {src}/cg_cluster.cu, not {count}")
+            text = text.replace(old, new)
+        (dst / "cg_cluster.cu").write_text(text)
+        specs.append(f"{name}={dst}")
+    return cg_split(specs + list(more))
 
 
 def conv_split(specs) -> int:
@@ -4028,6 +4150,8 @@ def main() -> int:
     disable_tf32()
     if sys.argv[1:2] == ["--cg-split"]:
         return cg_split(sys.argv[2:])
+    if sys.argv[1:2] == ["--cg-ablate"]:
+        return cg_ablate(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--cg-general"]:
         return cg_general(sys.argv[2])
     if sys.argv[1:2] == ["--conv-split"]:

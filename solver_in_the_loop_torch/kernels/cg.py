@@ -63,7 +63,15 @@ PCG_FAST_TILES = 16
 # one element over a cluster of up to CLUSTER_MAX blocks of CLUSTER_THREADS,
 # each owning a band of whole 16-row stripes; a batch of several elements
 # meets at a barrier of the whole grid, so its clusters must all be
-# resident at once
+# resident at once. Where a block's share fits its shared memory
+# (`cluster_on_chip`), the band's vectors (x, r, both p buffers, A p, z)
+# live there, the two Vy slices (split into their TF32 parts) and Vx are
+# staged once per launch, p's halo rows come from the other blocks' shared
+# memory (DSMEM), Vy^T r and Vy t1 read r and t1 through L2 from padded
+# copies (`cluster_work_shape`), and an iteration has four cluster barriers
+# with the preconditioner and two without; elsewhere the vectors stay in a
+# scratch in global memory (L2), and the products, p and the barriers (five
+# and three) are the layout's before (csrc/cg_cluster.cu's header).
 CLUSTER_MAX = 16
 CLUSTER_THREADS = 512
 # cudaOccupancyMaxActiveClusters of csrc/cg_cluster.cu by cluster size
@@ -96,11 +104,47 @@ def pcg_smem_bytes(h: int, w: int) -> int:
     return 4 * ((h + 2) * ps + h * (2 * ldr + ld0) + 2 * (h * ldy + w * ldx))
 
 
-def cluster_smem_bytes(band: int, w: int, precon: bool) -> int:
-    """Dynamic shared memory of a block of csrc/cg_cluster.cu: with the
-    preconditioner two band buffers (t0, then t2, and z), `band` rows each
-    at a row stride that is 4 mod 32 (`band_stride`); none without."""
-    return 4 * 2 * band * _stride_mod32(w, 4) if precon else 0
+def cluster_strides(h: int, w: int):
+    """Row strides (in floats) of csrc/cg_cluster.cu's buffers (`Layout`):
+    `b` for the band vectors and the padded copies of r and t1, read as B
+    operands on chip (lanes (t, g) at 8t + g), 8 mod 32; `a` for t0 / t2 in
+    the L2 variant, an A operand (lanes (g, t) at 4g + t), 4 mod 32; `sw` and
+    `sh` for split rows (`split_index`) of t0 / t2 and of the Vy slices on
+    chip, twice w and h rounded up to 8, 16 mod 32, a lane reading a float4
+    (8 lanes on 32 banks); `vx` for Vx on chip, 8 mod 32 and at least w
+    rounded up to 16, with the XOR swizzle of `vx_index` that makes both
+    (.) Vx and (.) Vx^T conflict-free."""
+    w8, h8 = -(-w // 8) * 8, -(-h // 8) * 8
+    return {"b": _stride_mod32(w, 8), "a": _stride_mod32(w, 4), "sw": _stride_mod32(2 * w8, 16),
+            "sh": _stride_mod32(2 * h8, 16), "vx": _stride_mod32(-(-w // 16) * 16, 8)}
+
+
+def split_index(k: int) -> int:
+    """Where the TF32 big part of element k of a split row lies in
+    csrc/cg_cluster.cu (`split_at`; its small part two floats on): 16
+    floats a k-step of 8, lane t's float4 holding k = t and t + 4."""
+    return (k >> 3) * 16 + 4 * (k & 3) + ((k >> 2) & 1)
+
+
+def vx_index(row: int, col: int, ld: int) -> int:
+    """Where Vx[row, col] lies in csrc/cg_cluster.cu's staged copy (`vx_at`):
+    bits 2-3 of the column flipped by bits 2-3 of the row."""
+    return row * ld + (col ^ (((row >> 2) & 3) << 2))
+
+
+def cluster_smem_bytes(band: int, h: int, w: int, precon: bool, on_chip: bool) -> int:
+    """Dynamic shared memory of a block of csrc/cg_cluster.cu (`Layout`): on
+    chip p's two halo rows and the band's vectors (x, r, two p buffers and A
+    p); with the preconditioner z and t0 / t2 (on chip in split rows), and
+    on chip also the two Vy slices (band x h) in split rows and Vx (w x w,
+    w rounded up to 8 rows)."""
+    ld = cluster_strides(h, w)
+    floats = (2 + 5 * band) * ld["b"] if on_chip else 0
+    if precon:
+        floats += band * (ld["b"] + ld["sw" if on_chip else "a"])
+        if on_chip:
+            floats += 2 * band * ld["sh"] + -(-w // 8) * 8 * ld["vx"]
+    return 4 * floats
 
 
 def cluster_plan(shape, precon: bool):
@@ -108,8 +152,8 @@ def cluster_plan(shape, precon: bool):
     a (B, H, W) problem, or None: the element's 16-row stripes cut into the
     most bands of whole stripes, at most CLUSTER_MAX, such that the batch's
     clusters can all be resident at once (CLUSTER_RESIDENT) and a block's
-    band buffers fit its shared memory (cluster_smem_bytes). At 256x128: 16
-    blocks of 16 rows; at 534x267: 12 of 48."""
+    buffers of the L2 variant fit its shared memory (cluster_smem_bytes).
+    At 256x128: 16 blocks of 16 rows; at 534x267: 12 of 48."""
     b, h, w = shape
     if not 1 <= b <= MAX_BATCH or h < 1 or w < 1:
         return None
@@ -119,9 +163,33 @@ def cluster_plan(shape, precon: bool):
         if -(-stripes // per) != blocks:  # the same bands as more blocks would take
             continue
         if (b <= CLUSTER_RESIDENT[blocks - 1]
-                and cluster_smem_bytes(16 * per, w, precon) <= SMEM_LIMIT_BYTES):
+                and cluster_smem_bytes(16 * per, h, w, precon, False) <= SMEM_LIMIT_BYTES):
             return blocks, 16 * per
     return None
+
+
+def cluster_work_shape(shape, precon: bool, on_chip: bool):
+    """The global scratch csrc/cg_cluster.cu takes for a (B, H, W) problem
+    (`work_floats`), (B, floats per element), or None: on chip with the
+    preconditioner padded copies of r and t1 (H and W rounded up to 8, rows
+    at the band vectors' stride), which Vy^T r and Vy t1 read through L2,
+    none without; in L2 p, r, A p and, with the preconditioner, t1 (H x W
+    each)."""
+    b, h, w = shape
+    if on_chip:
+        return (b, 2 * -(-h // 8) * 8 * cluster_strides(h, w)["b"]) if precon else None
+    return (b, (4 if precon else 3) * h * w)
+
+
+def cluster_on_chip(shape, precon: bool) -> bool:
+    """Whether csrc/cg_cluster.cu keeps a (B, H, W) problem's band vectors in
+    shared memory (the plan's flag; else in L2): the plan's block fits its
+    shared memory with them. At 256x128 and 134x67 both ways; not at
+    384x192 and 534x267 with the preconditioner, nor 534x267 and 626x313
+    without."""
+    plan = cluster_plan(shape, precon)
+    _, h, w = shape
+    return plan is not None and cluster_smem_bytes(plan[1], h, w, precon, True) <= SMEM_LIMIT_BYTES
 
 
 def pcg_kernel_fits(shape) -> bool:
@@ -326,27 +394,32 @@ cg_cluster_solve.launches = 0
 
 def _cluster_launch(what: str, b, x0, fluid, face_u, face_v, fd, tol: float, max_iter: int):
     """One launch of csrc/cg_cluster.cu on the plan `cluster_plan` gives the
-    shape, with the FD factors `fd` (vy, vx, invd) or without (None):
-    returns (x, iterations as a 0-d int32 tensor)."""
+    shape, in the variant `cluster_on_chip` names, with the FD factors `fd`
+    (vy, vx, invd) or without (None): returns (x, iterations as a 0-d int32
+    tensor)."""
     bsz, h, w = b.shape
-    plan = cluster_plan(b.shape, fd is not None)
+    pre = fd is not None
+    plan = cluster_plan(b.shape, pre)
     if plan is None:
         raise ValueError(f"{what}: csrc/cg_cluster.cu takes no plan for {tuple(b.shape)} "
                          "(kernels/cg.py cluster_plan)")
     blocks, band = plan
+    on_chip = cluster_on_chip(b.shape, pre)
     fn = build.function("cg_cluster", "silt_cg_cluster_solve",
-                        [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     x = torch.empty_like(b)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
-    work = torch.empty((bsz, 3 if fd is None else 4, h, w), dtype=torch.float32, device=b.device)
+    shape = cluster_work_shape(b.shape, pre, on_chip)
+    work = None if shape is None else torch.empty(shape, dtype=torch.float32, device=b.device)
     # the grid barrier's counter and the stop flags of a batch of clusters
     sync = torch.zeros(1 + 2 * bsz, dtype=torch.int32, device=b.device) if bsz > 1 else None
     ptr = [None if t is None else t.data_ptr()
            for t in (b, x0, fluid, face_u, face_v, *(fd or (None,) * 3), x, iters, work, sync)]
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(int(fd is not None), *ptr, bsz, h, w, blocks, band, tol * tol, max_iter, stream)
+        err = fn(int(pre), int(on_chip), *ptr, bsz, h, w, blocks, band, tol * tol, max_iter,
+                 stream)
     build.check(err, what)
     return x, iters
 
@@ -367,15 +440,23 @@ def pcg_cluster_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol: float, ma
 pcg_cluster_solve.launches = 0
 
 
-def cluster_resident(precon: bool, w: int, blocks: int, band: int) -> int:
-    """The clusters of csrc/cg_cluster.cu (`blocks` blocks of `band` rows, at
-    width w) the current card keeps resident at once
-    (cudaOccupancyMaxActiveClusters): CLUSTER_RESIDENT's source."""
+def cluster_resident(precon: bool, on_chip: bool, h: int, w: int, blocks: int, band: int) -> int:
+    """The clusters of csrc/cg_cluster.cu (`blocks` blocks of `band` rows, an
+    (h, w) element, the variant on_chip) the current card keeps resident at
+    once (cudaOccupancyMaxActiveClusters): CLUSTER_RESIDENT's source."""
     fn = build.function("cg_cluster", "silt_cg_cluster_resident",
-                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                        [ctypes.c_int] * 6 + [ctypes.c_void_p])
     most = ctypes.c_int(0)
-    build.check(fn(int(precon), w, blocks, band, ctypes.addressof(most)), "cluster_resident")
+    build.check(fn(int(precon), int(on_chip), h, w, blocks, band, ctypes.addressof(most)),
+                "cluster_resident")
     return most.value
+
+
+def cluster_smem_native(precon: bool, on_chip: bool, h: int, w: int, band: int) -> int:
+    """csrc/cg_cluster.cu's own count of a block's dynamic shared memory
+    (`silt_cg_cluster_smem`), which cluster_smem_bytes mirrors."""
+    fn = build.function("cg_cluster", "silt_cg_cluster_smem", [ctypes.c_int] * 5)
+    return fn(int(precon), int(on_chip), h, w, band)
 
 
 @torch.library.custom_op(

@@ -639,9 +639,26 @@ def test_general_layout_route_on_the_card_matches_cpu(device, batch, res, precon
 
 # (batch, res, precon) of the cluster layout where the JAX package's gate
 # takes its Pallas kernel and the card refused the shape or took multigrid
-# before: -r 67, -r 79, 256x128 at its batches, -r 192, -r 267
+# before: -r 67, -r 79, 256x128 at its batches, -r 192, -r 267; -r 67
+# without the preconditioner and -r 313 (the L2 variant without it)
 CLUSTER_CASES = [(1, 67, "fd"), (1, 79, "none"), (1, 128, "fd"), (3, 128, "fd"),
-                 (5, 128, "none"), (1, 192, "fd"), (1, 267, "fd")]
+                 (5, 128, "none"), (1, 192, "fd"), (1, 267, "fd"), (1, 67, "none"),
+                 (1, 313, "none")]
+
+
+@pytest.mark.parametrize("batch,res,precon", CLUSTER_CASES)
+def test_cluster_shared_memory_matches_the_mirror(device, batch, res, precon):
+    """csrc/cg_cluster.cu's own count of a block's shared memory against
+    kernels/cg.py's mirror, in both variants, at the plan of each case (on
+    chip at -r 67, -r 79 and 256x128; in L2 at -r 192 and -r 267 with the
+    preconditioner and -r 313 without, where the on-chip count is above
+    the limit)."""
+    shape, pre = (batch, 2 * res, res), precon == "fd"
+    _, band = cg.cluster_plan(shape, pre)
+    for on_chip in (True, False):
+        assert cg.cluster_smem_native(pre, on_chip, 2 * res, res, band) == cg.cluster_smem_bytes(
+            band, 2 * res, res, pre, on_chip)
+    assert cg.cluster_on_chip(shape, pre) == (res <= 128 or not pre and res < 267)
 
 
 @pytest.mark.parametrize("batch,res,precon", CLUSTER_CASES)

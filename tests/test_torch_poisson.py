@@ -167,9 +167,10 @@ def test_kernel_gate():
         assert tcg.pcg_kernel_fits(shape) and tcg.cluster_plan(shape, True) is not None
     assert tcg.cluster_plan((1, 64, 32), True) == (4, 16)  # takes it, but the fast layout runs
     # the fast layout at 64x32 (csrc/pcg.cu pcg_layout); the cluster layout's
-    # two band buffers at 256x128, 16 rows of stride 132
+    # buffers at 256x128 in its L2 variant: z (16 rows of stride 136) and t0
+    # (16 of 132)
     assert tcg.pcg_smem_bytes(64, 32) == 4 * 21072
-    assert tcg.cluster_smem_bytes(16, 128, True) == 4 * 2 * 16 * 132
+    assert tcg.cluster_smem_bytes(16, 256, 128, True, False) == 4 * (16 * 136 + 16 * 132)
 
 
 def test_multigrid_sizes_raise_on_cpu():

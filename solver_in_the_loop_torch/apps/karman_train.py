@@ -241,9 +241,10 @@ def train(args, train_step, optimizer, model, data, norm, cfg, keep_epoch, mesh=
     if main:
         ckpt.save_checkpoint(args.tf, model, args.model)
     if result.losses:
-        log.info("final loss %.6f; %.4f sec/iter (best epoch), %.4f (median epoch); "
-                 "%d non-finite update(s) skipped", result.losses[-1], result.sec_per_iter,
-                 result.sec_per_iter_median, result.notfinite)
+        secs = np.asarray(result.iter_seconds)
+        log.info("final loss %.6f; %.4f sec/iter (mean), %.4f (95th percentile); "
+                 "%d non-finite update(s) skipped", result.losses[-1], secs.mean(),
+                 np.percentile(secs, 95), result.notfinite)
     return result
 
 

@@ -8,7 +8,10 @@ named by a hash of the flags, the source and the headers of csrc/ it includes,
 so a changed source or header is rebuilt and a stale library is never
 loaded. Nothing is built when this module is imported: the first kernel
 launch builds its library, and `build_all` builds every source at once, one
-`nvcc` per source, all started together.
+`nvcc` per source, all started together. A library's first load in a
+process is a `silt.kernels.load` span, an nvcc run a `silt.kernels.nvcc`
+span with the libraries it built counted as `kernels.nvcc_builds`
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict
+
+from solver_in_the_loop_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -86,22 +91,24 @@ def _compile(names) -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     started = {}
-    for name in names:
-        out = _lib_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *COMMON_FLAGS, *SOURCES[name], "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True), tmp, out)
-    report = {}
-    for name, (proc, tmp, out) in started.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0,
-                        "ptxas": [ln.strip() for ln in log.splitlines()
-                                  if "ptxas info" in ln or "spill" in ln]}
+    with profiling.span("silt.kernels.nvcc"):
+        for name in names:
+            out = _lib_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *COMMON_FLAGS, *SOURCES[name], "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), tmp, out)
+        report = {}
+        for name, (proc, tmp, out) in started.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            os.replace(tmp, out)
+            report[name] = {"seconds": time.perf_counter() - t0,
+                            "ptxas": [ln.strip() for ln in log.splitlines()
+                                      if "ptxas info" in ln or "spill" in ln]}
+    profiling.count("kernels.nvcc_builds", len(names))
     return report
 
 
@@ -113,9 +120,10 @@ def build_all(force: bool = False) -> Dict[str, dict]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     if name not in _loaded:
-        if not _lib_path(name).exists():
-            _compile([name])
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        with profiling.span("silt.kernels.load"):
+            if not _lib_path(name).exists():
+                _compile([name])
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
     return _loaded[name]
 
 

@@ -29,7 +29,10 @@ replaces the kernel in both directions. `pcg_plain_solve_op`
 plain FD-PCG loop, on any device: the route of a shape no kernel takes
 off multigrid's sizes (ops/poisson.py `pressure_route`), and
 `periodic_cg_solve_op` (`torch.ops.silt.periodic_cg_solve`) the plain CG
-loop on the periodic operator, the route of a periodic problem.
+loop on the periodic operator, the route of a periodic problem. Every
+op's forward solve is a `silt.pressure` span with its iterations counted as
+`pressure.iters`, its adjoint a `silt.pressure.adjoint` span counted as
+`pressure.adjoint_iters` (utils/profiling.py; `traced_solve`).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from solver_in_the_loop_torch.kernels import build
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
+from solver_in_the_loop_torch.utils import profiling
 
 # The fast layouts (csrc/pcg.cu, csrc/cg.cu) run one thread block per batch
 # element. A batch of at most MAX_CLUSTER is one thread-block cluster; a
@@ -459,6 +463,19 @@ def cluster_smem_native(precon: bool, on_chip: bool, h: int, w: int, band: int) 
     return fn(int(precon), int(on_chip), h, w, band)
 
 
+def traced_solve(adjoint: bool, solve: Callable, b, x0, *args):
+    """solve(b, x0, *args) -> (x, iterations) as a `silt.pressure` span, or
+    `silt.pressure.adjoint` where `adjoint`, its iterations counted (a
+    custom op's body: the remat takes its output from the forward and
+    never runs it again)."""
+    span, counter = (("silt.pressure.adjoint", "pressure.adjoint_iters") if adjoint
+                     else ("silt.pressure", "pressure.iters"))
+    with profiling.span(span):
+        x, iters = solve(b, x0, *args)
+    profiling.count(counter, iters)
+    return x, iters
+
+
 @torch.library.custom_op(
     "silt::pcg_solve", mutates_args=(),
     schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, Tensor vy, "
@@ -466,7 +483,8 @@ def cluster_smem_native(precon: bool, on_chip: bool, h: int, w: int, band: int) 
 def pcg_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
     """`pcg_solve` as a differentiable op in b (x0 and the operator are
     constants). Returns (x, iterations)."""
-    x, iters = pcg_solve(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
+    x, iters = traced_solve(False, pcg_solve, b, x0, fluid, face_u, face_v, vy, vx, invd, tol,
+                            max_iter)
     # the plain loop hands back x0 itself when it is already converged; an
     # op's output may not alias its input
     return (x.clone() if x is x0 else x), iters
@@ -484,7 +502,8 @@ def _pcg_backward(ctx, grad_x, _grad_iters):
     grad_b = None
     if ctx.needs_input_grad[0]:
         g = grad_x.contiguous()
-        grad_b, _ = pcg_solve(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol, ctx.max_iter)
+        grad_b, _ = traced_solve(True, pcg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
+                                 ctx.tol, ctx.max_iter)
     return (grad_b,) + (None,) * 9
 
 
@@ -501,7 +520,8 @@ def pcg_plain_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter
     that neither the kernels nor multigrid take, a batch above MAX_BATCH
     (ops/poisson.py `pressure_route`, "pcg_plain"), as the JAX package takes
     its XLA FD-PCG there. Returns (x, iterations)."""
-    x, iters = pcg_solve_plain(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter)
+    x, iters = traced_solve(False, pcg_solve_plain, b, x0, fluid, face_u, face_v, vy, vx, invd,
+                            tol, max_iter)
     return (x.clone() if x is x0 else x), iters
 
 
@@ -510,8 +530,8 @@ def _pcg_plain_backward(ctx, grad_x, _grad_iters):
     grad_b = None
     if ctx.needs_input_grad[0]:
         g = grad_x.contiguous()
-        grad_b, _ = pcg_solve_plain(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol,
-                                    ctx.max_iter)
+        grad_b, _ = traced_solve(True, pcg_solve_plain, g, torch.zeros_like(g),
+                                 *ctx.saved_tensors, ctx.tol, ctx.max_iter)
     return (grad_b,) + (None,) * 9
 
 
@@ -527,8 +547,15 @@ def periodic_cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
     on any device: the route of a periodic problem (ops/poisson.py
     `pressure_route`, "periodic_cg"), the JAX package's XLA CG loop there on
     every backend. Returns (x, iterations)."""
+    x, iters = traced_solve(False, periodic_cg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
+    return (x.clone() if x is x0 else x), iters
+
+
+def periodic_cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
+    """The plain CG loop on the PERIODIC operator: (x, iterations as a 0-d
+    int32 tensor on b's device)."""
     x, iters = cg_solve_info(masked_matvec(fluid, face_u, face_v, True), b, tol, max_iter, x0)
-    return (x.clone() if x is x0 else x), torch.tensor(iters, dtype=torch.int32, device=b.device)
+    return x, torch.tensor(iters, dtype=torch.int32, device=b.device)
 
 
 def _periodic_cg_backward(ctx, grad_x, _grad_iters):
@@ -537,8 +564,8 @@ def _periodic_cg_backward(ctx, grad_x, _grad_iters):
     grad_b = None
     if ctx.needs_input_grad[0]:
         g = grad_x.contiguous()
-        grad_b, _ = cg_solve_info(masked_matvec(*ctx.saved_tensors, True), g, ctx.tol,
-                                  ctx.max_iter, torch.zeros_like(g))
+        grad_b, _ = traced_solve(True, periodic_cg_solve, g, torch.zeros_like(g),
+                                 *ctx.saved_tensors, ctx.tol, ctx.max_iter)
     return (grad_b,) + (None,) * 6
 
 
@@ -606,7 +633,7 @@ cg_solve.launches = 0
 def cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
     """`cg_solve` as a differentiable op in b (x0 and the operator are
     constants). Returns (x, iterations)."""
-    x, iters = cg_solve(b, x0, fluid, face_u, face_v, tol, max_iter)
+    x, iters = traced_solve(False, cg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
     # the plain loop hands back x0 itself when it is already converged
     return (x.clone() if x is x0 else x), iters
 
@@ -622,7 +649,8 @@ def _cg_backward(ctx, grad_x, _grad_iters):
     grad_b = None
     if ctx.needs_input_grad[0]:
         g = grad_x.contiguous()
-        grad_b, _ = cg_solve(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol, ctx.max_iter)
+        grad_b, _ = traced_solve(True, cg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
+                                 ctx.tol, ctx.max_iter)
     return (grad_b,) + (None,) * 6
 
 

@@ -28,7 +28,7 @@ from typing import List
 import torch
 
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
-from solver_in_the_loop_torch.kernels.cg import pcg_solve_info
+from solver_in_the_loop_torch.kernels.cg import pcg_solve_info, traced_solve
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
 
@@ -171,7 +171,7 @@ def mg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
 def mg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
     """`mg_solve` as a differentiable op in b (x0 and the operator are
     constants). Returns (x, iterations)."""
-    x, iters = mg_solve(b, x0, fluid, face_u, face_v, tol, max_iter)
+    x, iters = traced_solve(False, mg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
     # the loop hands back x0 itself when it is already converged
     return (x.clone() if x is x0 else x), iters
 
@@ -188,7 +188,8 @@ def _mg_backward(ctx, grad_x, _grad_iters):
     grad_b = None
     if ctx.needs_input_grad[0]:
         g = grad_x.contiguous()
-        grad_b, _ = mg_solve(g, torch.zeros_like(g), *ctx.saved_tensors, ctx.tol, ctx.max_iter)
+        grad_b, _ = traced_solve(True, mg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
+                                 ctx.tol, ctx.max_iter)
     return (grad_b,) + (None,) * 6
 
 

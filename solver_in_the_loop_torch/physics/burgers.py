@@ -23,6 +23,7 @@ import torch
 from solver_in_the_loop_torch.core.grids import Boundary, Domain, StaggeredGrid
 from solver_in_the_loop_torch.ops.advection import semi_lagrangian
 from solver_in_the_loop_torch.ops.diffusion import diffuse_explicit
+from solver_in_the_loop_torch.utils import profiling
 
 
 def burgers_domain(res: int, length: float = 32.0) -> Domain:
@@ -41,6 +42,18 @@ class BurgersFlow:
     max_shift: int = 2
 
     def step(self, velocity: StaggeredGrid, dt: float = 1.0) -> StaggeredGrid:
+        """One solver step, the `silt.solver` span."""
+        with profiling.span("silt.solver"):
+            return self._step(velocity, dt)
+
+    def step_with_f(self, velocity: StaggeredGrid, force: StaggeredGrid,
+                    dt: float = 1.0) -> StaggeredGrid:
+        """`step`, then velocity += dt * force, as one `silt.solver` span."""
+        with profiling.span("silt.solver"):
+            out = self._step(velocity, dt)
+            return StaggeredGrid(out.u + dt * force.u, out.v + dt * force.v, self.domain)
+
+    def _step(self, velocity: StaggeredGrid, dt: float) -> StaggeredGrid:
         dom = self.domain
         dy, dx = dom.dx
         if abs(dy - dx) >= 1e-9:
@@ -50,11 +63,6 @@ class BurgersFlow:
         u = diffuse_explicit(velocity.u, amount, self.diffusion_substeps, periodic=True)
         v = diffuse_explicit(velocity.v, amount, self.diffusion_substeps, periodic=True)
         return StaggeredGrid(u, v, dom)
-
-    def step_with_f(self, velocity: StaggeredGrid, force: StaggeredGrid,
-                    dt: float = 1.0) -> StaggeredGrid:
-        out = self.step(velocity, dt)
-        return StaggeredGrid(out.u + dt * force.u, out.v + dt * force.v, self.domain)
 
 
 @dataclasses.dataclass

@@ -22,6 +22,7 @@ from solver_in_the_loop_torch.ops.poisson import (
     pressure_route,
 )
 from solver_in_the_loop_torch.physics.geometry import box_mask, sphere_fluid_mask
+from solver_in_the_loop_torch.utils import profiling
 
 OBSTACLE_CENTER = (50.0, 50.0)
 OBSTACLE_RADIUS = 10.0
@@ -66,15 +67,17 @@ class KarmanFlow:
 
     def step(self, density: CenteredGrid, velocity: StaggeredGrid, re, dt: float = 1.0,
              p0=None):
-        """One solver step. re: (B,) per-batch Reynolds numbers (tensor or sequence).
+        """One solver step, the `silt.solver` span. re: (B,) per-batch
+        Reynolds numbers (tensor or sequence).
 
         p0 warm-starts the pressure CG. Returns (density, velocity, pressure,
         CG iterations as a 0-d int32 tensor)."""
-        density, velocity = self.pre_projection(density, velocity, re, dt)
-        velocity, pressure, iters = make_incompressible(
-            velocity, self.masks, tol=self.pressure_tol, max_iter=self.pressure_max_iter,
-            p0=p0, precon=self.pressure_precon)
-        return density, velocity, pressure, iters
+        with profiling.span("silt.solver"):
+            density, velocity = self.pre_projection(density, velocity, re, dt)
+            velocity, pressure, iters = make_incompressible(
+                velocity, self.masks, tol=self.pressure_tol, max_iter=self.pressure_max_iter,
+                p0=p0, precon=self.pressure_precon)
+            return density, velocity, pressure, iters
 
     def pressure_route(self, batch: int) -> str:
         """The pressure solver `step` runs at this batch size on the masks'

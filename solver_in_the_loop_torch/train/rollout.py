@@ -22,6 +22,7 @@ from solver_in_the_loop_torch.models.features import (
 )
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow, SinPotentialForce
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
+from solver_in_the_loop_torch.utils import profiling
 
 
 @torch.inference_mode()
@@ -45,23 +46,25 @@ def karman_rollout(flow: KarmanFlow, d0: CenteredGrid, v0: StaggeredGrid, re, st
     keys = ("dens", "u", "v", "cg_iters") + (("corr_u", "corr_v") if model is not None else ())
     out = {k: [] for k in keys}
     for k in range(steps):
-        if k >= 3:
-            x0 = 3.0 * p1 - 3.0 * p2 + p3
-        elif k >= 2:
-            x0 = 2.0 * p1 - p2
-        else:
-            x0 = p1
-        d, v, p, iters = flow.step(d, v, re, dt=dt, p0=x0)
-        corr = None
-        if model is not None:
-            corr = correction_to_staggered(model(karman_features(v, re, norm)), norm, dom)
-            v = v + corr
-        p1, p2, p3 = p, p1, p2
-        if k < collect_from:
-            continue
-        vals = (d.values, v.u, v.v, iters) + ((corr.u, corr.v) if corr is not None else ())
-        for key, val in zip(keys, vals):
-            out[key].append(val)
+        with profiling.span("silt.rollout.step"):
+            if k >= 3:
+                x0 = 3.0 * p1 - 3.0 * p2 + p3
+            elif k >= 2:
+                x0 = 2.0 * p1 - p2
+            else:
+                x0 = p1
+            d, v, p, iters = flow.step(d, v, re, dt=dt, p0=x0)
+            corr = None
+            if model is not None:
+                with profiling.span("silt.net"):
+                    corr = correction_to_staggered(model(karman_features(v, re, norm)), norm, dom)
+                    v = v + corr
+            p1, p2, p3 = p, p1, p2
+            if k < collect_from:
+                continue
+            vals = (d.values, v.u, v.v, iters) + ((corr.u, corr.v) if corr is not None else ())
+            for key, val in zip(keys, vals):
+                out[key].append(val)
     return {key: torch.stack(vals) for key, vals in out.items()}
 
 
@@ -84,8 +87,9 @@ def burgers_rollout(flow: BurgersFlow, steps: int, model: Optional[nn.Module] = 
     def advance(v: StaggeredGrid, force: StaggeredGrid) -> StaggeredGrid:
         v = flow.step_with_f(v, force, dt=dt)
         if model is not None:
-            feat = burgers_features(v, force if use_force_features else None, norm)
-            v = v + correction_to_staggered(model(feat), norm, dom)
+            with profiling.span("silt.net"):
+                feat = burgers_features(v, force if use_force_features else None, norm)
+                v = v + correction_to_staggered(model(feat), norm, dom)
         return v
 
     @torch.inference_mode()
@@ -101,10 +105,11 @@ def burgers_rollout(flow: BurgersFlow, steps: int, model: Optional[nn.Module] = 
         v = v0
         out = {k: [] for k in ("u", "v", "fu", "fv")}
         for t in range(steps):
-            v = advance(v, sample_sum(t))
-            nxt = sample_sum(t + 1)
-            for key, val in zip(out, (v.u, v.v, nxt.u, nxt.v)):
-                out[key].append(val)
+            with profiling.span("silt.rollout.step"):
+                v = advance(v, sample_sum(t))
+                nxt = sample_sum(t + 1)
+                for key, val in zip(out, (v.u, v.v, nxt.u, nxt.v)):
+                    out[key].append(val)
         return {key: torch.stack(vals) for key, vals in out.items()}
 
     @torch.inference_mode()
@@ -112,9 +117,10 @@ def burgers_rollout(flow: BurgersFlow, steps: int, model: Optional[nn.Module] = 
         v = v0
         us, vs = [], []
         for t in range(fu.shape[0]):
-            v = advance(v, StaggeredGrid(fu[t], fv[t], dom))
-            us.append(v.u)
-            vs.append(v.v)
+            with profiling.span("silt.rollout.step"):
+                v = advance(v, StaggeredGrid(fu[t], fv[t], dom))
+                us.append(v.u)
+                vs.append(v.v)
         return {"u": torch.stack(us), "v": torch.stack(vs)}
 
     return rollout_analytic, rollout_replay

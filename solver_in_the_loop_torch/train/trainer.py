@@ -66,6 +66,7 @@ from solver_in_the_loop_torch.parallel import mesh as pmesh
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
 from solver_in_the_loop_torch.train.dataset import EpochSchedule
+from solver_in_the_loop_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -156,21 +157,23 @@ class GuardedAdam:
 
     def step(self) -> bool:
         """Update from the parameters' .grad; returns whether it applied."""
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        if self.mesh is not None:
-            grads = pmesh.all_reduce_sum(grads, self.mesh)
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        self.last_finite = finite
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        self.total_notfinite += 0 if finite else 1
-        if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
-            return False
-        if self.clip is not None:
-            grads = clip_by_leaf_norm(grads, self.clip)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.adam.step()
-        return True
+        with profiling.span("silt.train.optimizer"):
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+            if self.mesh is not None:
+                grads = pmesh.all_reduce_sum(grads, self.mesh)
+            with profiling.span("silt.train.guard"):
+                finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            self.last_finite = finite
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            self.total_notfinite += 0 if finite else 1
+            if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
+                return False
+            if self.clip is not None:
+                grads = clip_by_leaf_norm(grads, self.clip)
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            self.adam.step()
+            return True
 
 
 def make_optimizer(model: nn.Module, cfg: SolTrainConfig,
@@ -200,13 +203,27 @@ def remat_policy_ops(policy: str) -> list:
     return [op for key in REMAT_SAVES[policy] for op in ops[key]]
 
 
+@contextlib.contextmanager
+def _recompute_span(recompute):
+    """The remat's recompute context inside a `silt.train.recompute` span,
+    opened first so that the checkpoint's dispatch mode never sees it."""
+    with profiling.span("silt.train.recompute"), recompute:
+        yield
+
+
+def _remat_contexts(ops: list):
+    """create_selective_checkpoint_contexts(ops), its recompute context
+    bracketed as a span."""
+    forward, recompute = create_selective_checkpoint_contexts(ops)
+    return forward, _recompute_span(recompute)
+
+
 def _checkpointed(step: Callable, cfg: SolTrainConfig) -> Callable:
     """`step` under the per-step selective checkpoint of cfg's remat policy
     (or as it is without remat)."""
     if not cfg.remat:
         return step
-    context_fn = functools.partial(create_selective_checkpoint_contexts,
-                                   remat_policy_ops(cfg.remat_policy))
+    context_fn = functools.partial(_remat_contexts, remat_policy_ops(cfg.remat_policy))
     return functools.partial(checkpoint, step, use_reentrant=False, preserve_rng_state=False,
                              context_fn=context_fn)
 
@@ -221,18 +238,20 @@ def _check_nan(cfg: SolTrainConfig, step: int, **tensors: torch.Tensor) -> None:
 
 
 def _backward(loss: torch.Tensor, cfg: SolTrainConfig) -> None:
-    """loss.backward(); under cfg.debug_nans in anomaly mode, its NaN check
-    raised as FloatingPointError."""
-    if not cfg.debug_nans:
-        loss.backward()
-        return
-    try:
-        with torch.autograd.detect_anomaly(check_nan=True):
+    """loss.backward() as the `silt.train.backward` span; under
+    cfg.debug_nans in anomaly mode, its NaN check raised as
+    FloatingPointError."""
+    with profiling.span("silt.train.backward"):
+        if not cfg.debug_nans:
             loss.backward()
-    except RuntimeError as err:
-        if "nan" not in str(err).lower():
-            raise
-        raise FloatingPointError(f"NaN in the backward pass (--debug-nans): {err}") from err
+            return
+        try:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                loss.backward()
+        except RuntimeError as err:
+            if "nan" not in str(err).lower():
+                raise
+            raise FloatingPointError(f"NaN in the backward pass (--debug-nans): {err}") from err
 
 
 def _forward_context(cfg: SolTrainConfig):
@@ -265,7 +284,8 @@ def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
     def step(dens, u, v, x0):
         d, vel, p, iters = flow.step(CenteredGrid(dens, dom), StaggeredGrid(u, v, dom), re,
                                      p0=x0)
-        vel = vel + correction_to_staggered(model(karman_features(vel, re, norm)), norm, dom)
+        with profiling.span("silt.net"):
+            vel = vel + correction_to_staggered(model(karman_features(vel, re, norm)), norm, dom)
         return d.values, vel.u, vel.v, p, iters
 
     run_step = _checkpointed(step, cfg)
@@ -299,7 +319,7 @@ def make_karman_train_step(flow: KarmanFlow, model: nn.Module, optimizer: Guarde
 
     def train_step(data, norm, idx, wgt=None):
         optimizer.zero_grad()
-        with _forward_context(cfg):
+        with _forward_context(cfg), profiling.span("silt.train.forward"):
             loss, step_losses, cg_iters = karman_loss(flow, model, norm, data, idx, cfg, wgt)
         _backward(loss, cfg)
         applied = optimizer.step()
@@ -338,8 +358,9 @@ def burgers_loss(flow: BurgersFlow, model: nn.Module, norm: Normalization,
             vel = flow.step_with_f(vel, force, dt=dt)
         else:
             vel = flow.step(vel, dt=dt)
-        feat = burgers_features(vel, force if use_force else None, norm)
-        vel = vel + correction_to_staggered(model(feat), norm, dom)
+        with profiling.span("silt.net"):
+            feat = burgers_features(vel, force if use_force else None, norm)
+            vel = vel + correction_to_staggered(model(feat), norm, dom)
         return vel.u, vel.v
 
     run_step = _checkpointed(step, cfg)
@@ -362,7 +383,7 @@ def make_burgers_train_step(flow: BurgersFlow, model: nn.Module, optimizer: Guar
 
     def train_step(data, norm, idx, wgt=None):
         optimizer.zero_grad()
-        with _forward_context(cfg):
+        with _forward_context(cfg), profiling.span("silt.train.forward"):
             loss, step_losses = burgers_loss(flow, model, norm, data, idx, cfg, dt, use_force,
                                              wgt)
         _backward(loss, cfg)
@@ -375,8 +396,6 @@ def make_burgers_train_step(flow: BurgersFlow, model: nn.Module, optimizer: Guar
 @dataclasses.dataclass
 class TrainResult:
     losses: list
-    sec_per_iter: float                # best epoch average
-    sec_per_iter_median: float = 0.0   # median of per-epoch averages after the first
     iter_seconds: list = dataclasses.field(default_factory=list)  # every iteration, in order
     notfinite: int = 0                 # gradients the guard found not finite
     cg_iters: list = dataclasses.field(default_factory=list)  # forward CG iterations per step (karman)
@@ -421,7 +440,7 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
     writes."""
     device = data["u"].device
     current_lr = cfg.lr
-    losses, iter_seconds, epoch_means, cg_iters = [], [], [], []
+    losses, iter_seconds, cg_iters = [], [], []
     global_step = 0
     for epoch in range(cfg.epochs):
         idx_epoch = schedule.epoch_indices(cfg.msteps)
@@ -431,7 +450,7 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
         current_lr = lr_schedule_step(epoch, current_lr) if cfg.adplr else cfg.lr
         eff_lr = current_lr * (WARMUP_LR_SCALE if epoch < cfg.warmup_epochs else 1.0)
         optimizer.set_learning_rate(eff_lr)
-        t_epoch = t_prev = time.perf_counter()
+        t_prev = time.perf_counter()
         for it in range(idx_epoch.shape[0]):
             idx, wgt = local_batch(idx_epoch[it], mesh, pad_batch_to, device)
             batch = (idx,) if wgt is None else (idx, wgt)
@@ -456,15 +475,10 @@ def run_training(train_step, optimizer: GuardedAdam, data: Dict[str, torch.Tenso
                     for s, sl in enumerate(step_losses.tolist()):
                         metrics_writer.scalar(f"loss_step_{s:02d}", sl, global_step)
             global_step += 1
-        epoch_means.append((time.perf_counter() - t_epoch) / idx_epoch.shape[0])
         if optimizer.total_notfinite:
             log.warning("epoch %03d: %d non-finite update(s) skipped so far "
                         "(apply_if_finite guard)", epoch + 1, optimizer.total_notfinite)
         if on_epoch_end is not None:
             on_epoch_end(epoch)
-    best = float(min(epoch_means)) if epoch_means else 0.0
-    steady = epoch_means[1:] or epoch_means
-    median = float(np.median(steady)) if steady else 0.0
-    log.info("sec/iter best-epoch %.4f, median-epoch %.4f", best, median)
     iters_np = torch.stack(cg_iters).cpu().numpy().tolist() if cg_iters else []
-    return TrainResult(losses, best, median, iter_seconds, optimizer.total_notfinite, iters_np)
+    return TrainResult(losses, iter_seconds, optimizer.total_notfinite, iters_np)

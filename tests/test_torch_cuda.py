@@ -19,7 +19,10 @@ gradients within 1e-3, and a bf16 SOL-04 step within TRAIN_PARITY_TOL_BF16.
 The data-parallel step and the y-sharded step run on two ranks that share
 cuda:0 over gloo (tests/torch_dist_ranks.py), each rank launching the
 kernels, against the same ranks on the CPU: the train step within those
-train tolerances, the sharded step within 1e-5 of each field's max.
+train tolerances, the sharded step within 1e-5 of each field's max. The
+program's spans (utils/profiling.py) hang from the train step's backward
+across the autograd engine's thread, and a kernel library's first load is
+a span of its own.
 """
 
 from __future__ import annotations
@@ -796,3 +799,43 @@ def test_sharded_shift_step_on_the_card_matches_its_twin(device):
     for name in ("dens", "u", "v"):
         want = cpu[0][0][name]
         assert np.abs(card[0][0][name] - want).max() <= 1e-5 * np.abs(want).max(), name
+
+
+def test_spans_hang_from_the_backward_across_the_autograd_thread(device):
+    """On the card the autograd engine runs the backward, and with it the
+    remat's recomputes and the adjoint solves, on a thread of its own while
+    the caller waits in `silt.train.backward`: each recompute span still
+    hangs from it. A kernel library's first load in a process is a
+    `silt.kernels.load` span."""
+    from solver_in_the_loop_torch.kernels import build
+    from solver_in_the_loop_torch.models.features import Normalization
+    from solver_in_the_loop_torch.train import trainer
+    from solver_in_the_loop_torch.utils import profiling
+
+    msteps, rng, dom = 3, np.random.RandomState(3), karman_domain(32)
+    d0, v0 = initial_state(dom, 1)
+    data = {k: torch.from_numpy((a.numpy()[None] + s * rng.randn(2, msteps + 2, *a.shape[1:]))
+                                .astype(np.float32)).to(device)
+            for k, a, s in (("dens", d0.values, 0.1), ("u", v0.u, 0.2), ("v", v0.v, 0.2))}
+    data["re"] = torch.tensor([1.6e5, 3.2e5], device=device)
+    flow = KarmanFlow(dom, advection="shift", max_shift=2, device=device)
+    model = build_model("mars_moon", init="reference").to(device)
+    cfg = trainer.SolTrainConfig(msteps=msteps, clip_grad=True)
+    step = trainer.make_karman_train_step(flow, model, trainer.make_optimizer(model, cfg), cfg)
+    norm = Normalization.karman(0.3, 0.2, 1e5, device)
+    idx = torch.tensor([[0, 0], [1, 1]], device=device)
+    step(data, norm, idx)  # loads every library the step launches
+    build._loaded.pop("advect")
+    for key in [k for k in build._functions if k[0] == "advect"]:
+        build._functions.pop(key)
+    with profiling.recording() as rec:
+        step(data, norm, idx)
+    got = rec.read()
+    spans = got["spans"]
+    (backward,) = [i for i, s in enumerate(spans) if s[0] == "silt.train.backward"]
+    recomputes = [s for s in spans if s[0] == "silt.train.recompute"]
+    assert len(recomputes) == msteps
+    assert all(s[3] == backward and s[4] != spans[backward][4] for s in recomputes)
+    assert [s[0] for s in spans].count("silt.kernels.load") == 1
+    assert len(got["counters"]["pressure.adjoint_iters"]) == msteps - 1
+    assert min(got["counters"]["pressure.adjoint_iters"]) > 0

@@ -14,6 +14,7 @@
   resumed with `--resume 10 --epochs 11` ends on the parameters of an
   uninterrupted 11-epoch run, bit for bit.
 * `--inittf` starts from the file's parameters, `--profile` writes a trace
+  that names the train step's phases (the program's `silt.train.*` spans)
   and keeps its step's update as the JAX CLI does (the same parameters from
   the same start, within 1e-3 of a step's size), `--reg-loss` changes
   nothing, `--debug-nans` raises FloatingPointError at a NaN and changes
@@ -278,7 +279,12 @@ def test_profile_keeps_its_step_as_the_jax_cli(tmp_path):
     files = profiling.trace_files(str(tmp_path / "port_trace"))
     assert len(files) == 1 and os.path.getsize(files[0]) > 0
     with open(files[0]) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    # the operator reads the train step's phases off the trace
+    for phase in ("forward", "backward", "recompute", "optimizer", "guard"):
+        assert f"silt.train.{phase}" in names, phase
+    assert {"silt.solver", "silt.net"} <= names
     got, want, before = (tckpt._flatten(_params(p)) for p in (
         tmp_path / "port" / "model.msgpack", tmp_path / "jax" / "model.msgpack", init))
     for key in want:
@@ -288,12 +294,6 @@ def test_profile_keeps_its_step_as_the_jax_cli(tmp_path):
         # its step, so they agree to 1e-3 of a step (a step from other
         # frames would differ by about lr)
         assert np.abs(got[key] - want[key]).max() <= 1e-3 * 1e-3, key
-
-
-def test_timeit_returns_the_median_call():
-    calls = []
-    seconds = profiling.timeit(lambda n: calls.append(n), 7, warmup=1, iters=5)
-    assert calls == [7] * 6 and 0.0 <= seconds < 1.0
 
 
 def test_reg_loss_changes_nothing(tmp_path):

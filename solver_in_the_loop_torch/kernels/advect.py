@@ -10,9 +10,10 @@ for bit.
 
 `tap_sum` is the op the solver calls (`torch.ops.silt.tap_sum`): forward
 through `tap_sum_fwd`, backward through `tap_sum_bwd`. It is a registered
-custom op so that a selective-checkpoint policy can name it
-(train/trainer.py), and it reaches each kernel only through the module-level
-wrapper, so replacing a wrapper here replaces the kernel everywhere.
+custom op whose call site (ops/interp.py) a remat policy can tape, its
+formula registered with utils/remat.py, and it reaches each kernel only
+through the module-level wrapper, so replacing a wrapper here replaces the
+kernel everywhere.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 
 from solver_in_the_loop_torch.kernels import build
+from solver_in_the_loop_torch.utils import remat
 
 # the largest max_shift the backward kernel's shared-memory tile takes
 # (csrc/advect.cu MAX_SHIFT)
@@ -195,3 +197,4 @@ def _tap_sum_backward(ctx, g):
 
 
 tap_sum.register_autograd(_tap_sum_backward, setup_context=_tap_sum_setup)
+remat.register(torch.ops.silt.tap_sum.default, _tap_sum_setup, _tap_sum_backward)

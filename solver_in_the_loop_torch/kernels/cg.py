@@ -21,10 +21,11 @@ projection calls: the forward solves from the given start, and the backward
 solves the same SPD system cold for the cotangent with the same solver (the
 implicit-function adjoint of `lax.custom_linear_solve` with
 `transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). They are
-registered custom ops so that a selective-checkpoint policy can save their
-output (train/trainer.py), and each reaches its kernel only through the
-module-level wrapper (`pcg_solve`, `cg_solve`), so replacing that wrapper
-replaces the kernel in both directions. `pcg_plain_solve_op`
+registered custom ops whose call site (ops/poisson.py `solve_pressure`) a
+remat policy can tape, their formulas registered with utils/remat.py, and
+each reaches its kernel only through the module-level wrapper (`pcg_solve`,
+`cg_solve`), so replacing that wrapper replaces the kernel in both
+directions. `pcg_plain_solve_op`
 (`torch.ops.silt.pcg_plain_solve`) is the same differentiable solve on the
 plain FD-PCG loop, on any device: the route of a shape no kernel takes
 off multigrid's sizes (ops/poisson.py `pressure_route`), and
@@ -44,7 +45,7 @@ import torch
 
 from solver_in_the_loop_torch.kernels import build
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
-from solver_in_the_loop_torch.utils import profiling
+from solver_in_the_loop_torch.utils import profiling, remat
 
 # The fast layouts (csrc/pcg.cu, csrc/cg.cu) run one thread block per batch
 # element. A batch of at most MAX_CLUSTER is one thread-block cluster; a
@@ -508,6 +509,7 @@ def _pcg_backward(ctx, grad_x, _grad_iters):
 
 
 pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)
+remat.register(torch.ops.silt.pcg_solve.default, _pcg_setup, _pcg_backward)
 
 
 @torch.library.custom_op(
@@ -536,6 +538,7 @@ def _pcg_plain_backward(ctx, grad_x, _grad_iters):
 
 
 pcg_plain_solve_op.register_autograd(_pcg_plain_backward, setup_context=_pcg_setup)
+remat.register(torch.ops.silt.pcg_plain_solve.default, _pcg_setup, _pcg_plain_backward)
 
 
 @torch.library.custom_op(
@@ -655,4 +658,5 @@ def _cg_backward(ctx, grad_x, _grad_iters):
 
 
 cg_solve_op.register_autograd(_cg_backward, setup_context=_cg_setup)
+remat.register(torch.ops.silt.cg_solve.default, _cg_setup, _cg_backward)
 periodic_cg_solve_op.register_autograd(_periodic_cg_backward, setup_context=_cg_setup)

@@ -46,10 +46,10 @@ PyTorch. In bf16 it rounds where the JAX VJP rounds (conv_kernel.py
 `_fused`): the LeakyReLU slope of the backward is bf16(slope) (0.30078125
 for 0.3) times a bf16 gradient, dX is bf16, dW is summed in fp32 and then
 rounded to bf16, db is the fp32 sum of dz rounded to bf16. It is a
-registered custom op so that a selective-checkpoint policy
-can save it (train/trainer.py), and it reaches each kernel only through the
-module-level wrapper, so replacing a wrapper here replaces the kernel
-everywhere.
+registered custom op whose call sites (models/networks.py) a remat policy
+can tape, its formula registered with utils/remat.py, and it reaches each
+kernel only through the module-level wrapper, so replacing a wrapper here
+replaces the kernel everywhere.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from solver_in_the_loop_torch.kernels import build
+from solver_in_the_loop_torch.utils import remat
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2}
 MAX_K = 7  # odd K up to 7, as the JAX gate admits (conv_kernel.py conv_available)
@@ -407,3 +408,4 @@ def _conv_backward(ctx, g):
 
 
 conv.register_autograd(_conv_backward, setup_context=_conv_setup)
+remat.register(torch.ops.silt.conv.default, _conv_setup, _conv_backward)

@@ -22,7 +22,10 @@ form of the JAX package's `SILT_PALLAS_CONV` gate (networks.py `Conv`):
   activation fused, as `Conv.__call__` sends it to `conv_fused`.
 
 The parameters are the same `nn.Conv2d` ones either way, so a checkpoint
-loads unchanged under both.
+loads unchanged under both. Every convolution, `aten.convolution` or
+`silt::conv`, is a site a remat policy can tape (utils/remat.py); the
+replayed `aten.convolution` takes its gradients from
+`aten.convolution_backward`, as its autograd formula does.
 
 `compute_dtype` (the trainers' --bf16; the JAX package's MarsMoon and
 Mercury `compute_dtype`, networks.py:127-188) casts the input to bfloat16
@@ -53,7 +56,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from solver_in_the_loop_torch.kernels.conv import conv as silt_conv
+from solver_in_the_loop_torch.kernels import conv as _conv  # noqa: F401 (registers silt::conv)
+from solver_in_the_loop_torch.utils import remat
+
+_CONVOLUTION = torch.ops.aten.convolution.default
+_SILT_CONV = torch.ops.silt.conv.default
 
 
 def disable_tf32() -> None:
@@ -76,6 +83,34 @@ CONV_IMPLS = ("library", "kernel")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+            padding) -> torch.Tensor:
+    """`F.conv2d(x, weight, bias, padding=padding)` as the `aten.convolution`
+    it dispatches to, at a remat site."""
+    return remat.site(_CONVOLUTION, x, weight, bias, (1, 1), padding, (1, 1), False, (0, 0), 1)
+
+
+def _convolution_setup(ctx, inputs, output):
+    x, weight, bias, stride, padding, dilation, transposed, output_padding, groups = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.bias_sizes = None if bias is None else bias.shape
+    ctx.geometry = (stride, padding, dilation, transposed, output_padding, groups)
+
+
+def _convolution_backward(ctx, g):
+    """The autograd formula of `aten.convolution`: `aten.convolution_backward`
+    for the inputs that need a gradient."""
+    x, weight = ctx.saved_tensors
+    needs = ctx.needs_input_grad
+    mask = [needs[0], needs[1], ctx.bias_sizes is not None and needs[2]]
+    grads = torch.ops.aten.convolution_backward(g, x, weight, ctx.bias_sizes, *ctx.geometry,
+                                                mask)
+    return (*grads, None, None, None, None, None, None)
+
+
+remat.register(_CONVOLUTION, _convolution_setup, _convolution_backward)
+
+
 def _apply(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool, act: str = "none",
            slope: float = 0.0, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(conv(x) + skip) in x's dtype: NHWC through the fused op when
@@ -83,11 +118,12 @@ def _apply(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool, act: str = "none",
     separate ops (in bf16 as flax's nn.Conv and activations round)."""
     dtype = x.dtype
     if nhwc:
-        return silt_conv(x, conv.weight.to(dtype), conv.bias.to(dtype), skip, act, slope)
+        return remat.site(_SILT_CONV, x, conv.weight.to(dtype), conv.bias.to(dtype), skip, act,
+                          slope)
     if dtype == torch.float32:
-        y = conv(x)
+        y = _conv2d(x, conv.weight, conv.bias, conv.padding)
     else:
-        y = F.conv2d(x, conv.weight.to(dtype), None, padding=conv.padding)
+        y = _conv2d(x, conv.weight.to(dtype), None, conv.padding)
         y = y + conv.bias.to(dtype)[:, None, None]
     if skip is not None:
         y = y + skip
@@ -186,7 +222,7 @@ def _project(conv: nn.Conv2d, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
     w = conv.weight.to(x.dtype)[:, :, 0, 0]
     if nhwc:
         return torch.matmul(x, w.t()) + conv.bias.to(x.dtype)
-    return F.conv2d(x, w[:, :, None, None], conv.bias.to(x.dtype))
+    return _conv2d(x, w[:, :, None, None], conv.bias.to(x.dtype), (0, 0))
 
 
 class JupiterMoon(_Net):

@@ -14,7 +14,10 @@ from __future__ import annotations
 
 import torch
 
-from solver_in_the_loop_torch.kernels.advect import tap_sum
+from solver_in_the_loop_torch.kernels import advect  # noqa: F401 (registers silt::tap_sum)
+from solver_in_the_loop_torch.utils import remat
+
+_TAP_SUM = torch.ops.silt.tap_sum.default
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -87,7 +90,8 @@ def shifted_stencil_sample(values: torch.Tensor, dy: torch.Tensor, dx: torch.Ten
     and, for OPEN domains, so that the sample stays inside the field (the
     clamps of interp.py:97-106 in the JAX package, with their gradient). The
     tap-sum then runs in the CUDA kernels for CUDA tensors and in their plain
-    PyTorch twins for CPU tensors, forward and backward.
+    PyTorch twins for CPU tensors, forward and backward; a remat policy that
+    saves `silt::tap_sum` tapes it here (utils/remat.py).
     """
     h, w = values.shape[-2:]
     dy = clip(dy, -max_shift, max_shift)
@@ -99,4 +103,4 @@ def shifted_stencil_sample(values: torch.Tensor, dy: torch.Tensor, dx: torch.Ten
         dx = clip(ii + dx, 0.0, w - 1.0) - ii
     dy = dy.expand(values.shape).contiguous()
     dx = dx.expand(values.shape).contiguous()
-    return tap_sum(values.contiguous(), dy, dx, max_shift, periodic)
+    return remat.site(_TAP_SUM, values.contiguous(), dy, dx, max_shift, periodic)

@@ -15,8 +15,9 @@ iteration; parallel/spatial.py runs the same V-cycle on y-sharded rows.
 `mg_solve_op` (`torch.ops.silt.mg_solve`) is the solve the pressure
 projection calls on this route: differentiable in the right-hand side, with a
 cold multigrid solve of the same system as its backward (the JAX
-`custom_linear_solve`'s `transpose_solve`), and a registered custom op so that
-a selective-checkpoint policy can save it (train/trainer.py).
+`custom_linear_solve`'s `transpose_solve`), and a registered custom op whose
+call site (ops/poisson.py `solve_pressure`) a remat policy can tape, its
+formula registered with utils/remat.py.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from solver_in_the_loop_torch.core.grids import Boundary, Domain
 from solver_in_the_loop_torch.kernels.cg import pcg_solve_info, traced_solve
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
+from solver_in_the_loop_torch.utils import remat
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -194,3 +196,4 @@ def _mg_backward(ctx, grad_x, _grad_iters):
 
 
 mg_solve_op.register_autograd(_mg_backward, setup_context=_mg_setup)
+remat.register(torch.ops.silt.mg_solve.default, _mg_setup, _mg_backward)

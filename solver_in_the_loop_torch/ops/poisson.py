@@ -31,14 +31,12 @@ from solver_in_the_loop_torch.core.grids import Domain, StaggeredGrid
 from solver_in_the_loop_torch.kernels.cg import (
     MAX_BATCH,
     cg_kernel_fits,
-    cg_solve_op,
     fd_apply,
     pcg_kernel_fits,
-    pcg_plain_solve_op,
-    pcg_solve_op,
     periodic_cg_solve_op,
 )
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
+from solver_in_the_loop_torch.utils import remat
 
 # the fused kernel's FD preconditioner on ("fd", JAX's `fd_pcg_ok` marker) or
 # off ("none", JAX's SILT_PALLAS_FDPCG=0)
@@ -188,7 +186,9 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
     the forward solve only: it is detached (JAX's stop_gradient), since the
     solution does not depend on it beyond the CG tolerance. The gradient
     w.r.t. div is a cold solve of the same system by the same solver.
-    Returns (p, iterations as a 0-d int32 tensor on div's device).
+    Returns (p, iterations as a 0-d int32 tensor on div's device). Every
+    route but the periodic one is a site a remat policy can tape
+    (utils/remat.py): every policy saves the solve.
     """
     fluid = masks.fluid
     rhs = torch.where(fluid > 0, -div, 0.0).contiguous()
@@ -198,15 +198,18 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
     if route == "periodic_cg":
         return periodic_cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
     if route == "multigrid":
-        from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
+        from solver_in_the_loop_torch.ops import multigrid  # noqa: F401 (registers silt::mg_solve)
 
-        return mg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
+        return remat.site(torch.ops.silt.mg_solve.default, rhs, x0, fluid, masks.face_u,
+                          masks.face_v, tol, max_iter)
     if route == "cg":
-        return cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
+        return remat.site(torch.ops.silt.cg_solve.default, rhs, x0, fluid, masks.face_u,
+                          masks.face_v, tol, max_iter)
     _, ny, nx = rhs.shape
     vy, vx, invd = fd_factors(ny, nx, div.device)
-    solve = pcg_plain_solve_op if route == "pcg_plain" else pcg_solve_op
-    return solve(rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd, tol, max_iter)
+    solve = torch.ops.silt.pcg_plain_solve if route == "pcg_plain" else torch.ops.silt.pcg_solve
+    return remat.site(solve.default, rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd,
+                      tol, max_iter)
 
 
 def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: float = 1e-5,

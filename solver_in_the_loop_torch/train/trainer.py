@@ -11,12 +11,14 @@ and take an Adam step, unless a gradient is not finite.
 What differs from the JAX package, and why:
 
 * The unroll is a Python loop over eagerly executed steps (JAX: a jitted
-  `lax.scan`), each wrapped in `torch.utils.checkpoint` with a selective
-  policy in place of `jax.checkpoint` with a names policy. The policy sees
-  the pressure solve as the custom op of its route (`silt::pcg_solve`,
-  `silt::cg_solve`, `silt::mg_solve` or `silt::pcg_plain_solve`), the tap-sum as `silt::tap_sum`, and
-  the convolutions as `aten.convolution` (the "library"
-  nets) or `silt::conv` (the "kernel" nets).
+  `lax.scan`), each one node of utils/remat.py `checkpoint` in place of
+  `jax.checkpoint` with a names policy: as there, the saved ops decide at
+  their call sites (`remat_policy_ops`), and nothing else of the step is
+  kept. The policy names the pressure solve by the custom op of its route
+  (`silt::pcg_solve`, `silt::cg_solve`, `silt::mg_solve` or
+  `silt::pcg_plain_solve`), the tap-sum as `silt::tap_sum`, and the
+  convolutions as `aten.convolution` (the "library" nets) or `silt::conv`
+  (the "kernel" nets).
 * The optimizer is `torch.optim.Adam` (optax's b1, b2, eps) behind
   `GuardedAdam`, which reproduces the chain `clip_by_leaf_norm -> adam`
   under `optax.apply_if_finite`; the learning rate is set per epoch as
@@ -51,7 +53,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.kernels import conv as _conv  # noqa: F401 (registers silt::conv)
@@ -66,7 +67,7 @@ from solver_in_the_loop_torch.parallel import mesh as pmesh
 from solver_in_the_loop_torch.physics.burgers import BurgersFlow
 from solver_in_the_loop_torch.physics.karman import KarmanFlow
 from solver_in_the_loop_torch.train.dataset import EpochSchedule
-from solver_in_the_loop_torch.utils import profiling
+from solver_in_the_loop_torch.utils import profiling, remat
 
 log = logging.getLogger(__name__)
 
@@ -189,8 +190,9 @@ REMAT_SAVES = {
 
 
 def remat_policy_ops(policy: str) -> list:
-    """The ops whose outputs a remat policy saves; everything else in an
-    unrolled step is recomputed in the backward pass. Every policy saves the
+    """The ops whose outputs a remat policy saves, which their call sites
+    consult (utils/remat.py `site`); everything else in an unrolled step is
+    recomputed in the backward pass. Every policy saves the
     pressure solve, whichever solver runs it, so no policy re-runs a CG solve
     (JAX's fourth policy, "none", a plain jax.checkpoint, would; the CLI maps
     it to "pressure")."""
@@ -203,29 +205,13 @@ def remat_policy_ops(policy: str) -> list:
     return [op for key in REMAT_SAVES[policy] for op in ops[key]]
 
 
-@contextlib.contextmanager
-def _recompute_span(recompute):
-    """The remat's recompute context inside a `silt.train.recompute` span,
-    opened first so that the checkpoint's dispatch mode never sees it."""
-    with profiling.span("silt.train.recompute"), recompute:
-        yield
-
-
-def _remat_contexts(ops: list):
-    """create_selective_checkpoint_contexts(ops), its recompute context
-    bracketed as a span."""
-    forward, recompute = create_selective_checkpoint_contexts(ops)
-    return forward, _recompute_span(recompute)
-
-
-def _checkpointed(step: Callable, cfg: SolTrainConfig) -> Callable:
-    """`step` under the per-step selective checkpoint of cfg's remat policy
-    (or as it is without remat)."""
+def _checkpointed(step: Callable, cfg: SolTrainConfig, model: nn.Module) -> Callable:
+    """`step`, which reads `model`'s parameters, as one remat node that keeps
+    the outputs of cfg's remat policy (or as it is without remat)."""
     if not cfg.remat:
         return step
-    context_fn = functools.partial(_remat_contexts, remat_policy_ops(cfg.remat_policy))
-    return functools.partial(checkpoint, step, use_reentrant=False, preserve_rng_state=False,
-                             context_fn=context_fn)
+    saves = frozenset(remat_policy_ops(cfg.remat_policy))
+    return functools.partial(remat.checkpoint, step, saves, tuple(model.parameters()))
 
 
 def _check_nan(cfg: SolTrainConfig, step: int, **tensors: torch.Tensor) -> None:
@@ -288,7 +274,7 @@ def karman_loss(flow: KarmanFlow, model: nn.Module, norm: Normalization,
             vel = vel + correction_to_staggered(model(karman_features(vel, re, norm)), norm, dom)
         return d.values, vel.u, vel.v, p, iters
 
-    run_step = _checkpointed(step, cfg)
+    run_step = _checkpointed(step, cfg, model)
 
     p1 = p2 = p3 = torch.zeros_like(dens)
     step_losses, cg_iters = [], []
@@ -363,7 +349,7 @@ def burgers_loss(flow: BurgersFlow, model: nn.Module, norm: Normalization,
             vel = vel + correction_to_staggered(model(feat), norm, dom)
         return vel.u, vel.v
 
-    run_step = _checkpointed(step, cfg)
+    run_step = _checkpointed(step, cfg, model)
     step_losses = []
     for k in range(msteps):
         u, v = run_step(u, v, f_u[k], f_v[k])

@@ -29,7 +29,7 @@ The names are fixed:
   silt.train.forward      train/trainer.py, each train step's unrolled loss
   silt.train.backward     train/trainer.py `_backward`: loss.backward(), with
                           the remat's recomputes and the adjoint solves in it
-  silt.train.recompute    one unrolled step re-run by the remat
+  silt.train.recompute    one unrolled step re-run by the remat (utils/remat.py)
   silt.train.optimizer    `GuardedAdam.step`, the whole guarded update
   silt.train.guard        its child: the finite flag's host read
   silt.solver             one solver step (physics/karman.py, physics/burgers.py)
@@ -44,6 +44,8 @@ The names are fixed:
   pressure.iters          a forward solve's iterations (0-d int32 tensor)
   pressure.adjoint_iters  an adjoint solve's iterations
   kernels.nvcc_builds     the libraries one nvcc run built
+  remat.taped             the sites one remat step taped in its forward
+  remat.replayed          the sites its recompute replayed
 """
 
 from __future__ import annotations

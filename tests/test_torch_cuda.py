@@ -22,7 +22,8 @@ kernels, against the same ranks on the CPU: the train step within those
 train tolerances, the sharded step within 1e-5 of each field's max. The
 program's spans (utils/profiling.py) hang from the train step's backward
 across the autograd engine's thread, and a kernel library's first load is
-a span of its own.
+a span of its own. The remat step equals the step without remat at SOL-32's
+shapes, in no more memory.
 """
 
 from __future__ import annotations
@@ -839,3 +840,41 @@ def test_spans_hang_from_the_backward_across_the_autograd_thread(device):
     assert [s[0] for s in spans].count("silt.kernels.load") == 1
     assert len(got["counters"]["pressure.adjoint_iters"]) == msteps - 1
     assert min(got["counters"]["pressure.adjoint_iters"]) > 0
+
+
+def test_remat_step_equals_the_step_without_remat_and_holds_no_more(device):
+    """At SOL-32's shapes ((3, 64, 32), MarsMoon, msteps 4) the remat step
+    under `pressure+conv` gives the step without remat's loss, step losses
+    and gradients (bit for bit, or within 1e-6 of each leaf's largest value
+    where cuDNN's algorithms part), and its peak of allocated memory is no
+    higher than the step without remat's."""
+    from solver_in_the_loop_torch.models.features import Normalization
+    from solver_in_the_loop_torch.train import trainer
+
+    msteps, rng, dom = 4, np.random.RandomState(4), karman_domain(32)
+    d0, v0 = initial_state(dom, 1)
+    data = {k: torch.from_numpy((a.numpy()[None] + s * rng.randn(3, msteps + 2, *a.shape[1:]))
+                                .astype(np.float32)).to(device)
+            for k, a, s in (("dens", d0.values, 0.1), ("u", v0.u, 0.2), ("v", v0.v, 0.2))}
+    data["re"] = torch.tensor([1.6e5, 3.2e5, 6.4e5], device=device)
+    flow = KarmanFlow(dom, advection="shift", max_shift=2, device=device)
+    norm = Normalization.karman(0.3, 0.2, 1e5, device)
+    idx = torch.tensor([[0, 0], [1, 1], [2, 0]], device=device)
+
+    def run(remat):
+        model = build_model("mars_moon", init="reference").to(device)
+        cfg = trainer.SolTrainConfig(msteps=msteps, remat=remat, remat_policy="pressure+conv")
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        loss, step_losses, _ = trainer.karman_loss(flow, model, norm, data, idx, cfg)
+        loss.backward()
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        return [loss.detach(), step_losses.detach()] + [p.grad for p in model.parameters()], peak
+
+    run(True), run(False)  # cuDNN's and the kernels' first loads
+    (want, plain_peak), (got, remat_peak) = run(False), run(True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) or _rel(a, b) <= 1e-6, _rel(a, b)
+    assert remat_peak <= plain_peak, (remat_peak, plain_peak)

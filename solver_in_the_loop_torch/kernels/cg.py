@@ -33,7 +33,10 @@ off multigrid's sizes (ops/poisson.py `pressure_route`), and
 loop on the periodic operator, the route of a periodic problem. Every
 op's forward solve is a `silt.pressure` span with its iterations counted as
 `pressure.iters`, its adjoint a `silt.pressure.adjoint` span counted as
-`pressure.adjoint_iters` (utils/profiling.py; `traced_solve`).
+`pressure.adjoint_iters` (utils/profiling.py; `traced_solve`). Each stop
+test of the plain loops, a host read of the residuals, is counted as
+`pressure.host_reads` (`_unconverged`); the kernels read no host in their
+loop.
 """
 
 from __future__ import annotations
@@ -228,6 +231,13 @@ def batch_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=(1, 2), keepdim=True)
 
 
+def _unconverged(rs: torch.Tensor, thresh: torch.Tensor) -> bool:
+    """The plain loops' stop test: whether any element's r.r is above its
+    threshold, a host read counted as `pressure.host_reads`."""
+    profiling.count("pressure.host_reads", 1)
+    return bool((rs > thresh).any().item())
+
+
 def cg_solve_info(matvec: Callable, b: torch.Tensor, tol: float, max_iter: int,
                   x0: Optional[torch.Tensor] = None):
     """Batched matrix-free CG (no preconditioner); same stopping rule as
@@ -243,7 +253,7 @@ def cg_solve_info(matvec: Callable, b: torch.Tensor, tol: float, max_iter: int,
         rs = batch_dot(r, r)
     p = r
     i = 0
-    while i < max_iter and bool((rs > thresh).any().item()):
+    while i < max_iter and _unconverged(rs, thresh):
         ap = matvec(p)
         p_ap = batch_dot(p, ap)
         alpha = rs / torch.where(p_ap == 0, 1.0, p_ap)
@@ -279,7 +289,7 @@ def pcg_solve_info(matvec: Callable, minv: Callable, b: torch.Tensor, tol: float
     p = z
     rz = dot(r, z)
     i = 0
-    while i < max_iter and bool((rs > thresh).any().item()):
+    while i < max_iter and _unconverged(rs, thresh):
         ap = matvec(p)
         p_ap = dot(p, ap)
         alpha = torch.where(p_ap == 0, 0.0, rz / torch.where(p_ap == 0, 1.0, p_ap))

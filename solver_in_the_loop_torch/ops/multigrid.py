@@ -17,7 +17,9 @@ projection calls on this route: differentiable in the right-hand side, with a
 cold multigrid solve of the same system as its backward (the JAX
 `custom_linear_solve`'s `transpose_solve`), and a registered custom op whose
 call site (ops/poisson.py `solve_pressure`) a remat policy can tape, its
-formula registered with utils/remat.py.
+formula registered with utils/remat.py. Each preconditioner apply is a
+`silt.pressure.vcycle` span, and a solve counts its V-cycles as
+`multigrid.vcycles` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from solver_in_the_loop_torch.core.grids import Boundary, Domain
 from solver_in_the_loop_torch.kernels.cg import pcg_solve_info, traced_solve
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
-from solver_in_the_loop_torch.utils import remat
+from solver_in_the_loop_torch.utils import profiling, remat
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -101,13 +103,23 @@ def prolong(e: torch.Tensor) -> torch.Tensor:
 
 
 def v_cycle(h: MgHierarchy, b: torch.Tensor, level: int = 0) -> torch.Tensor:
-    """One V-cycle from zero: the preconditioner apply M^-1 b."""
+    """One V-cycle from zero: the preconditioner apply M^-1 b. From the top
+    level it is a `silt.pressure.vcycle` span; from `level` > 0 (the rest
+    of a cycle, as parallel/spatial.py runs it below its sharded levels)
+    no span."""
+    if level == 0:
+        with profiling.span("silt.pressure.vcycle"):
+            return _v_cycle(h, b, 0)
+    return _v_cycle(h, b, level)
+
+
+def _v_cycle(h: MgHierarchy, b: torch.Tensor, level: int) -> torch.Tensor:
     lvl = h.levels[level]
     x = smooth(lvl, torch.zeros_like(b), b, h.smooth_iters, h.omega)
     if level + 1 < len(h.levels):
         r = b - apply_a(lvl, x)
         rc = restrict(r) * torch.where(h.levels[level + 1].masks.fluid > 0, 1.0, 0.0)
-        ec = v_cycle(h, rc, level + 1)
+        ec = _v_cycle(h, rc, level + 1)
         x = x + prolong(ec) * torch.where(lvl.masks.fluid > 0, 1.0, 0.0)
         x = smooth(lvl, x, b, h.smooth_iters, h.omega)
     else:
@@ -124,9 +136,17 @@ def mg_pcg_solve(h: MgHierarchy, b: torch.Tensor, tol: float = 1e-5, max_iter: i
     The JAX package's loop is `pcg_solve_info`'s line for line (the pap == 0
     and rz == 0 guards, the threshold from b), so it is that loop with the
     V-cycle as the preconditioner; parallel/spatial.py runs the same loop on
-    y-sharded rows."""
-    return pcg_solve_info(functools.partial(apply_a, h.levels[0]),
-                          functools.partial(v_cycle, h), b, tol, max_iter, x0)
+    y-sharded rows. The V-cycles it ran are counted as `multigrid.vcycles`."""
+    cycles = 0
+
+    def minv(r):
+        nonlocal cycles
+        cycles += 1
+        return v_cycle(h, r)
+
+    out = pcg_solve_info(functools.partial(apply_a, h.levels[0]), minv, b, tol, max_iter, x0)
+    profiling.count("multigrid.vcycles", cycles)
+    return out
 
 
 def level_rows(level: MgLevel, lo: int, hi: int) -> MgLevel:

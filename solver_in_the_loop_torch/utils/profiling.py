@@ -38,11 +38,16 @@ The names are fixed:
   silt.pressure           one forward pressure solve (kernels/cg.py,
                           ops/multigrid.py), on every route
   silt.pressure.adjoint   one cold adjoint solve in the backward
+  silt.pressure.vcycle    one multigrid preconditioner apply (ops/multigrid.py
+                          `v_cycle`, from its top level)
   silt.kernels.load       kernels/build.py: a kernel library's first load
   silt.kernels.nvcc       its child where nvcc builds the library
 
   pressure.iters          a forward solve's iterations (0-d int32 tensor)
   pressure.adjoint_iters  an adjoint solve's iterations
+  pressure.host_reads     1 for each stop test of a plain (P)CG loop, a host
+                          read of the residuals (kernels/cg.py)
+  multigrid.vcycles       the V-cycles one multigrid solve ran
   kernels.nvcc_builds     the libraries one nvcc run built
   remat.taped             the sites one remat step taped in its forward
   remat.replayed          the sites its recompute replayed

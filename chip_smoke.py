@@ -2293,13 +2293,64 @@ def _frames_errors(got, want_of, fields=("dens", "u", "v"), steps=(1, 5, 20)):
     return errs, max(errs.values())
 
 
+def multigrid_graph_case(device, reps: int = 5):
+    """`mg_solve_op` at the hi-res generator's (6, 256, 128) on a real karman
+    right-hand side, cold and warm, with its V-cycle graph (ops/multigrid.py
+    `GraphedCycle`) and with the graph turned off (the eager V-cycle): the
+    wall ms of a solve, host included (the median of `reps`, taken in turns),
+    the iterations and the solutions, which are the same to the bit; the
+    recorded counters of the graphed solves on a fresh hierarchy (every
+    V-cycle replayed, one capture); the device memory a capture takes (its
+    static buffers and graph pool); and the device ms of one preconditioner
+    apply, the graph's copy-in, replay and copy-out."""
+    import statistics
+    from unittest import mock
+
+    import torch
+
+    from solver_in_the_loop_torch.ops import multigrid as mg
+    from solver_in_the_loop_torch.utils import profiling
+
+    rhs, warm, masks = karman_rhs(RE_B6, device, res=128)
+    ops = (masks.fluid, masks.face_u, masks.face_v, 1e-5, 1000)
+    starts = {"cold": torch.zeros_like(rhs), "warm": warm}
+    eager = mock.patch.object(mg, "graphed_cycle", lambda h, b: (None, 0))
+    case = {"shape": list(rhs.shape)}
+    with mock.patch.object(mg, "_HIERARCHIES", {}):
+        with profiling.recording() as rec:
+            graphed = {s: mg.mg_solve_op(rhs, x0, *ops) for s, x0 in starts.items()}
+        counters = rec.read()["counters"]
+        with eager:
+            plain = {s: mg.mg_solve_op(rhs, x0, *ops) for s, x0 in starts.items()}
+        for s, x0 in starts.items():
+            ms = {"graph": [], "eager": []}
+            for _ in range(reps):
+                for label in ("eager", "graph"):
+                    with eager if label == "eager" else contextlib.nullcontext():
+                        ms[label].append(_wall_ms(lambda: mg.mg_solve_op(rhs, x0, *ops)))
+            case[s] = {"iters": int(graphed[s][1]), "eager_iters": int(plain[s][1]),
+                       "bit_equal": bool(torch.equal(graphed[s][0], plain[s][0])),
+                       "graph_ms": statistics.median(ms["graph"]),
+                       "eager_ms": statistics.median(ms["eager"]), "ms": ms}
+        h = mg.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        graph = mg.GraphedCycle(h, rhs)
+        case["capture_bytes"] = {"allocated": torch.cuda.memory_allocated() - before[0],
+                                 "reserved": torch.cuda.memory_reserved() - before[1]}
+        case["apply_device_ms"] = time_ms(lambda: graph(rhs), 20)
+    case["counters"] = {k: sum(v) for k, v in counters.items() if k.startswith("multigrid.")}
+    return case
+
+
 def phase_karman_gen(device):
     """The Makefile's hi-res training-set command (karman-fdt-hires-set)
     through the CLI at full width, cut as KARMAN_GEN_REDUCED says, every launch
     count set to 0 just before it: the route (multigrid), no kernel launch,
     multigrid iterations and seconds per step, finite frames, and steps 1, 5
     and 20 of sims 0 and 5 against the JAX golden; then where a step's time
-    goes (torch.profiler, 2 steps from the last frame)."""
+    goes (torch.profiler, 2 steps from the last frame), and the solve with
+    its V-cycle graph against the eager V-cycle (`multigrid_graph_case`)."""
     import numpy as np
     import torch
 
@@ -2357,8 +2408,14 @@ def phase_karman_gen(device):
             "frames_per_scene": len(scenes[0].frames("dens")) if scenes else 0,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "tolerance": par.ROLLOUT_REL_TOL, "vs_jax_golden": vs_golden, "worst": worst,
-            "profile_2_steps": prof}
+            "profile_2_steps": prof, "vcycle_graph": multigrid_graph_case(device)}
     emit(line)
+    graph = line["vcycle_graph"]
+    require(all(graph[s]["bit_equal"] and graph[s]["iters"] == graph[s]["eager_iters"]
+                for s in ("cold", "warm")), f"the V-cycle's graph against the eager one: {graph}")
+    require(graph["counters"]["multigrid.graph_replays"] == graph["counters"]["multigrid.vcycles"]
+            and graph["counters"]["multigrid.graph_captures"] == 1,
+            f"the V-cycle graph's counters: {graph['counters']}")
     require(frames["route"] == "multigrid", f"karman-gen hi-res took {frames['route']}")
     require(all(n == 0 for n in launches.values()), f"kernel launches in karman-gen: {launches}")
     require(finite, "non-finite frames in the hi-res karman-gen")

@@ -20,6 +20,15 @@ call site (ops/poisson.py `solve_pressure`) a remat policy can tape, its
 formula registered with utils/remat.py. Each preconditioner apply is a
 `silt.pressure.vcycle` span, and a solve counts its V-cycles as
 `multigrid.vcycles` (utils/profiling.py).
+
+On a CUDA card a V-cycle is some 600 small launches, each costing the host
+more than the card spends on it. So `mg_pcg_solve` captures the top-level
+`_v_cycle` once per hierarchy and right-hand side's shape, dtype and device as
+a CUDA graph (`GraphedCycle`, kept on the hierarchy) and replays it for every
+apply: the same kernels on the same buffers, so the result is the eager one
+to the bit. The CPU, a stream already capturing and the y-sharded V-cycle of
+parallel/spatial.py run it eagerly. A solve counts its replays as
+`multigrid.graph_replays` and its captures as `multigrid.graph_captures`.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ class MgHierarchy:
     levels: List[MgLevel]
     smooth_iters: int
     omega: float
+    # the V-cycle's CUDA graphs, by the right-hand side's (shape, dtype, device)
+    graphs: dict = dataclasses.field(default_factory=dict)
 
 
 def _level_diag(masks: ProjectionMasks) -> torch.Tensor:
@@ -127,6 +138,51 @@ def _v_cycle(h: MgHierarchy, b: torch.Tensor, level: int) -> torch.Tensor:
     return x
 
 
+class GraphedCycle:
+    """`_v_cycle(h, b, 0)` for right-hand sides of one shape, dtype and CUDA
+    device, captured as a CUDA graph on static buffers.
+
+    The capture runs outside inference mode and with autograd off, so that
+    its buffers are plain tensors a rollout under `torch.inference_mode()`
+    and a training backward can both copy into; it raises where an op of
+    the cycle cannot be captured. A call copies r into the static input,
+    replays the graph and returns a copy of the static output, which the
+    next replay overwrites (the PCG loop keeps z as its next direction p):
+    three launches in place of the cycle's ~600."""
+
+    def __init__(self, h: MgHierarchy, b: torch.Tensor):
+        with torch.cuda.device(b.device), torch.inference_mode(False), torch.no_grad():
+            self.input = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+            self.input.copy_(b)
+            # the warm-up on a side stream that torch.cuda.graph asks for
+            side = torch.cuda.Stream(b.device)
+            side.wait_stream(torch.cuda.current_stream(b.device))
+            with torch.cuda.stream(side):
+                _v_cycle(h, self.input, 0)
+            torch.cuda.current_stream(b.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.output = _v_cycle(h, self.input, 0)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        self.input.copy_(r)
+        self.graph.replay()
+        return self.output.clone()
+
+
+def graphed_cycle(h: MgHierarchy, b: torch.Tensor):
+    """(h's V-cycle graph for right-hand sides like b, 1 if this call
+    captured it else 0); (None, 0) off CUDA or where the current stream is
+    capturing already, which run the V-cycle eagerly."""
+    if not b.is_cuda or torch.cuda.is_current_stream_capturing():
+        return None, 0
+    key = (tuple(b.shape), b.dtype, b.device)
+    if key in h.graphs:
+        return h.graphs[key], 0
+    h.graphs[key] = GraphedCycle(h, b)
+    return h.graphs[key], 1
+
+
 def mg_pcg_solve(h: MgHierarchy, b: torch.Tensor, tol: float = 1e-5, max_iter: int = 200,
                  x0=None):
     """CG preconditioned with the V-cycle; stops when every batch element's
@@ -136,16 +192,25 @@ def mg_pcg_solve(h: MgHierarchy, b: torch.Tensor, tol: float = 1e-5, max_iter: i
     The JAX package's loop is `pcg_solve_info`'s line for line (the pap == 0
     and rz == 0 guards, the threshold from b), so it is that loop with the
     V-cycle as the preconditioner; parallel/spatial.py runs the same loop on
-    y-sharded rows. The V-cycles it ran are counted as `multigrid.vcycles`."""
+    y-sharded rows. On CUDA each apply replays the V-cycle's graph
+    (`graphed_cycle`). The V-cycles it ran are counted as
+    `multigrid.vcycles`, those replayed as `multigrid.graph_replays`, and a
+    capture as `multigrid.graph_captures`."""
     cycles = 0
+    graph, captured = graphed_cycle(h, b)
 
     def minv(r):
         nonlocal cycles
         cycles += 1
-        return v_cycle(h, r)
+        if graph is None:
+            return v_cycle(h, r)
+        with profiling.span("silt.pressure.vcycle"):
+            return graph(r)
 
     out = pcg_solve_info(functools.partial(apply_a, h.levels[0]), minv, b, tol, max_iter, x0)
     profiling.count("multigrid.vcycles", cycles)
+    profiling.count("multigrid.graph_replays", 0 if graph is None else cycles)
+    profiling.count("multigrid.graph_captures", captured)
     return out
 
 
@@ -162,7 +227,7 @@ def level_rows(level: MgLevel, lo: int, hi: int) -> MgLevel:
 # hierarchies of the latest mask sets, keyed by the masks' identity: a flow's
 # masks are fixed and never written in place, so a rollout's solves and their
 # adjoints build the hierarchy once. The entry holds the masks, so an id is
-# not reused while it is cached.
+# not reused while it is cached; evicting it frees its V-cycle graphs.
 _HIERARCHIES: dict = {}
 _HIERARCHIES_KEPT = 4
 

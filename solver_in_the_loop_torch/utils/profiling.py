@@ -39,7 +39,7 @@ The names are fixed:
                           ops/multigrid.py), on every route
   silt.pressure.adjoint   one cold adjoint solve in the backward
   silt.pressure.vcycle    one multigrid preconditioner apply (ops/multigrid.py
-                          `v_cycle`, from its top level)
+                          `v_cycle` from its top level, or a graph's replay)
   silt.kernels.load       kernels/build.py: a kernel library's first load
   silt.kernels.nvcc       its child where nvcc builds the library
 
@@ -48,6 +48,10 @@ The names are fixed:
   pressure.host_reads     1 for each stop test of a plain (P)CG loop, a host
                           read of the residuals (kernels/cg.py)
   multigrid.vcycles       the V-cycles one multigrid solve ran
+  multigrid.graph_replays those of them replayed from a CUDA graph
+                          (ops/multigrid.py `GraphedCycle`; 0 on the CPU)
+  multigrid.graph_captures
+                          the V-cycle graphs the solve captured (0 or 1)
   kernels.nvcc_builds     the libraries one nvcc run built
   remat.taped             the sites one remat step taped in its forward
   remat.replayed          the sites its recompute replayed

@@ -23,10 +23,16 @@ train tolerances, the sharded step within 1e-5 of each field's max. The
 program's spans (utils/profiling.py) hang from the train step's backward
 across the autograd engine's thread, and a kernel library's first load is
 a span of its own. The remat step equals the step without remat at SOL-32's
-shapes, in no more memory.
+shapes, in no more memory. The multigrid V-cycle's CUDA graph replays the
+eager cycle to the bit, in a solve, its adjoint and a generator rollout,
+under inference mode and outside it, and goes with its hierarchy.
 """
 
 from __future__ import annotations
+
+import functools
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -46,6 +52,7 @@ from solver_in_the_loop_torch.kernels.advect import (
 from solver_in_the_loop_torch.kernels.cg import cg_solve, cg_solve_plain, pcg_solve, pcg_solve_plain
 from solver_in_the_loop_torch.models.networks import build_model, disable_tf32
 from solver_in_the_loop_torch.ops import interp
+from solver_in_the_loop_torch.ops import multigrid as mg
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
 from solver_in_the_loop_torch.ops.poisson import (
     fd_factors,
@@ -56,6 +63,7 @@ from solver_in_the_loop_torch.ops.poisson import (
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.train.checkpoint import params_to_jax
 from solver_in_the_loop_torch.train.rollout import karman_rollout
+from solver_in_the_loop_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -545,6 +553,121 @@ def test_multigrid_route_on_the_card_matches_cpu(device):
     p_cpu, _ = solve_pressure(-rhs.cpu(), cpu_masks)
     assert 0 < int(iters) < 200 and torch.isfinite(div.grad).all()
     assert _rel(p.detach().cpu(), p_cpu) <= parity.PCG_REL_TOL
+
+
+@pytest.mark.parametrize("batch,res", [(6, 128), (1, 192)])
+@pytest.mark.parametrize("inference", [False, True])
+def test_graphed_vcycle_is_bit_equal_to_eager(device, batch, res, inference):
+    """The V-cycle's graph gives the eager `_v_cycle` to the bit, at the
+    hi-res generator's (6, 256, 128) on the karman masks and at (1, 384,
+    192), on the right-hand side it was captured with and on others, under
+    `torch.inference_mode()` and outside it; what it returns is a copy that
+    the next replay leaves alone."""
+    rhs, masks = _cg_problem(device, batch, karman_domain(res), seed=res)
+    h = mg.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
+    gen = torch.Generator(device=device).manual_seed(batch)
+    with torch.inference_mode(inference):
+        graph = mg.GraphedCycle(h, rhs)
+        outs = []
+        for b in (rhs, torch.randn(rhs.shape, generator=gen, device=device) * masks.fluid, rhs):
+            outs.append(graph(b))
+            assert torch.equal(outs[-1], mg._v_cycle(h, b, 0))
+        assert torch.equal(outs[0], outs[2]) and not torch.equal(outs[0], outs[1])
+    assert not graph.input.is_inference() and not graph.output.is_inference()
+
+
+@pytest.mark.parametrize("first", ["rollout", "training"])
+def test_mg_solve_with_the_graph_equals_the_eager_loop(device, first, monkeypatch):
+    """`silt::mg_solve` at (6, 256, 128), cold and warm-started, and its cold
+    adjoint give the eager loop's x, gradient and iterations to the bit:
+    `pcg_solve_info` with `apply_a` and the eager `v_cycle`. One hierarchy
+    serves a rollout's solves (under `torch.inference_mode()`) and a
+    training step's (a solve and its adjoint), in either order, from one
+    capture; every V-cycle is a replay."""
+    monkeypatch.setattr(mg, "_HIERARCHIES", {})
+    rhs, masks = _cg_problem(device, 6, karman_domain(128), seed=7)
+    warm = (0.9 * rhs).contiguous()
+    cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(8),
+                      device=device)
+    args = (masks.fluid, masks.face_u, masks.face_v, 1e-5, 1000)
+    h = mg.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
+
+    def eager(b, x0):
+        return cg.pcg_solve_info(functools.partial(mg.apply_a, h.levels[0]),
+                                 lambda r: mg.v_cycle(h, r), b, 1e-5, 1000, x0)
+
+    def rollout():
+        with torch.inference_mode():
+            return [mg.mg_solve_op(rhs, x0, *args) for x0 in (torch.zeros_like(rhs), warm)]
+
+    def training():
+        b = rhs.clone().requires_grad_()
+        x, iters = mg.mg_solve_op(b, warm, *args)
+        x.backward(cot)
+        return x.detach(), iters, b.grad
+
+    with profiling.recording() as rec:
+        if first == "rollout":
+            solves, (x, iters, grad) = rollout(), training()
+        else:
+            (x, iters, grad), solves = training(), rollout()
+    counters = rec.read()["counters"]
+    for (got, got_iters), x0 in zip(solves + [(x, iters)], (torch.zeros_like(rhs), warm, warm)):
+        want, want_iters = eager(rhs, x0)
+        assert torch.equal(got, want) and int(got_iters) == want_iters > 0
+    want_grad, _ = eager(cot, torch.zeros_like(cot))
+    assert torch.equal(grad, want_grad)
+    assert len(counters["multigrid.vcycles"]) == 4
+    assert counters["multigrid.graph_replays"] == counters["multigrid.vcycles"]
+    assert sum(counters["multigrid.graph_captures"]) == 1 and list(h.graphs) == [
+        ((6, 256, 128), torch.float32, device)]
+
+
+def test_a_recorded_generator_rollout_replays_every_vcycle(device, monkeypatch):
+    """Three steps of the hi-res generator's rollout (`karman-gen -r 128`:
+    (6, 256, 128), gather advection, multigrid) count every V-cycle as a
+    replay and one capture, and give the frames of the rollout with the
+    graph turned off to the bit."""
+    monkeypatch.setattr(mg, "_HIERARCHIES", {})
+    dom = karman_domain(128)
+    flow = KarmanFlow(dom, advection="gather", max_shift=4, device=device)
+    re = torch.tensor([1.6e5 * 2 ** i for i in range(6)], device=device)
+    d0, v0 = initial_state(dom, 6, device)
+    assert pressure_route((6,) + dom.resolution, device) == "multigrid"
+    with profiling.recording() as rec:
+        graphed = karman_rollout(flow, d0, v0, re, 3)
+    counters = rec.read()["counters"]
+    assert sum(counters["multigrid.vcycles"]) > 3
+    assert counters["multigrid.graph_replays"] == counters["multigrid.vcycles"]
+    assert sum(counters["multigrid.graph_captures"]) == counters["multigrid.graph_captures"][0] == 1
+    monkeypatch.setattr(mg, "graphed_cycle", lambda h, b: (None, 0))  # the eager V-cycle
+    eager = karman_rollout(flow, d0, v0, re, 3)
+    for key in ("dens", "u", "v", "cg_iters"):
+        assert torch.equal(graphed[key], eager[key]), key
+
+
+def test_a_new_mask_set_after_eviction_captures_anew(device, monkeypatch):
+    """Evicting a mask set's hierarchy frees its V-cycle graph; a solve on
+    those masks afterwards builds the hierarchy again and captures anew."""
+    monkeypatch.setattr(mg, "_HIERARCHIES", {})
+    monkeypatch.setattr(mg, "_HIERARCHIES_KEPT", 1)
+    (rhs, first), (_, second) = (_cg_problem(device, 6, karman_domain(128), seed=s)
+                                 for s in (1, 2))
+
+    def solve(masks):
+        with profiling.recording() as rec:
+            mg.mg_solve(rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v,
+                        1e-5, 1000)
+        return rec.read()["counters"]["multigrid.graph_captures"]
+
+    assert solve(first) == [1] and solve(first) == [0]
+    (old,) = mg._HIERARCHIES.values()
+    graph = weakref.ref(next(iter(old.graphs.values())))
+    del old
+    assert solve(second) == [1]
+    gc.collect()
+    assert graph() is None
+    assert solve(first) == [1]
 
 
 def test_train_step_without_preconditioner_matches_plain(device):

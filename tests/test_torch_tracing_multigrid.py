@@ -8,6 +8,9 @@ spans and counters (utils/profiling.py), beside tests/test_torch_tracing.py.
   inside the solve's `silt.pressure`.
 * Off (no recording, no profiler) nothing is counted and the solve is the
   same to the bit.
+* On the CPU the V-cycle runs eagerly: a recorded solve and its adjoint
+  count no graph replay and no capture, and the hierarchy holds no graph
+  (on the card every V-cycle is a replay: tests/test_torch_cuda.py).
 * On the card the fused routes (csrc/pcg.cu, csrc/cg.cu and the cluster
   layout) count no host read and no V-cycle; this file imports nothing of
   JAX, so the card runs it with `--noconftest`.
@@ -77,6 +80,20 @@ def test_nothing_is_counted_without_a_recording():
         on = solve_pressure(div, masks)
     assert torch.equal(off[0], on[0]) and int(off[1]) == int(on[1])
     assert len(rec.read()["counters"]["pressure.host_reads"]) == int(on[1]) + 1
+
+
+def test_a_recorded_cpu_solve_replays_no_graph():
+    div, masks = _problem(seed=5)
+    div.requires_grad_()
+    with profiling.recording() as rec:
+        p, iters = solve_pressure(div, masks)
+        p.sum().backward()
+    counters = rec.read()["counters"]
+    vcycles = counters["multigrid.vcycles"]
+    assert len(vcycles) == 2 and vcycles[0] == int(iters) + 1 and vcycles[1] > 0
+    assert counters["multigrid.graph_replays"] == counters["multigrid.graph_captures"] == [0, 0]
+    h = multigrid.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
+    assert h.graphs == {} and multigrid.graphed_cycle(h, div) == (None, 0)
 
 
 @pytest.mark.cuda

@@ -734,11 +734,11 @@ def pressure_route_cases(device):
     import torch
 
     from solver_in_the_loop_torch.kernels import cg
-    from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
     from solver_in_the_loop_torch.ops.poisson import (
         ProjectionMasks,
         _mg_applicable,
         fd_factors,
+        pressure_cg_solve,
         pressure_route,
         solve_pressure,
     )
@@ -787,7 +787,8 @@ def pressure_route_cases(device):
                 "ms": time_ms(lambda: solve_pressure(-rhs, masks, precon=precon), 3)}
         ops = (rhs, torch.zeros_like(rhs), masks.fluid, masks.face_u, masks.face_v)
         if _mg_applicable(rhs.shape):  # the route the card took there before the kernel did
-            case["multigrid_ms"] = _wall_ms(lambda: mg_solve_op(*ops, 1e-5, 1000))
+            case["multigrid_ms"] = _wall_ms(lambda: pressure_cg_solve(*ops, "multigrid", 1e-5,
+                                                                      1000))
         elif route != "pcg_plain":  # the plain FD-PCG loop, the JAX package's XLA route
             case["pcg_plain_ms"] = _wall_ms(lambda: cg.pcg_solve_plain(
                 *ops, *fd_factors(h, w, device), 1e-5, 1000))
@@ -879,8 +880,7 @@ def cluster_kernel_cases(device):
     import torch
 
     from solver_in_the_loop_torch.kernels import cg
-    from solver_in_the_loop_torch.ops.multigrid import mg_solve_op
-    from solver_in_the_loop_torch.ops.poisson import _mg_applicable, fd_factors
+    from solver_in_the_loop_torch.ops.poisson import _mg_applicable, fd_factors, pressure_cg_solve
     from solver_in_the_loop_torch.parity import CG_REL_TOL, PCG_REL_TOL, plain_path
 
     cases = []
@@ -892,8 +892,8 @@ def cluster_kernel_cases(device):
         ops = (masks.fluid, masks.face_u, masks.face_v)
         fd = fd_factors(shape[1], shape[2], device)
         pre = precon == "fd"
-        kernel, plain, op = ((cg.pcg_cluster_solve, cg.pcg_solve_plain, cg.pcg_solve_op) if pre
-                             else (cg.cg_cluster_solve, cg.cg_solve_plain, cg.cg_solve_op))
+        kernel, plain = ((cg.pcg_cluster_solve, cg.pcg_solve_plain) if pre
+                         else (cg.cg_cluster_solve, cg.cg_solve_plain))
         extra = fd if pre else ()
         rel_tol = PCG_REL_TOL if pre else CG_REL_TOL
         base = {"shape": list(shape), "precon": precon, "plan": cg.cluster_plan(shape, pre),
@@ -915,7 +915,8 @@ def cluster_kernel_cases(device):
             case["bound_ms"], case["bound_by"] = (pcg_bound_ms if pre else cg_bound_ms)(
                 shape, case["iters"])
             if _mg_applicable(shape):  # the card's route before this layout
-                case["multigrid_ms"] = _wall_ms(lambda: mg_solve_op(rhs, x0, *ops, tol, max_iter))
+                case["multigrid_ms"] = _wall_ms(lambda: pressure_cg_solve(
+                    rhs, x0, *ops, "multigrid", tol, max_iter))
             else:
                 case["pcg_plain_ms"] = _wall_ms(lambda: cg.pcg_solve_plain(rhs, x0, *ops, *fd, tol,
                                                                            max_iter))
@@ -933,7 +934,7 @@ def cluster_kernel_cases(device):
 
         def grad():
             b = rhs.clone().requires_grad_()
-            x, _ = op(b, warm, *ops, *extra, tol, max_iter)
+            x, _ = pressure_cg_solve(b, warm, *ops, "pcg" if pre else "cg", tol, max_iter)
             return torch.autograd.grad(x, b, cot)[0]
 
         reset = kernel.launches
@@ -1074,9 +1075,10 @@ def cg_kernel_cases(device):
             require(case["rel_err"] <= CG_REL_TOL, f"cg_solve solution {case}")
             require(case["deterministic"], f"cg_solve is not deterministic {case}")
 
-    # the adjoint: the gradient through silt::cg_solve (silt::pcg_solve) is a
-    # cold solve by the kernel; at batch 9 the cooperative grid's
-    from solver_in_the_loop_torch.ops.poisson import fd_factors
+    # the adjoint: the gradient through the "cg" ("pcg") route of
+    # silt::pressure_cg_solve is a cold solve by the kernel, at batch 9 in
+    # the cooperative grid's layout
+    from solver_in_the_loop_torch.ops.poisson import pressure_cg_solve
     from solver_in_the_loop_torch.parity import PCG_REL_TOL
 
     for batch_re, op in ((PARITY_RE, "cg"), (RE_B9, "cg"), (RE_B9, "pcg")):
@@ -1084,13 +1086,10 @@ def cg_kernel_cases(device):
         cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(7),
                           device=device)
         ops = (masks.fluid, masks.face_u, masks.face_v)
-        if op == "pcg":
-            ops += fd_factors(rhs.shape[1], rhs.shape[2], device)
 
         def grad():
             b = rhs.clone().requires_grad_()
-            solve = cg.cg_solve_op if op == "cg" else cg.pcg_solve_op
-            x, _ = solve(b, warm, *ops, tol, max_iter)
+            x, _ = pressure_cg_solve(b, warm, *ops, op, tol, max_iter)
             return torch.autograd.grad(x, b, cot)[0]
 
         got = grad()
@@ -2294,9 +2293,10 @@ def _frames_errors(got, want_of, fields=("dens", "u", "v"), steps=(1, 5, 20)):
 
 
 def multigrid_graph_case(device, reps: int = 5):
-    """`mg_solve_op` at the hi-res generator's (6, 256, 128) on a real karman
-    right-hand side, cold and warm, with its V-cycle graph (ops/multigrid.py
-    `GraphedCycle`) and with the graph turned off (the eager V-cycle): the
+    """The "multigrid" route of `pressure_cg_solve` at the hi-res generator's
+    (6, 256, 128) on a real karman right-hand side, cold and warm, with its
+    V-cycle graph (ops/multigrid.py `GraphedCycle`) and with the graph turned
+    off (the eager V-cycle): the
     wall ms of a solve, host included (the median of `reps`, taken in turns),
     the iterations and the solutions, which are the same to the bit; the
     recorded counters of the graphed solves on a fresh hierarchy (every
@@ -2309,25 +2309,26 @@ def multigrid_graph_case(device, reps: int = 5):
     import torch
 
     from solver_in_the_loop_torch.ops import multigrid as mg
+    from solver_in_the_loop_torch.ops.poisson import pressure_cg_solve
     from solver_in_the_loop_torch.utils import profiling
 
     rhs, warm, masks = karman_rhs(RE_B6, device, res=128)
-    ops = (masks.fluid, masks.face_u, masks.face_v, 1e-5, 1000)
+    ops = (masks.fluid, masks.face_u, masks.face_v, "multigrid", 1e-5, 1000)
     starts = {"cold": torch.zeros_like(rhs), "warm": warm}
     eager = mock.patch.object(mg, "graphed_cycle", lambda h, b: (None, 0))
     case = {"shape": list(rhs.shape)}
     with mock.patch.object(mg, "_HIERARCHIES", {}):
         with profiling.recording() as rec:
-            graphed = {s: mg.mg_solve_op(rhs, x0, *ops) for s, x0 in starts.items()}
+            graphed = {s: pressure_cg_solve(rhs, x0, *ops) for s, x0 in starts.items()}
         counters = rec.read()["counters"]
         with eager:
-            plain = {s: mg.mg_solve_op(rhs, x0, *ops) for s, x0 in starts.items()}
+            plain = {s: pressure_cg_solve(rhs, x0, *ops) for s, x0 in starts.items()}
         for s, x0 in starts.items():
             ms = {"graph": [], "eager": []}
             for _ in range(reps):
                 for label in ("eager", "graph"):
                     with eager if label == "eager" else contextlib.nullcontext():
-                        ms[label].append(_wall_ms(lambda: mg.mg_solve_op(rhs, x0, *ops)))
+                        ms[label].append(_wall_ms(lambda: pressure_cg_solve(rhs, x0, *ops)))
             case[s] = {"iters": int(graphed[s][1]), "eager_iters": int(plain[s][1]),
                        "bit_equal": bool(torch.equal(graphed[s][0], plain[s][0])),
                        "graph_ms": statistics.median(ms["graph"]),

@@ -13,30 +13,11 @@ element over a cluster of up to 16 blocks, sized by `cluster_plan`). On a
 CPU tensor each runs its plain twin, the XLA reference's loop
 (`pcg_solve_info` and `cg_solve_info`,
 solver_in_the_loop_tpu/ops/poisson.py:92-135, 191-228) with `.item()` stop
-checks.
-
-`pcg_solve_op` (`torch.ops.silt.pcg_solve`) and `cg_solve_op`
-(`torch.ops.silt.cg_solve`) are the differentiable solves the pressure
-projection calls: the forward solves from the given start, and the backward
-solves the same SPD system cold for the cotangent with the same solver (the
-implicit-function adjoint of `lax.custom_linear_solve` with
-`transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). They are
-registered custom ops whose call site (ops/poisson.py `solve_pressure`) a
-remat policy can tape, their formulas registered with utils/remat.py, and
-each reaches its kernel only through the module-level wrapper (`pcg_solve`,
-`cg_solve`), so replacing that wrapper replaces the kernel in both
-directions. `pcg_plain_solve_op`
-(`torch.ops.silt.pcg_plain_solve`) is the same differentiable solve on the
-plain FD-PCG loop, on any device: the route of a shape no kernel takes
-off multigrid's sizes (ops/poisson.py `pressure_route`), and
-`periodic_cg_solve_op` (`torch.ops.silt.periodic_cg_solve`) the plain CG
-loop on the periodic operator, the route of a periodic problem. Every
-op's forward solve is a `silt.pressure` span with its iterations counted as
-`pressure.iters`, its adjoint a `silt.pressure.adjoint` span counted as
-`pressure.adjoint_iters` (utils/profiling.py; `traced_solve`). Each stop
-test of the plain loops, a host read of the residuals, is counted as
-`pressure.host_reads` (`_unconverged`); the kernels read no host in their
-loop.
+checks. `periodic_cg_solve` is the plain CG loop on the periodic operator.
+ops/poisson.py `pressure_cg_solve` is the differentiable solve that calls
+these wrappers. Each stop test of the plain loops, a host read of the
+residuals, is counted as `pressure.host_reads` (`_unconverged`); the kernels
+read no host in their loop.
 """
 
 from __future__ import annotations
@@ -48,7 +29,7 @@ import torch
 
 from solver_in_the_loop_torch.kernels import build
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
-from solver_in_the_loop_torch.utils import profiling, remat
+from solver_in_the_loop_torch.utils import profiling
 
 # The fast layouts (csrc/pcg.cu, csrc/cg.cu) run one thread block per batch
 # element. A batch of at most MAX_CLUSTER is one thread-block cluster; a
@@ -474,112 +455,11 @@ def cluster_smem_native(precon: bool, on_chip: bool, h: int, w: int, band: int) 
     return fn(int(precon), int(on_chip), h, w, band)
 
 
-def traced_solve(adjoint: bool, solve: Callable, b, x0, *args):
-    """solve(b, x0, *args) -> (x, iterations) as a `silt.pressure` span, or
-    `silt.pressure.adjoint` where `adjoint`, its iterations counted (a
-    custom op's body: the remat takes its output from the forward and
-    never runs it again)."""
-    span, counter = (("silt.pressure.adjoint", "pressure.adjoint_iters") if adjoint
-                     else ("silt.pressure", "pressure.iters"))
-    with profiling.span(span):
-        x, iters = solve(b, x0, *args)
-    profiling.count(counter, iters)
-    return x, iters
-
-
-@torch.library.custom_op(
-    "silt::pcg_solve", mutates_args=(),
-    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, Tensor vy, "
-           "Tensor vx, Tensor invd, float tol, int max_iter) -> (Tensor, Tensor)")
-def pcg_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
-    """`pcg_solve` as a differentiable op in b (x0 and the operator are
-    constants). Returns (x, iterations)."""
-    x, iters = traced_solve(False, pcg_solve, b, x0, fluid, face_u, face_v, vy, vx, invd, tol,
-                            max_iter)
-    # the plain loop hands back x0 itself when it is already converged; an
-    # op's output may not alias its input
-    return (x.clone() if x is x0 else x), iters
-
-
-def _pcg_setup(ctx, inputs, output):
-    _, _, fluid, face_u, face_v, vy, vx, invd, tol, max_iter = inputs
-    ctx.save_for_backward(fluid, face_u, face_v, vy, vx, invd)
-    ctx.tol, ctx.max_iter = tol, max_iter
-
-
-def _pcg_backward(ctx, grad_x, _grad_iters):
-    """A is symmetric, so the cotangent of b is A^-1 grad_x: a cold solve
-    with the forward's tolerance and iteration limit."""
-    grad_b = None
-    if ctx.needs_input_grad[0]:
-        g = grad_x.contiguous()
-        grad_b, _ = traced_solve(True, pcg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
-                                 ctx.tol, ctx.max_iter)
-    return (grad_b,) + (None,) * 9
-
-
-pcg_solve_op.register_autograd(_pcg_backward, setup_context=_pcg_setup)
-remat.register(torch.ops.silt.pcg_solve.default, _pcg_setup, _pcg_backward)
-
-
-@torch.library.custom_op(
-    "silt::pcg_plain_solve", mutates_args=(),
-    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, Tensor vy, "
-           "Tensor vx, Tensor invd, float tol, int max_iter) -> (Tensor, Tensor)")
-def pcg_plain_solve_op(b, x0, fluid, face_u, face_v, vy, vx, invd, tol, max_iter):
-    """The FD-preconditioned loop in plain PyTorch (`pcg_solve_plain`) as a
-    differentiable op in b, on any device: the pressure route of a shape
-    that neither the kernels nor multigrid take, a batch above MAX_BATCH
-    (ops/poisson.py `pressure_route`, "pcg_plain"), as the JAX package takes
-    its XLA FD-PCG there. Returns (x, iterations)."""
-    x, iters = traced_solve(False, pcg_solve_plain, b, x0, fluid, face_u, face_v, vy, vx, invd,
-                            tol, max_iter)
-    return (x.clone() if x is x0 else x), iters
-
-
-def _pcg_plain_backward(ctx, grad_x, _grad_iters):
-    """The cotangent of b is A^-1 grad_x: a cold solve by the same loop."""
-    grad_b = None
-    if ctx.needs_input_grad[0]:
-        g = grad_x.contiguous()
-        grad_b, _ = traced_solve(True, pcg_solve_plain, g, torch.zeros_like(g),
-                                 *ctx.saved_tensors, ctx.tol, ctx.max_iter)
-    return (grad_b,) + (None,) * 9
-
-
-pcg_plain_solve_op.register_autograd(_pcg_plain_backward, setup_context=_pcg_setup)
-remat.register(torch.ops.silt.pcg_plain_solve.default, _pcg_setup, _pcg_plain_backward)
-
-
-@torch.library.custom_op(
-    "silt::periodic_cg_solve", mutates_args=(),
-    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, float tol, "
-           "int max_iter) -> (Tensor, Tensor)")
-def periodic_cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
-    """The plain CG loop on the PERIODIC operator as a differentiable op in b,
-    on any device: the route of a periodic problem (ops/poisson.py
-    `pressure_route`, "periodic_cg"), the JAX package's XLA CG loop there on
-    every backend. Returns (x, iterations)."""
-    x, iters = traced_solve(False, periodic_cg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
-    return (x.clone() if x is x0 else x), iters
-
-
 def periodic_cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
     """The plain CG loop on the PERIODIC operator: (x, iterations as a 0-d
     int32 tensor on b's device)."""
     x, iters = cg_solve_info(masked_matvec(fluid, face_u, face_v, True), b, tol, max_iter, x0)
     return x, torch.tensor(iters, dtype=torch.int32, device=b.device)
-
-
-def _periodic_cg_backward(ctx, grad_x, _grad_iters):
-    """The cotangent of b is A^-1 grad_x (A is symmetric): a cold solve by the
-    same loop, as the JAX package's custom_linear_solve transposes it."""
-    grad_b = None
-    if ctx.needs_input_grad[0]:
-        g = grad_x.contiguous()
-        grad_b, _ = traced_solve(True, periodic_cg_solve, g, torch.zeros_like(g),
-                                 *ctx.saved_tensors, ctx.tol, ctx.max_iter)
-    return (grad_b,) + (None,) * 6
 
 
 def cg_solve_plain(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
@@ -637,36 +517,3 @@ def cg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
 
 
 cg_solve.launches = 0
-
-
-@torch.library.custom_op(
-    "silt::cg_solve", mutates_args=(),
-    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, float tol, "
-           "int max_iter) -> (Tensor, Tensor)")
-def cg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
-    """`cg_solve` as a differentiable op in b (x0 and the operator are
-    constants). Returns (x, iterations)."""
-    x, iters = traced_solve(False, cg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
-    # the plain loop hands back x0 itself when it is already converged
-    return (x.clone() if x is x0 else x), iters
-
-
-def _cg_setup(ctx, inputs, output):
-    _, _, fluid, face_u, face_v, tol, max_iter = inputs
-    ctx.save_for_backward(fluid, face_u, face_v)
-    ctx.tol, ctx.max_iter = tol, max_iter
-
-
-def _cg_backward(ctx, grad_x, _grad_iters):
-    """The cotangent of b is A^-1 grad_x: a cold solve, as `_pcg_backward`."""
-    grad_b = None
-    if ctx.needs_input_grad[0]:
-        g = grad_x.contiguous()
-        grad_b, _ = traced_solve(True, cg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
-                                 ctx.tol, ctx.max_iter)
-    return (grad_b,) + (None,) * 6
-
-
-cg_solve_op.register_autograd(_cg_backward, setup_context=_cg_setup)
-remat.register(torch.ops.silt.cg_solve.default, _cg_setup, _cg_backward)
-periodic_cg_solve_op.register_autograd(_periodic_cg_backward, setup_context=_cg_setup)

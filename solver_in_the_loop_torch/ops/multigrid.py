@@ -12,14 +12,10 @@ Plain PyTorch ops, as the JAX package runs it as XLA ops (no Pallas kernel).
 The loop is kernels/cg.py `pcg_solve_info` with the V-cycle as its
 preconditioner, and stops on a host read of the residuals once per
 iteration; parallel/spatial.py runs the same V-cycle on y-sharded rows.
-`mg_solve_op` (`torch.ops.silt.mg_solve`) is the solve the pressure
-projection calls on this route: differentiable in the right-hand side, with a
-cold multigrid solve of the same system as its backward (the JAX
-`custom_linear_solve`'s `transpose_solve`), and a registered custom op whose
-call site (ops/poisson.py `solve_pressure`) a remat policy can tape, its
-formula registered with utils/remat.py. Each preconditioner apply is a
-`silt.pressure.vcycle` span, and a solve counts its V-cycles as
-`multigrid.vcycles` (utils/profiling.py).
+`mg_solve` is the solver of the pressure projection's "multigrid" route
+(ops/poisson.py `pressure_cg_solve`, forward and adjoint). Each
+preconditioner apply is a `silt.pressure.vcycle` span, and a solve counts its
+V-cycles as `multigrid.vcycles` (utils/profiling.py).
 
 On a CUDA card a V-cycle is some 600 small launches, each costing the host
 more than the card spends on it. So `mg_pcg_solve` captures the top-level
@@ -40,10 +36,10 @@ from typing import List
 import torch
 
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
-from solver_in_the_loop_torch.kernels.cg import pcg_solve_info, traced_solve
+from solver_in_the_loop_torch.kernels.cg import pcg_solve_info
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
-from solver_in_the_loop_torch.utils import profiling, remat
+from solver_in_the_loop_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -249,36 +245,3 @@ def mg_solve(b, x0, fluid, face_u, face_v, tol: float, max_iter: int):
     warm-started at x0, on b's device: (x, iterations as a 0-d int32 tensor)."""
     x, iters = mg_pcg_solve(cached_hierarchy(fluid, face_u, face_v), b, tol, max_iter, x0)
     return x, torch.tensor(iters, dtype=torch.int32, device=b.device)
-
-
-@torch.library.custom_op(
-    "silt::mg_solve", mutates_args=(),
-    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, float tol, "
-           "int max_iter) -> (Tensor, Tensor)")
-def mg_solve_op(b, x0, fluid, face_u, face_v, tol, max_iter):
-    """`mg_solve` as a differentiable op in b (x0 and the operator are
-    constants). Returns (x, iterations)."""
-    x, iters = traced_solve(False, mg_solve, b, x0, fluid, face_u, face_v, tol, max_iter)
-    # the loop hands back x0 itself when it is already converged
-    return (x.clone() if x is x0 else x), iters
-
-
-def _mg_setup(ctx, inputs, output):
-    _, _, fluid, face_u, face_v, tol, max_iter = inputs
-    ctx.save_for_backward(fluid, face_u, face_v)
-    ctx.tol, ctx.max_iter = tol, max_iter
-
-
-def _mg_backward(ctx, grad_x, _grad_iters):
-    """A and the V-cycle are symmetric: the cotangent of b is A^-1 grad_x, a
-    cold multigrid solve with the forward's tolerance and iteration limit."""
-    grad_b = None
-    if ctx.needs_input_grad[0]:
-        g = grad_x.contiguous()
-        grad_b, _ = traced_solve(True, mg_solve, g, torch.zeros_like(g), *ctx.saved_tensors,
-                                 ctx.tol, ctx.max_iter)
-    return (grad_b,) + (None,) * 6
-
-
-mg_solve_op.register_autograd(_mg_backward, setup_context=_mg_setup)
-remat.register(torch.ops.silt.mg_solve.default, _mg_setup, _mg_backward)

@@ -11,10 +11,21 @@ and to the plain FD-PCG loop where it does not; on the CPU to multigrid
 where the JAX package takes it off the TPU, else to the kernel's plain twin
 (the plain FD-PCG loop above the kernels' MAX_BATCH). A periodic problem
 takes the plain CG loop on either device. The plain loops, `pcg_solve_info`
-and `cg_solve_info`, live beside the kernels in kernels/cg.py. The solve is
-differentiable in its right-hand side on every route: the backward is a cold
-solve of the same system by the same solver (`pcg_solve_op`, `cg_solve_op`,
-`mg_solve_op`, `pcg_plain_solve_op`, `periodic_cg_solve_op`).
+and `cg_solve_info`, live beside the kernels in kernels/cg.py.
+
+`pressure_cg_solve` (`torch.ops.silt.pressure_cg_solve`) is the one
+differentiable solve, on every route: it takes the route's name and runs its
+solver (`_SOLVERS`), and its backward is a cold solve of the same system by
+the same route (the implicit-function adjoint of `lax.custom_linear_solve`
+with `transpose_solve`, solver_in_the_loop_tpu/ops/poisson.py:304-310). It is
+a registered custom op whose call site (`solve_pressure`) a remat policy can
+tape, its formula registered with utils/remat.py. Each route reaches its
+solver only through the module-level wrapper (kernels/cg.py `pcg_solve`,
+`cg_solve`, ...), looked up at call time, so replacing that wrapper replaces
+the kernel in both directions. The forward solve is a `silt.pressure` span
+with its iterations counted as `pressure.iters`, the adjoint a
+`silt.pressure.adjoint` span counted as `pressure.adjoint_iters`
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -28,15 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import Domain, StaggeredGrid
-from solver_in_the_loop_torch.kernels.cg import (
-    MAX_BATCH,
-    cg_kernel_fits,
-    fd_apply,
-    pcg_kernel_fits,
-    periodic_cg_solve_op,
-)
+from solver_in_the_loop_torch.kernels import cg
 from solver_in_the_loop_torch.ops.stencils import divergence, pressure_gradient
-from solver_in_the_loop_torch.utils import remat
+from solver_in_the_loop_torch.utils import profiling, remat
 
 # the fused kernel's FD preconditioner on ("fd", JAX's `fd_pcg_ok` marker) or
 # off ("none", JAX's SILT_PALLAS_FDPCG=0)
@@ -106,7 +111,7 @@ def fd_factors(ny: int, nx: int, device: torch.device):
 
 def fd_minv(ny: int, nx: int, device=None):
     """The fast-diagonalization preconditioner apply: (B, ny, nx) -> (B, ny, nx)."""
-    return fd_apply(*fd_factors(ny, nx, torch.device(device or "cpu")))
+    return cg.fd_apply(*fd_factors(ny, nx, torch.device(device or "cpu")))
 
 
 # The JAX package's gate of its fused Pallas CG kernel, the port's own copy
@@ -165,7 +170,7 @@ def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") ->
         return "periodic_cg"
     kernel = "pcg" if precon == "fd" else "cg"
     if torch.device(device).type == "cuda":
-        fits = (pcg_kernel_fits if precon == "fd" else cg_kernel_fits)(shape)
+        fits = (cg.pcg_kernel_fits if precon == "fd" else cg.cg_kernel_fits)(shape)
         if fits and jax_kernel_gate(shape, precon):
             return kernel
         if _mg_applicable(shape):
@@ -173,7 +178,76 @@ def pressure_route(shape, device, periodic: bool = False, precon: str = "fd") ->
         return kernel if fits else "pcg_plain"
     if _mg_applicable(shape):
         return "multigrid"
-    return "pcg_plain" if shape[0] > MAX_BATCH else kernel
+    return "pcg_plain" if shape[0] > cg.MAX_BATCH else kernel
+
+
+def _fd(name: str):
+    """The FD-preconditioned kernels/cg.py solver `name`, given the FD factors
+    of b's shape."""
+    def solve(b, x0, fluid, face_u, face_v, tol, max_iter):
+        fd = fd_factors(b.shape[1], b.shape[2], b.device)
+        return getattr(cg, name)(b, x0, fluid, face_u, face_v, *fd, tol, max_iter)
+    return solve
+
+
+def _multigrid(*args):
+    from solver_in_the_loop_torch.ops import multigrid  # it imports this module
+
+    return multigrid.mg_solve(*args)
+
+
+# route (`pressure_route`) -> its solver (b, x0, fluid, face_u, face_v, tol,
+# max_iter) -> (x, iterations as a 0-d int32 tensor), each looking its
+# wrapper up at call time
+_SOLVERS = {
+    "pcg": _fd("pcg_solve"),
+    "cg": lambda *args: cg.cg_solve(*args),
+    "pcg_plain": _fd("pcg_solve_plain"),
+    "periodic_cg": lambda *args: cg.periodic_cg_solve(*args),
+    "multigrid": _multigrid,
+}
+
+
+@torch.library.custom_op(
+    "silt::pressure_cg_solve", mutates_args=(),
+    schema="(Tensor b, Tensor x0, Tensor fluid, Tensor face_u, Tensor face_v, str route, "
+           "float tol, int max_iter) -> (Tensor, Tensor)")
+def pressure_cg_solve(b, x0, fluid, face_u, face_v, route, tol, max_iter):
+    """The solve of A x = b by `route`'s solver, warm-started at x0, as an op
+    differentiable in b (x0 and the operator are constants). Returns (x,
+    iterations). The span and counter live here, not in `solve_pressure`,
+    whose Python a remat step runs again in its recompute: the op's body
+    runs once a solve."""
+    with profiling.span("silt.pressure"):
+        x, iters = _SOLVERS[route](b, x0, fluid, face_u, face_v, tol, max_iter)
+    profiling.count("pressure.iters", iters)
+    # a plain loop hands back x0 itself when it is already converged; an op's
+    # output may not alias its input
+    return (x.clone() if x is x0 else x), iters
+
+
+def _solve_setup(ctx, inputs, output):
+    _, _, fluid, face_u, face_v, route, tol, max_iter = inputs
+    ctx.save_for_backward(fluid, face_u, face_v)
+    ctx.route, ctx.tol, ctx.max_iter = route, tol, max_iter
+
+
+def _solve_backward(ctx, grad_x, _grad_iters):
+    """A (and the multigrid V-cycle) is symmetric, so the cotangent of b is
+    A^-1 grad_x: a cold solve by the same route with the forward's tolerance
+    and iteration limit."""
+    grad_b = None
+    if ctx.needs_input_grad[0]:
+        g = grad_x.contiguous()
+        with profiling.span("silt.pressure.adjoint"):
+            grad_b, iters = _SOLVERS[ctx.route](g, torch.zeros_like(g), *ctx.saved_tensors,
+                                                ctx.tol, ctx.max_iter)
+        profiling.count("pressure.adjoint_iters", iters)
+    return (grad_b,) + (None,) * 7
+
+
+pressure_cg_solve.register_autograd(_solve_backward, setup_context=_solve_setup)
+remat.register(torch.ops.silt.pressure_cg_solve.default, _solve_setup, _solve_backward)
 
 
 def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = False,
@@ -187,29 +261,16 @@ def solve_pressure(div: torch.Tensor, masks: ProjectionMasks, periodic: bool = F
     solution does not depend on it beyond the CG tolerance. The gradient
     w.r.t. div is a cold solve of the same system by the same solver.
     Returns (p, iterations as a 0-d int32 tensor on div's device). Every
-    route but the periodic one is a site a remat policy can tape
-    (utils/remat.py): every policy saves the solve.
+    route is a site a remat policy can tape (utils/remat.py): every policy
+    saves the solve.
     """
     fluid = masks.fluid
     rhs = torch.where(fluid > 0, -div, 0.0).contiguous()
     x0 = (torch.zeros_like(rhs) if x0 is None
           else torch.where(fluid > 0, x0.detach(), 0.0)).contiguous()
     route = pressure_route(rhs.shape, div.device, periodic, precon)
-    if route == "periodic_cg":
-        return periodic_cg_solve_op(rhs, x0, fluid, masks.face_u, masks.face_v, tol, max_iter)
-    if route == "multigrid":
-        from solver_in_the_loop_torch.ops import multigrid  # noqa: F401 (registers silt::mg_solve)
-
-        return remat.site(torch.ops.silt.mg_solve.default, rhs, x0, fluid, masks.face_u,
-                          masks.face_v, tol, max_iter)
-    if route == "cg":
-        return remat.site(torch.ops.silt.cg_solve.default, rhs, x0, fluid, masks.face_u,
-                          masks.face_v, tol, max_iter)
-    _, ny, nx = rhs.shape
-    vy, vx, invd = fd_factors(ny, nx, div.device)
-    solve = torch.ops.silt.pcg_plain_solve if route == "pcg_plain" else torch.ops.silt.pcg_solve
-    return remat.site(solve.default, rhs, x0, fluid, masks.face_u, masks.face_v, vy, vx, invd,
-                      tol, max_iter)
+    return remat.site(torch.ops.silt.pressure_cg_solve.default, rhs, x0, fluid, masks.face_u,
+                      masks.face_v, route, tol, max_iter)
 
 
 def make_incompressible(velocity: StaggeredGrid, masks: ProjectionMasks, tol: float = 1e-5,

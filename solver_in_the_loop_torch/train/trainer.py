@@ -14,11 +14,10 @@ What differs from the JAX package, and why:
   `lax.scan`), each one node of utils/remat.py `checkpoint` in place of
   `jax.checkpoint` with a names policy: as there, the saved ops decide at
   their call sites (`remat_policy_ops`), and nothing else of the step is
-  kept. The policy names the pressure solve by the custom op of its route
-  (`silt::pcg_solve`, `silt::cg_solve`, `silt::mg_solve` or
-  `silt::pcg_plain_solve`), the tap-sum as `silt::tap_sum`, and the
-  convolutions as `aten.convolution` (the "library" nets) or `silt::conv`
-  (the "kernel" nets).
+  kept. The policy (`REMAT_SAVES`) names the pressure solve by its one
+  custom op, `silt::pressure_cg_solve` on every route, the tap-sum as
+  `silt::tap_sum`, and the convolutions as `aten.convolution` (the
+  "library" nets) or `silt::conv` (the "kernel" nets).
 * The optimizer is `torch.optim.Adam` (optax's b1, b2, eps) behind
   `GuardedAdam`, which reproduces the chain `clip_by_leaf_norm -> adam`
   under `optax.apply_if_finite`; the learning rate is set per epoch as
@@ -56,7 +55,6 @@ from torch import nn
 
 from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
 from solver_in_the_loop_torch.kernels import conv as _conv  # noqa: F401 (registers silt::conv)
-from solver_in_the_loop_torch.ops import multigrid as _mg  # noqa: F401 (registers silt::mg_solve)
 from solver_in_the_loop_torch.models.features import (
     Normalization,
     burgers_features,
@@ -182,27 +180,27 @@ def make_optimizer(model: nn.Module, cfg: SolTrainConfig,
     return GuardedAdam(model.parameters(), cfg, mesh)
 
 
+# policy -> the ops whose outputs it saves. Every policy saves the pressure
+# solve, whichever route runs it, so no policy re-runs a CG solve (JAX's
+# fourth policy, "none", a plain jax.checkpoint, would; the CLI maps it to
+# "pressure"); "conv" names both conv implementations, cuDNN's and the fused
+# silt::conv.
 REMAT_SAVES = {
-    "pressure": ("pcg",),
-    "pressure+conv": ("pcg", "conv"),
-    "pressure+advect": ("pcg", "advect"),
+    "pressure": (torch.ops.silt.pressure_cg_solve.default,),
+    "pressure+conv": (torch.ops.silt.pressure_cg_solve.default,
+                      torch.ops.aten.convolution.default, torch.ops.silt.conv.default),
+    "pressure+advect": (torch.ops.silt.pressure_cg_solve.default,
+                        torch.ops.silt.tap_sum.default),
 }
 
 
 def remat_policy_ops(policy: str) -> list:
     """The ops whose outputs a remat policy saves, which their call sites
     consult (utils/remat.py `site`); everything else in an unrolled step is
-    recomputed in the backward pass. Every policy saves the
-    pressure solve, whichever solver runs it, so no policy re-runs a CG solve
-    (JAX's fourth policy, "none", a plain jax.checkpoint, would; the CLI maps
-    it to "pressure")."""
+    recomputed in the backward pass."""
     if policy not in REMAT_SAVES:
         raise KeyError(f"unknown remat policy '{policy}'; use one of {sorted(REMAT_SAVES)}")
-    ops = {"pcg": [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
-                   torch.ops.silt.mg_solve.default, torch.ops.silt.pcg_plain_solve.default],
-           "conv": [torch.ops.aten.convolution.default, torch.ops.silt.conv.default],
-           "advect": [torch.ops.silt.tap_sum.default]}
-    return [op for key in REMAT_SAVES[policy] for op in ops[key]]
+    return list(REMAT_SAVES[policy])
 
 
 def _checkpointed(step: Callable, cfg: SolTrainConfig, model: nn.Module) -> Callable:

@@ -35,8 +35,8 @@ The names are fixed:
   silt.solver             one solver step (physics/karman.py, physics/burgers.py)
   silt.net                features -> net -> staggered correction, added
   silt.rollout.step       one step of a rollout (train/rollout.py)
-  silt.pressure           one forward pressure solve (kernels/cg.py,
-                          ops/multigrid.py), on every route
+  silt.pressure           one forward pressure solve (ops/poisson.py
+                          `pressure_cg_solve`), on every route
   silt.pressure.adjoint   one cold adjoint solve in the backward
   silt.pressure.vcycle    one multigrid preconditioner apply (ops/multigrid.py
                           `v_cycle` from its top level, or a graph's replay)

@@ -7,7 +7,7 @@
   few iterations and converged, cold and warm;
 * its iteration counts against the JAX XLA loop `cg_solve_info`;
 * the stopping threshold taken from b, also when warm-started;
-* the `silt::cg_solve` gradient against `jax.vjp` of the JAX solve;
+* the "cg" route's gradient (`silt::pressure_cg_solve`) against `jax.vjp` of the JAX solve;
 * the wrapper's CPU dispatch, the gate, and the route `solve_pressure` takes
   with the preconditioner off (the kernel up to a batch of 128, as the JAX
   package's Pallas kernel).
@@ -125,7 +125,7 @@ def test_threshold_from_b_when_warm_started(batch, batched):
 
 @pytest.mark.parametrize("warm", [False, True])
 def test_cg_route_gradient_matches_jax_vjp(warm, monkeypatch):
-    """solve_pressure with the preconditioner off (silt::cg_solve, whose
+    """solve_pressure with the preconditioner off (the "cg" route, whose
     backward is a cold plain-CG solve) against jax.vjp of the JAX solve."""
     jdom, tdom = jk.karman_domain(8), tk.karman_domain(8)
     jm, tm = jk.KarmanFlow(jdom).masks, tk.KarmanFlow(tdom).masks

@@ -57,6 +57,7 @@ from solver_in_the_loop_torch.core.grids import Boundary, Domain
 from solver_in_the_loop_torch.ops.poisson import (
     fd_factors,
     masks_from_fluid_cells,
+    pressure_cg_solve,
     pressure_route,
     solve_pressure,
 )
@@ -504,15 +505,15 @@ def test_cg_kernel_rejects_what_it_does_not_take(device):
 
 
 def test_cg_adjoint_matches_plain(device):
-    """The gradient through silt::cg_solve is a cold solve by the kernel."""
+    """The gradient through the "cg" route is a cold solve by the kernel."""
     rhs, masks = _cg_problem(device, 3, seed=4)
     cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(5),
                       device=device)
 
     def grad():
         b = rhs.clone().requires_grad_()
-        x, _ = cg.cg_solve_op(b, torch.zeros_like(rhs), masks.fluid, masks.face_u,
-                              masks.face_v, 1e-5, 1000)
+        x, _ = pressure_cg_solve(b, torch.zeros_like(rhs), masks.fluid, masks.face_u,
+                                 masks.face_v, "cg", 1e-5, 1000)
         return torch.autograd.grad(x, b, cot)[0]
 
     launches = cg_solve.launches
@@ -578,7 +579,7 @@ def test_graphed_vcycle_is_bit_equal_to_eager(device, batch, res, inference):
 
 @pytest.mark.parametrize("first", ["rollout", "training"])
 def test_mg_solve_with_the_graph_equals_the_eager_loop(device, first, monkeypatch):
-    """`silt::mg_solve` at (6, 256, 128), cold and warm-started, and its cold
+    """The "multigrid" route of `silt::pressure_cg_solve` at (6, 256, 128), cold and warm-started, and its cold
     adjoint give the eager loop's x, gradient and iterations to the bit:
     `pcg_solve_info` with `apply_a` and the eager `v_cycle`. One hierarchy
     serves a rollout's solves (under `torch.inference_mode()`) and a
@@ -589,7 +590,7 @@ def test_mg_solve_with_the_graph_equals_the_eager_loop(device, first, monkeypatc
     warm = (0.9 * rhs).contiguous()
     cot = torch.randn(rhs.shape, generator=torch.Generator(device=device).manual_seed(8),
                       device=device)
-    args = (masks.fluid, masks.face_u, masks.face_v, 1e-5, 1000)
+    args = (masks.fluid, masks.face_u, masks.face_v, "multigrid", 1e-5, 1000)
     h = mg.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
 
     def eager(b, x0):
@@ -598,11 +599,11 @@ def test_mg_solve_with_the_graph_equals_the_eager_loop(device, first, monkeypatc
 
     def rollout():
         with torch.inference_mode():
-            return [mg.mg_solve_op(rhs, x0, *args) for x0 in (torch.zeros_like(rhs), warm)]
+            return [pressure_cg_solve(rhs, x0, *args) for x0 in (torch.zeros_like(rhs), warm)]
 
     def training():
         b = rhs.clone().requires_grad_()
-        x, iters = mg.mg_solve_op(b, warm, *args)
+        x, iters = pressure_cg_solve(b, warm, *args)
         x.backward(cot)
         return x.detach(), iters, b.grad
 
@@ -803,9 +804,10 @@ def test_cluster_layout_matches_plain(device, batch, res, precon):
 
     rhs, masks = _cg_problem(device, batch, karman_domain(res), seed=res + batch)
     pre = precon == "fd"
-    assert pressure_route(rhs.shape, device, precon=precon) == ("pcg" if pre else "cg")
-    kernel, twin, op = ((cg.pcg_cluster_solve, pcg_solve_plain, cg.pcg_solve_op) if pre
-                        else (cg.cg_cluster_solve, cg_solve_plain, cg.cg_solve_op))
+    route = "pcg" if pre else "cg"
+    assert pressure_route(rhs.shape, device, precon=precon) == route
+    kernel, twin = ((cg.pcg_cluster_solve, pcg_solve_plain) if pre
+                    else (cg.cg_cluster_solve, cg_solve_plain))
     rel_tol = parity.PCG_REL_TOL if pre else parity.CG_REL_TOL
     ops = (masks.fluid, masks.face_u, masks.face_v,
            *(fd_factors(rhs.shape[1], rhs.shape[2], device) if pre else ()))
@@ -823,7 +825,8 @@ def test_cluster_layout_matches_plain(device, batch, res, precon):
 
     def grad():
         b = rhs.clone().requires_grad_()
-        x, _ = op(b, torch.zeros_like(rhs), *ops, 1e-5, 4000)
+        x, _ = pressure_cg_solve(b, torch.zeros_like(rhs), masks.fluid, masks.face_u,
+                                 masks.face_v, route, 1e-5, 4000)
         return torch.autograd.grad(x, b, cot)[0]
 
     launches = kernel.launches

@@ -101,7 +101,7 @@ def test_mg_pcg_solve_matches_jax(warm, max_iter, tol):
 @pytest.mark.parametrize("warm", [False, True])
 def test_mg_route_gradient_matches_jax_vjp(warm, monkeypatch):
     """solve_pressure at 128x64, where the CPU takes the multigrid route
-    (silt::mg_solve, whose backward is a cold multigrid solve), against
+    (whose backward is a cold multigrid solve), against
     jax.vjp of the JAX multigrid solve."""
     _, _, jm, tm, fluid = _hierarchies(64)
     div, p0 = _rhs(fluid, 2, seed=11 + warm)

@@ -149,7 +149,7 @@ def test_train_step_matches_jax(msteps, batch):
 
 def test_train_step_without_preconditioner_matches_jax():
     """--pressure-precon none: every solve, forward and adjoint, is plain CG
-    (silt::cg_solve), against the JAX step's FD-PCG; at PTOL both converge
+    (the "cg" route), against the JAX step's FD-PCG; at PTOL both converge
     to the same pressures, so the same tolerances hold. Plain CG takes more
     iterations for the same tolerance."""
     iters, jparams = _check_against_jax(4, 3, precon="none")
@@ -225,9 +225,9 @@ def test_remat_policies_are_bit_equal_and_never_rerun_the_solve(monkeypatch):
 
 
 def test_remat_never_reruns_the_unpreconditioned_solve(monkeypatch):
-    """With --pressure-precon none the solve is silt::cg_solve, which every
-    policy saves as it saves silt::pcg_solve: one forward solve per step and
-    one adjoint per step but step 0, no PCG."""
+    """With --pressure-precon none the solve takes the "cg" route, which every
+    policy saves as it saves the "pcg" route's: one forward solve per step
+    and one adjoint per step but step 0, no PCG."""
     msteps, batch = 3, 2
     data, idx, stats = make_data(batch, msteps, seed=5)
     jparams = jax_build_model("mars_moon", init="reference").init(
@@ -257,12 +257,13 @@ def test_remat_never_reruns_the_unpreconditioned_solve(monkeypatch):
 
 
 def test_remat_policy_names():
-    # every solver's op is saved; "conv" names both conv implementations:
-    # cuDNN's and the fused silt::conv
-    solves = [torch.ops.silt.pcg_solve.default, torch.ops.silt.cg_solve.default,
-              torch.ops.silt.mg_solve.default, torch.ops.silt.pcg_plain_solve.default]
-    assert trainer.remat_policy_ops("pressure+conv") == solves + [
-        torch.ops.aten.convolution.default, torch.ops.silt.conv.default]
+    # the one solve op, whichever route runs it, is saved by every policy;
+    # "conv" names both conv implementations: cuDNN's and the fused silt::conv
+    solve = torch.ops.silt.pressure_cg_solve.default
+    assert trainer.remat_policy_ops("pressure") == [solve]
+    assert trainer.remat_policy_ops("pressure+conv") == [
+        solve, torch.ops.aten.convolution.default, torch.ops.silt.conv.default]
+    assert trainer.remat_policy_ops("pressure+advect") == [solve, torch.ops.silt.tap_sum.default]
     for unknown in ("everything", "none"):  # the CLI maps "none" to "pressure"
         with pytest.raises(KeyError):
             trainer.remat_policy_ops(unknown)

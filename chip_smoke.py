@@ -93,6 +93,11 @@ each printing one JSON line:
                   (tests/data/torch_port/karman_gen_hires_r128.npz), the
                   thumbnails' count and one against the thumbnail rule, and
                   a profile of its steps
+16a. vcycle_kernel — the multigrid V-cycle's kernels (csrc/vcycle.cu) against
+                  the plain `_v_cycle` bit for bit at (6, 256, 128) and (1,
+                  384, 192), their launches an apply, and the device ms of an
+                  apply: launched directly, from the V-cycle's graph, and the
+                  plain ops' graph, beside the bytes bound
 16b. evaluate   — `karman-apply` of the SOL-32 net from sim 0's frame 0, then
                   `evaluate` against that sim on the card and on the CPU
 17. karman_gen_lores — the Makefile's lo-res source run for Re 160000 (64x32,
@@ -446,7 +451,9 @@ def conv_wgrad_bf16_bound_ms(shape):
 
 
 def kernel_wrappers():
-    """Every kernel's wrapper (each counts its launches), by kernel name."""
+    """Every kernel's wrapper (each counts its launches), by kernel name; but
+    the V-cycle's (kernels/vcycle.py `v_cycle`), which `phase_vcycle_kernel`
+    and the `karman_gen` phase count."""
     from solver_in_the_loop_torch.kernels import advect, cg, conv
 
     return {"tap_sum_fwd": advect.tap_sum_fwd, "tap_sum_bwd": advect.tap_sum_bwd,
@@ -2292,17 +2299,106 @@ def _frames_errors(got, want_of, fields=("dens", "u", "v"), steps=(1, 5, 20)):
     return errs, max(errs.values())
 
 
+@contextlib.contextmanager
+def eager_plain_cycle():
+    """mg_pcg_solve with its V-cycle eager and on the plain ops: no graph,
+    and ops/multigrid.py `_v_cycle` in the kernels' place."""
+    from unittest import mock
+
+    from solver_in_the_loop_torch.kernels import vcycle
+    from solver_in_the_loop_torch.ops import multigrid as mg
+
+    with mock.patch.object(mg, "graphed_cycle", lambda h, b: (None, 0)), \
+            mock.patch.object(vcycle, "v_cycle", lambda h, b: mg._v_cycle(h, b, 0)):
+        yield
+
+
+def vcycle_bound_ms(h, batch: int):
+    """The least device time of one V-cycle apply: its right-hand side read
+    and its result written once, and every level's masks and smoother
+    diagonal read once, at the HBM rate (the ~60 operations a cell and sweep
+    take less)."""
+    floats = 2 * batch * h.levels[0].diag.numel()
+    for lv in h.levels:
+        floats += sum(t.numel() for t in (lv.masks.fluid, lv.masks.face_u, lv.masks.face_v,
+                                          lv.diag))
+    return 1e3 * 4 * floats / HBM_BYTES_PER_S
+
+
+def phase_vcycle_kernel(device):
+    """The multigrid V-cycle's kernels (kernels/vcycle.py, csrc/vcycle.cu) at
+    the hi-res generator's (6, 256, 128) on a real karman right-hand side and
+    at (1, 384, 192): bit-equal to the plain `_v_cycle`, launched directly and
+    replayed from the V-cycle's graph, 2 (levels - 1) + 1 launches an apply;
+    the device ms of an apply launched directly, from the kernels' graph (the
+    main path: copy-in, replay, copy-out) and from a graph of the plain ops
+    (the main path before the kernels), beside `vcycle_bound_ms`."""
+    from unittest import mock
+
+    import torch
+
+    from solver_in_the_loop_torch.kernels import vcycle
+    from solver_in_the_loop_torch.ops import multigrid as mg
+    from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
+
+    cases = []
+    for batch, res in ((6, 128), (1, 192)):
+        if batch == 6:
+            rhs, _, masks = karman_rhs(RE_B6, device, res=res)
+        else:
+            masks = KarmanFlow(karman_domain(res), device=device).masks
+            gen = torch.Generator(device=device).manual_seed(res)
+            rhs = torch.randn((batch,) + tuple(masks.fluid.shape[1:]), generator=gen,
+                              device=device) * masks.fluid
+        rhs = rhs.contiguous()
+        h = mg.build_mg_hierarchy(masks, karman_domain(res))
+        levels = len(h.levels)
+        before = vcycle.v_cycle.launches
+        direct = vcycle.v_cycle(h, rhs)
+        launches = vcycle.v_cycle.launches - before
+        graph = mg.GraphedCycle(h, rhs)
+        with mock.patch.object(vcycle, "v_cycle", lambda h, b: mg._v_cycle(h, b, 0)):
+            plain_graph = mg.GraphedCycle(h, rhs)
+        gen = torch.Generator(device=device).manual_seed(levels)
+        equal = []
+        for b in (rhs, torch.randn(rhs.shape, generator=gen, device=device) * masks.fluid):
+            want = mg._v_cycle(h, b, 0)
+            equal.append(bool(torch.equal(vcycle.v_cycle(h, b), want))
+                         and bool(torch.equal(graph(b), want))
+                         and bool(torch.equal(plain_graph(b), want)))
+        torch.cuda.synchronize()
+        bound = vcycle_bound_ms(h, batch)
+        ms = {"kernels_direct": time_ms(lambda: vcycle.v_cycle(h, rhs), 50),
+              "kernels_graph": time_ms(lambda: graph(rhs), 50),
+              "plain_graph": time_ms(lambda: plain_graph(rhs), 20)}
+        cases.append({"shape": list(rhs.shape), "levels": levels,
+                      "level_shapes": [list(lv.diag.shape[1:]) for lv in h.levels],
+                      "launches_per_apply": launches, "bit_equal": all(equal),
+                      "direct_equals_plain": bool(torch.equal(direct, mg._v_cycle(h, rhs, 0))),
+                      "device_ms": ms, "bound_ms": bound,
+                      "roofline_pct": 100 * bound / ms["kernels_graph"],
+                      "speedup_over_plain_graph": ms["plain_graph"] / ms["kernels_graph"]})
+    emit({"phase": "vcycle_kernel", "cases": cases})
+    for case in cases:
+        require(case["bit_equal"] and case["direct_equals_plain"],
+                f"the V-cycle kernels against the plain cycle: {case}")
+        require(case["launches_per_apply"] == 2 * (case["levels"] - 1) + 1,
+                f"V-cycle kernel launches an apply: {case}")
+    return cases
+
+
 def multigrid_graph_case(device, reps: int = 5):
     """The "multigrid" route of `pressure_cg_solve` at the hi-res generator's
     (6, 256, 128) on a real karman right-hand side, cold and warm, with its
-    V-cycle graph (ops/multigrid.py `GraphedCycle`) and with the graph turned
-    off (the eager V-cycle): the
+    V-cycle graph (ops/multigrid.py `GraphedCycle`, of the kernels) and with
+    the graph turned off and the plain ops in the kernels' place (the eager
+    V-cycle, `eager_plain_cycle`): the
     wall ms of a solve, host included (the median of `reps`, taken in turns),
     the iterations and the solutions, which are the same to the bit; the
     recorded counters of the graphed solves on a fresh hierarchy (every
-    V-cycle replayed, one capture); the device memory a capture takes (its
-    static buffers and graph pool); and the device ms of one preconditioner
-    apply, the graph's copy-in, replay and copy-out."""
+    V-cycle replayed and run by the kernels, one capture); the device memory
+    a capture takes (its static buffers and graph pool); and the device ms
+    of one preconditioner apply, the graph's copy-in, replay and copy-out."""
     import statistics
     from unittest import mock
 
@@ -2315,19 +2411,18 @@ def multigrid_graph_case(device, reps: int = 5):
     rhs, warm, masks = karman_rhs(RE_B6, device, res=128)
     ops = (masks.fluid, masks.face_u, masks.face_v, "multigrid", 1e-5, 1000)
     starts = {"cold": torch.zeros_like(rhs), "warm": warm}
-    eager = mock.patch.object(mg, "graphed_cycle", lambda h, b: (None, 0))
     case = {"shape": list(rhs.shape)}
     with mock.patch.object(mg, "_HIERARCHIES", {}):
         with profiling.recording() as rec:
             graphed = {s: pressure_cg_solve(rhs, x0, *ops) for s, x0 in starts.items()}
         counters = rec.read()["counters"]
-        with eager:
+        with eager_plain_cycle():
             plain = {s: pressure_cg_solve(rhs, x0, *ops) for s, x0 in starts.items()}
         for s, x0 in starts.items():
             ms = {"graph": [], "eager": []}
             for _ in range(reps):
                 for label in ("eager", "graph"):
-                    with eager if label == "eager" else contextlib.nullcontext():
+                    with eager_plain_cycle() if label == "eager" else contextlib.nullcontext():
                         ms[label].append(_wall_ms(lambda: pressure_cg_solve(rhs, x0, *ops)))
             case[s] = {"iters": int(graphed[s][1]), "eager_iters": int(plain[s][1]),
                        "bit_equal": bool(torch.equal(graphed[s][0], plain[s][0])),
@@ -2347,7 +2442,8 @@ def multigrid_graph_case(device, reps: int = 5):
 def phase_karman_gen(device):
     """The Makefile's hi-res training-set command (karman-fdt-hires-set)
     through the CLI at full width, cut as KARMAN_GEN_REDUCED says, every launch
-    count set to 0 just before it: the route (multigrid), no kernel launch,
+    count set to 0 just before it: the route (multigrid), no kernel launch but
+    the V-cycle's (its nine kernels warmed up and captured once),
     multigrid iterations and seconds per step, finite frames, and steps 1, 5
     and 20 of sims 0 and 5 against the JAX golden; then where a step's time
     goes (torch.profiler, 2 steps from the last frame), and the solve with
@@ -2360,6 +2456,7 @@ def phase_karman_gen(device):
     from solver_in_the_loop_torch.core.grids import CenteredGrid, StaggeredGrid
     from solver_in_the_loop_torch.io import thumbs
     from solver_in_the_loop_torch.io.scene import Scene
+    from solver_in_the_loop_torch.kernels import vcycle
     from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
     from solver_in_the_loop_torch.train.rollout import karman_rollout
 
@@ -2368,10 +2465,12 @@ def phase_karman_gen(device):
             "-t", str(KARMAN_GEN_FRAMES), "-s", "0", "--thumb"]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    vcycle_before = vcycle.v_cycle.launches
     t0 = time.perf_counter()
     frames = cli.main(argv)
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    vcycle_launches = vcycle.v_cycle.launches - vcycle_before
     steps = KARMAN_GEN_FRAMES - 1
     iters = frames["cg_iters"].cpu().numpy()
     finite = all(bool(torch.isfinite(frames[k]).all()) for k in ("dens", "u", "v"))
@@ -2404,6 +2503,7 @@ def phase_karman_gen(device):
             "seconds_per_step": frames["rollout_seconds"] / steps,
             "write_seconds": frames["write_seconds"], "thumbs": frames["thumbs"],
             "thumb_equals_rule": thumb_ok, "launches": launches,
+            "vcycle_launches": vcycle_launches,
             "mg_iters_per_step": _percentiles(iters), "mg_iters_first_steps": iters[:8].tolist(),
             "finite": finite, "scenes": len(scenes),
             "frames_per_scene": len(scenes[0].frames("dens")) if scenes else 0,
@@ -2415,10 +2515,13 @@ def phase_karman_gen(device):
     require(all(graph[s]["bit_equal"] and graph[s]["iters"] == graph[s]["eager_iters"]
                 for s in ("cold", "warm")), f"the V-cycle's graph against the eager one: {graph}")
     require(graph["counters"]["multigrid.graph_replays"] == graph["counters"]["multigrid.vcycles"]
+            == graph["counters"]["multigrid.kernel_cycles"]
             and graph["counters"]["multigrid.graph_captures"] == 1,
             f"the V-cycle graph's counters: {graph['counters']}")
     require(frames["route"] == "multigrid", f"karman-gen hi-res took {frames['route']}")
     require(all(n == 0 for n in launches.values()), f"kernel launches in karman-gen: {launches}")
+    # the V-cycle's nine kernels, run once to warm up and once into its graph
+    require(vcycle_launches == 2 * 9, f"V-cycle kernel launches in karman-gen: {vcycle_launches}")
     require(finite, "non-finite frames in the hi-res karman-gen")
     require(len(scenes) == 6 and line["frames_per_scene"] == KARMAN_GEN_FRAMES,
             f"{len(scenes)} scenes of {line['frames_per_scene']} frames")
@@ -4248,6 +4351,7 @@ def main() -> int:
     timed("burgers_train_parity", phase_burgers_train_parity, device)
     timed("burgers_profile", phase_burgers_profile, device)
     gen_launches = timed("karman_gen", phase_karman_gen, device)
+    timed("vcycle_kernel", phase_vcycle_kernel, device)
     timed("evaluate", phase_evaluate)
     lores_fd_launches, lores_cg_launches = timed("karman_gen_lores", phase_karman_gen_lores)
     r67_fd_launches, r67_cg_launches = timed("karman_gen_r67", phase_karman_gen_r67)

@@ -31,10 +31,12 @@ from solver_in_the_loop_torch.utils import profiling
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# per-source extra flags; the tap-sum keeps multiply and add separate so it
-# matches its plain PyTorch twin bit for bit (see csrc/advect.cu)
+# per-source extra flags; the tap-sum and the V-cycle keep multiply and add
+# separate so they match their plain PyTorch twins bit for bit (see
+# csrc/advect.cu, csrc/vcycle.cu)
 SOURCES: Dict[str, list] = {
     "advect": ["--fmad=false"],
+    "vcycle": ["--fmad=false"],
     "pcg": [],
     "cg": [],
     "cg_cluster": [],

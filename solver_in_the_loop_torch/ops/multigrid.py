@@ -8,22 +8,25 @@ of residuals, repeat prolongation, a coarse cell fluid where any child is;
 the V-cycle is symmetric (equal pre- and post-smoothing), so it is a valid
 PCG preconditioner.
 
-Plain PyTorch ops, as the JAX package runs it as XLA ops (no Pallas kernel).
-The loop is kernels/cg.py `pcg_solve_info` with the V-cycle as its
-preconditioner, and stops on a host read of the residuals once per
-iteration; parallel/spatial.py runs the same V-cycle on y-sharded rows.
+The V-cycle here is plain PyTorch ops (`_v_cycle`), as the JAX package runs
+it as XLA ops (no Pallas kernel). The loop is kernels/cg.py `pcg_solve_info`
+with the V-cycle as its preconditioner, and stops on a host read of the
+residuals once per iteration; parallel/spatial.py runs the same V-cycle on
+y-sharded rows.
 `mg_solve` is the solver of the pressure projection's "multigrid" route
 (ops/poisson.py `pressure_cg_solve`, forward and adjoint). Each
 preconditioner apply is a `silt.pressure.vcycle` span, and a solve counts its
 V-cycles as `multigrid.vcycles` (utils/profiling.py).
 
-On a CUDA card a V-cycle is some 600 small launches, each costing the host
-more than the card spends on it. So `mg_pcg_solve` captures the top-level
-`_v_cycle` once per hierarchy and right-hand side's shape, dtype and device as
-a CUDA graph (`GraphedCycle`, kept on the hierarchy) and replays it for every
-apply: the same kernels on the same buffers, so the result is the eager one
-to the bit. The CPU, a stream already capturing and the y-sharded V-cycle of
-parallel/spatial.py run it eagerly. A solve counts its replays as
+On a CUDA card `mg_pcg_solve` runs each V-cycle as the hand-written kernels
+of kernels/vcycle.py (csrc/vcycle.cu: one launch per level and direction, 9
+at 256x128, where the plain ops are some 600), which equal the plain
+`_v_cycle` bit for bit. It captures them once per hierarchy and right-hand
+side's shape, dtype and device as a CUDA graph (`GraphedCycle`, kept on the
+hierarchy) and replays it for every apply; where the current stream is
+capturing already it launches them directly. The CPU and the y-sharded
+V-cycle of parallel/spatial.py run the plain ops. A solve counts the
+V-cycles the kernels ran as `multigrid.kernel_cycles`, its replays as
 `multigrid.graph_replays` and its captures as `multigrid.graph_captures`.
 """
 
@@ -36,6 +39,7 @@ from typing import List
 import torch
 
 from solver_in_the_loop_torch.core.grids import Boundary, Domain
+from solver_in_the_loop_torch.kernels import vcycle
 from solver_in_the_loop_torch.kernels.cg import pcg_solve_info
 from solver_in_the_loop_torch.ops.poisson import ProjectionMasks, masks_from_fluid_cells
 from solver_in_the_loop_torch.ops.stencils import masked_laplacian
@@ -99,9 +103,8 @@ def smooth(level: MgLevel, x: torch.Tensor, b: torch.Tensor, iters: int,
 
 
 def restrict(r: torch.Tensor) -> torch.Tensor:
-    """2x2 sum."""
-    b, ny, nx = r.shape
-    return r.reshape(b, ny // 2, 2, nx // 2, 2).sum(dim=(2, 4))
+    """2x2 sum, in the order csrc/vcycle.cu adds: (r00 + r01) + (r10 + r11)."""
+    return (r[:, 0::2, 0::2] + r[:, 0::2, 1::2]) + (r[:, 1::2, 0::2] + r[:, 1::2, 1::2])
 
 
 def prolong(e: torch.Tensor) -> torch.Tensor:
@@ -135,8 +138,9 @@ def _v_cycle(h: MgHierarchy, b: torch.Tensor, level: int) -> torch.Tensor:
 
 
 class GraphedCycle:
-    """`_v_cycle(h, b, 0)` for right-hand sides of one shape, dtype and CUDA
-    device, captured as a CUDA graph on static buffers.
+    """The V-cycle's kernels (kernels/vcycle.py `v_cycle`) for right-hand
+    sides of one shape, dtype and CUDA device, captured as a CUDA graph on
+    static buffers.
 
     The capture runs outside inference mode and with autograd off, so that
     its buffers are plain tensors a rollout under `torch.inference_mode()`
@@ -144,7 +148,7 @@ class GraphedCycle:
     the cycle cannot be captured. A call copies r into the static input,
     replays the graph and returns a copy of the static output, which the
     next replay overwrites (the PCG loop keeps z as its next direction p):
-    three launches in place of the cycle's ~600."""
+    three launches in place of the cycle's 2 (L - 1) + 1 kernels."""
 
     def __init__(self, h: MgHierarchy, b: torch.Tensor):
         with torch.cuda.device(b.device), torch.inference_mode(False), torch.no_grad():
@@ -154,11 +158,11 @@ class GraphedCycle:
             side = torch.cuda.Stream(b.device)
             side.wait_stream(torch.cuda.current_stream(b.device))
             with torch.cuda.stream(side):
-                _v_cycle(h, self.input, 0)
+                vcycle.v_cycle(h, self.input)
             torch.cuda.current_stream(b.device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                self.output = _v_cycle(h, self.input, 0)
+                self.output = vcycle.v_cycle(h, self.input)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         self.input.copy_(r)
@@ -169,7 +173,8 @@ class GraphedCycle:
 def graphed_cycle(h: MgHierarchy, b: torch.Tensor):
     """(h's V-cycle graph for right-hand sides like b, 1 if this call
     captured it else 0); (None, 0) off CUDA or where the current stream is
-    capturing already, which run the V-cycle eagerly."""
+    capturing already: the CPU runs the plain V-cycle, a capturing stream
+    the kernels directly."""
     if not b.is_cuda or torch.cuda.is_current_stream_capturing():
         return None, 0
     key = (tuple(b.shape), b.dtype, b.device)
@@ -188,23 +193,25 @@ def mg_pcg_solve(h: MgHierarchy, b: torch.Tensor, tol: float = 1e-5, max_iter: i
     The JAX package's loop is `pcg_solve_info`'s line for line (the pap == 0
     and rz == 0 guards, the threshold from b), so it is that loop with the
     V-cycle as the preconditioner; parallel/spatial.py runs the same loop on
-    y-sharded rows. On CUDA each apply replays the V-cycle's graph
-    (`graphed_cycle`). The V-cycles it ran are counted as
-    `multigrid.vcycles`, those replayed as `multigrid.graph_replays`, and a
-    capture as `multigrid.graph_captures`."""
+    y-sharded rows. On CUDA each apply runs the V-cycle's kernels
+    (kernels/vcycle.py), replayed from its graph (`graphed_cycle`). The
+    V-cycles it ran are counted as `multigrid.vcycles`, those the kernels ran
+    as `multigrid.kernel_cycles`, those replayed as
+    `multigrid.graph_replays`, and a capture as `multigrid.graph_captures`."""
     cycles = 0
     graph, captured = graphed_cycle(h, b)
 
     def minv(r):
         nonlocal cycles
         cycles += 1
-        if graph is None:
+        if not r.is_cuda:
             return v_cycle(h, r)
         with profiling.span("silt.pressure.vcycle"):
-            return graph(r)
+            return vcycle.v_cycle(h, r) if graph is None else graph(r)
 
     out = pcg_solve_info(functools.partial(apply_a, h.levels[0]), minv, b, tol, max_iter, x0)
     profiling.count("multigrid.vcycles", cycles)
+    profiling.count("multigrid.kernel_cycles", cycles if b.is_cuda else 0)
     profiling.count("multigrid.graph_replays", 0 if graph is None else cycles)
     profiling.count("multigrid.graph_captures", captured)
     return out

@@ -48,6 +48,8 @@ The names are fixed:
   pressure.host_reads     1 for each stop test of a plain (P)CG loop, a host
                           read of the residuals (kernels/cg.py)
   multigrid.vcycles       the V-cycles one multigrid solve ran
+  multigrid.kernel_cycles those of them the CUDA kernels ran (kernels/vcycle.py;
+                          all of them on the card, 0 on the CPU)
   multigrid.graph_replays those of them replayed from a CUDA graph
                           (ops/multigrid.py `GraphedCycle`; 0 on the CPU)
   multigrid.graph_captures

@@ -25,11 +25,15 @@ across the autograd engine's thread, and a kernel library's first load is
 a span of its own. The remat step equals the step without remat at SOL-32's
 shapes, in no more memory. The multigrid V-cycle's CUDA graph replays the
 eager cycle to the bit, in a solve, its adjoint and a generator rollout,
-under inference mode and outside it, and goes with its hierarchy.
+under inference mode and outside it, and goes with its hierarchy. The
+V-cycle's kernels (csrc/vcycle.cu) give the plain `_v_cycle` to the bit,
+launched directly and from the graph, in 2 (levels - 1) + 1 launches, and
+run every V-cycle of a multigrid solve on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import weakref
@@ -41,7 +45,7 @@ import torch
 import torch_dist_ranks as ranks
 
 from solver_in_the_loop_torch import parity
-from solver_in_the_loop_torch.kernels import advect, cg
+from solver_in_the_loop_torch.kernels import advect, cg, vcycle
 from solver_in_the_loop_torch.kernels import conv as kconv
 from solver_in_the_loop_torch.kernels.advect import (
     tap_sum_bwd,
@@ -641,7 +645,9 @@ def test_a_recorded_generator_rollout_replays_every_vcycle(device, monkeypatch):
     assert sum(counters["multigrid.vcycles"]) > 3
     assert counters["multigrid.graph_replays"] == counters["multigrid.vcycles"]
     assert sum(counters["multigrid.graph_captures"]) == counters["multigrid.graph_captures"][0] == 1
-    monkeypatch.setattr(mg, "graphed_cycle", lambda h, b: (None, 0))  # the eager V-cycle
+    # the eager plain V-cycle: no graph, and the plain ops in the kernels' place
+    monkeypatch.setattr(mg, "graphed_cycle", lambda h, b: (None, 0))
+    monkeypatch.setattr(vcycle, "v_cycle", lambda h, b: mg._v_cycle(h, b, 0))
     eager = karman_rollout(flow, d0, v0, re, 3)
     for key in ("dens", "u", "v", "cg_iters"):
         assert torch.equal(graphed[key], eager[key]), key
@@ -669,6 +675,78 @@ def test_a_new_mask_set_after_eviction_captures_anew(device, monkeypatch):
     gc.collect()
     assert graph() is None
     assert solve(first) == [1]
+
+
+# the V-cycle kernels' cases: the karman masks at the hi-res generator's
+# (6, 256, 128), at (1, 384, 192) and (3, 128, 64); an OPEN box with ragged
+# tiles and an odd 17x18 coarsest level; and one whose odd 171x171 coarsest
+# level is swept in scratch beyond shared memory
+VCYCLE_CASES = [(6, 128), (1, 192), (3, 64), (3, 68, 72), (1, 684, 684)]
+
+
+def _vcycle_problem(device, case):
+    if len(case) == 2:
+        rhs, masks = _cg_problem(device, case[0], karman_domain(case[1]), seed=case[1])
+    else:
+        rhs, _, masks = _box_problem(device, case, seed=case[1])
+    return mg.build_mg_hierarchy(masks, Domain(tuple(rhs.shape[1:]), (1.0, 1.0),
+                                               Boundary.OPEN)), rhs
+
+
+@pytest.mark.parametrize("case", VCYCLE_CASES)
+def test_vcycle_kernels_are_bit_equal_to_the_plain_cycle(device, case):
+    """The kernels give the plain `_v_cycle` to the bit, launched directly
+    and replayed from the V-cycle's graph, on the right-hand side the graph
+    was captured with and on two others, in 2 (levels - 1) + 1 launches an
+    apply, whatever the level shapes."""
+    h, rhs = _vcycle_problem(device, case)
+    levels = len(h.levels)
+    gen = torch.Generator(device=device).manual_seed(levels)
+    others = [torch.randn(rhs.shape, generator=gen, device=device) * h.levels[0].masks.fluid
+              for _ in range(2)]
+    graph = mg.GraphedCycle(h, rhs)
+    for b in [rhs] + others:
+        want = mg._v_cycle(h, b, 0)
+        before = vcycle.v_cycle.launches
+        direct = vcycle.v_cycle(h, b)
+        assert vcycle.v_cycle.launches - before == 2 * (levels - 1) + 1
+        assert torch.equal(direct, want)
+        assert torch.equal(graph(b), want)
+        assert vcycle.v_cycle.launches - before == 2 * (levels - 1) + 1
+    torch.cuda.synchronize()
+
+
+def test_kernel_cycles_count_every_vcycle_of_a_solve(device, monkeypatch):
+    """`multigrid.kernel_cycles` equals `multigrid.vcycles` in the multigrid
+    route of `pressure_cg_solve`, forward and adjoint, and the plain V-cycle
+    is not called."""
+    monkeypatch.setattr(mg, "_HIERARCHIES", {})
+    rhs, masks = _cg_problem(device, 6, karman_domain(128), seed=9)
+    called = []
+    monkeypatch.setattr(mg, "_v_cycle", lambda *a: called.append(a))
+    b = rhs.clone().requires_grad_()
+    with profiling.recording() as rec:
+        x, _ = pressure_cg_solve(b, torch.zeros_like(rhs), masks.fluid, masks.face_u,
+                                 masks.face_v, "multigrid", 1e-5, 1000)
+        x.sum().backward()
+    counters = rec.read()["counters"]
+    assert len(counters["multigrid.vcycles"]) == 2 and min(counters["multigrid.vcycles"]) > 0
+    assert counters["multigrid.kernel_cycles"] == counters["multigrid.vcycles"]
+    assert counters["multigrid.graph_replays"] == counters["multigrid.vcycles"]
+    assert called == [] and torch.isfinite(b.grad).all()
+
+
+def test_vcycle_kernels_reject_what_they_do_not_take(device):
+    h, rhs = _vcycle_problem(device, (1, 64))
+    launches = vcycle.v_cycle.launches
+    bad = [rhs.cpu(), rhs.double(), rhs.transpose(1, 2).contiguous().transpose(1, 2),
+           rhs[:, :-4], torch.zeros((0,) + tuple(rhs.shape[1:]), device=device)]
+    for b in bad:
+        with pytest.raises(ValueError):
+            vcycle.v_cycle(h, b)
+    with pytest.raises(ValueError, match="sweep"):
+        vcycle.v_cycle(dataclasses.replace(h, smooth_iters=3), rhs)
+    assert vcycle.v_cycle.launches == launches
 
 
 def test_train_step_without_preconditioner_matches_plain(device):

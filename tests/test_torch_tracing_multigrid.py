@@ -10,7 +10,9 @@ spans and counters (utils/profiling.py), beside tests/test_torch_tracing.py.
   same to the bit.
 * On the CPU the V-cycle runs eagerly: a recorded solve and its adjoint
   count no graph replay and no capture, and the hierarchy holds no graph
-  (on the card every V-cycle is a replay: tests/test_torch_cuda.py).
+  (on the card every V-cycle is a replay: tests/test_torch_cuda.py); they
+  run the plain `_v_cycle` and count no V-cycle of the kernels
+  (`multigrid.kernel_cycles` 0; on the card all of them).
 * On the card the fused routes (csrc/pcg.cu, csrc/cg.cu and the cluster
   layout) count no host read and no V-cycle; this file imports nothing of
   JAX, so the card runs it with `--noconftest`.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from solver_in_the_loop_torch.kernels import vcycle
 from solver_in_the_loop_torch.ops import multigrid
 from solver_in_the_loop_torch.ops.poisson import pressure_route, solve_pressure
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, karman_domain
@@ -94,6 +97,31 @@ def test_a_recorded_cpu_solve_replays_no_graph():
     assert counters["multigrid.graph_replays"] == counters["multigrid.graph_captures"] == [0, 0]
     h = multigrid.cached_hierarchy(masks.fluid, masks.face_u, masks.face_v)
     assert h.graphs == {} and multigrid.graphed_cycle(h, div) == (None, 0)
+
+
+def test_a_cpu_solve_runs_the_plain_cycle_and_no_kernel(monkeypatch):
+    div, masks = _problem(seed=6)
+    div.requires_grad_()
+
+    def refuse(h, b):
+        raise AssertionError("the V-cycle kernels ran on the CPU")
+
+    plain = []
+    real = multigrid._v_cycle
+
+    def counted(h, b, level):
+        plain.append(level)
+        return real(h, b, level)
+
+    monkeypatch.setattr(vcycle, "v_cycle", refuse)
+    monkeypatch.setattr(multigrid, "_v_cycle", counted)
+    with profiling.recording() as rec:
+        p, _ = solve_pressure(div, masks)
+        p.sum().backward()
+    counters = rec.read()["counters"]
+    assert counters["multigrid.kernel_cycles"] == [0, 0]
+    assert sum(counters["multigrid.vcycles"]) == plain.count(0) > 0
+    assert torch.isfinite(div.grad).all()
 
 
 @pytest.mark.cuda

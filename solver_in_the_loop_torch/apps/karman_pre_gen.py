@@ -9,14 +9,19 @@ plus `--pressure-precon {fd,none}` (as karman-apply's) and `--device
     python -m solver_in_the_loop_torch karman-pre-gen -o karman-fdt-pre-set \
         -r 32 -l 100 --re 160000 --seed 0 --beta 1.0
 
-Each frame i = 1 .. simsteps-1:
+Each frame i = 1 .. simsteps-1 is one call of `PreFrame`:
 
-  1. a hi-res step (256x128 at -r 32: multigrid, ops/multigrid.py) and a
-     lo-res step on the previously corrected state (64x32: the fused CG
-     kernel), each warm-started from the quadratic extrapolation of its
-     previous pressures;
+  1. a hi-res step and a lo-res step on the previously corrected state,
+     each warm-started from the quadratic extrapolation of its previous
+     pressures. At -r 32 on the card the hi-res solve (256x128, batch 1)
+     takes the fused FD-PCG kernel in its cluster layout
+     (csrc/cg_cluster.cu), the lo-res one (64x32) the fused kernel of
+     csrc/pcg.cu; on the CPU the hi-res solve takes multigrid
+     (ops/multigrid.py) and the lo-res one the kernel's plain twin. The CLI
+     logs the routes (`pressure solves:`);
   2. vdiff = v_hi - upsample4x(v_lo), made divergence-free on the hi-res
-     domain with its obstacle (multigrid, likewise warm-started);
+     domain with its obstacle (the hi-res step's route, likewise
+     warm-started);
   3. the gradient-constrained least-squares correction (pre/lsq.py) with
      the temporal regulariser beta / dt; lo state += correction.
 
@@ -30,9 +35,11 @@ returns each stage's seconds and the correction solve's iteration counts.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +57,7 @@ from solver_in_the_loop_torch.io.scene import Scene
 from solver_in_the_loop_torch.ops.poisson import make_incompressible
 from solver_in_the_loop_torch.physics.karman import KarmanFlow, initial_state, karman_domain
 from solver_in_the_loop_torch.pre.lsq import build_pre_geometry, solve_correction
+from solver_in_the_loop_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -109,6 +117,82 @@ class StageClock:
         self.t = t
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PreState:
+    """The lockstep state between two frames: the hi-res sim, the corrected
+    lo-res sim, the last correction, the previous pressures (p1, p2, p3) of
+    the three solves (hi step, lo step, vdiff projection) and the sims'
+    Reynolds number. `frame` counts the frames since the pressures started
+    cold."""
+
+    d_hi: CenteredGrid
+    v_hi: StaggeredGrid
+    d_co: CenteredGrid
+    v_co: StaggeredGrid
+    corr_u: torch.Tensor
+    corr_v: torch.Tensor
+    hist: Tuple[tuple, tuple, tuple]
+    re: float
+    frame: int = 0
+
+
+class PreFrame:
+    """One PRE frame of `karman-pre-gen`: the hi-res and lo-res flows, the
+    correction's geometry, and `__call__`, which advances a `PreState` one
+    frame (the `silt.pre.frame` span).
+
+    A frame reads nothing on the host beyond the solves' own stop tests;
+    `mark`, where given, is called with each stage's name as it ends (the
+    CLI's `StageClock.mark`, which synchronises)."""
+
+    def __init__(self, res: int, length: float, scale: int, beta: float, advection: str,
+                 max_shift: int, pressure_precon: str, device):
+        self.dom_lo = karman_domain(res, length)
+        self.dom_hi = karman_domain(res * scale, length)
+        flow_kw = dict(advection=advection, max_shift=max_shift,
+                       pressure_precon=pressure_precon, device=device)
+        self.flow_lo = KarmanFlow(self.dom_lo, **flow_kw)
+        self.flow_hi = KarmanFlow(self.dom_hi, **flow_kw)
+        self.geom = build_pre_geometry(self.dom_lo, self.dom_hi, scale, bnd=2)
+        self.scale, self.beta = scale, beta
+
+    def start(self, d_hi: CenteredGrid, v_hi: StaggeredGrid, d_co: CenteredGrid,
+              v_co: StaggeredGrid, corr_u: torch.Tensor, corr_v: torch.Tensor,
+              re: float) -> PreState:
+        """A state at Reynolds number `re` whose pressure histories start
+        cold (zero)."""
+        hist = ((torch.zeros_like(d_hi.values),) * 3, (torch.zeros_like(d_co.values),) * 3,
+                (torch.zeros_like(d_hi.values),) * 3)
+        return PreState(d_hi, v_hi, d_co, v_co, corr_u, corr_v, hist, re)
+
+    def __call__(self, state: PreState, mark: Optional[Callable[[str], None]] = None):
+        """(the state one frame on, the lo-res step's uncorrected velocity,
+        the correction solve's iterations {"outer", "inner"} as 0-d int32
+        tensors)."""
+        mark = mark or (lambda stage: None)
+        i = state.frame + 1
+        re, dt = state.re, 1.0
+        with profiling.span("silt.pre.frame"):
+            x_hi, x_lo, x_vd = (warm_start(i, h) for h in state.hist)
+            d_hi, v_hi, p_hi, _ = self.flow_hi.step(state.d_hi, state.v_hi, re, dt=dt, p0=x_hi)
+            mark("hires_step")
+            d_co, v_co_base, p_lo, _ = self.flow_lo.step(state.d_co, state.v_co, re, dt=dt,
+                                                         p0=x_lo)
+            mark("lores_step")
+            up_u, up_v = upsample_staggered(v_co_base.u, v_co_base.v, self.scale)
+            vdiff, p_vd, _ = make_incompressible(
+                StaggeredGrid(v_hi.u - up_u, v_hi.v - up_v, self.dom_hi), self.flow_hi.masks,
+                p0=x_vd, precon=self.flow_hi.pressure_precon)
+            mark("projection")
+            corr_u, corr_v, its = solve_correction(self.geom, vdiff.u, vdiff.v, state.corr_u,
+                                                   state.corr_v, beta=self.beta / dt,
+                                                   constrained=True)
+            mark("lsq")
+            v_co = StaggeredGrid(v_co_base.u + corr_u, v_co_base.v + corr_v, self.dom_lo)
+            hist = tuple((p, h[0], h[1]) for p, h in zip((p_hi, p_lo, p_vd), state.hist))
+        return PreState(d_hi, v_hi, d_co, v_co, corr_u, corr_v, hist, re, i), v_co_base, its
+
+
 def run(args):
     """Generate the scene. Returns a dict: "scene" (its path), "seconds"
     (per stage, and "rollout" and "write"), "lsq_outer" and "lsq_inner"
@@ -116,28 +200,20 @@ def run(args):
     frame ids written)."""
     device = resolve_device(args.device)
     np.random.seed(args.seed)
-    dom_lo = karman_domain(args.res, args.len)
-    dom_hi = karman_domain(args.res * args.scale, args.len)
-    flow_kw = dict(advection=args.advect, max_shift=args.max_shift,
-                   pressure_precon=args.pressure_precon, device=device)
-    flow_lo = KarmanFlow(dom_lo, **flow_kw)
-    flow_hi = KarmanFlow(dom_hi, **flow_kw)
-    geom = build_pre_geometry(dom_lo, dom_hi, args.scale, bnd=2)
-    log.info("pressure solves: hi-res %s, lo-res %s", flow_hi.pressure_route(1),
-             flow_lo.pressure_route(1))
+    pre = PreFrame(args.res, args.len, args.scale, args.beta, args.advect, args.max_shift,
+                   args.pressure_precon, device)
+    dom_lo = pre.dom_lo
+    log.info("pressure solves: hi-res %s, lo-res %s", pre.flow_hi.pressure_route(1),
+             pre.flow_lo.pressure_route(1))
 
-    d_hi, v_hi = initial_state(dom_hi, 1, device)
+    d_hi, v_hi = initial_state(pre.dom_hi, 1, device)
     d_co = CenteredGrid(downsample_centered(d_hi.values, args.scale), dom_lo)
     v_co = StaggeredGrid(*downsample_staggered(v_hi.u, v_hi.v, args.scale), dom_lo)
-    corr_u = torch.zeros(dom_lo.u_shape(1), device=device)
-    corr_v = torch.zeros(dom_lo.v_shape(1), device=device)
-    re, dt = args.re, 1.0
+    state = pre.start(d_hi, v_hi, d_co, v_co, torch.zeros(dom_lo.u_shape(1), device=device),
+                      torch.zeros(dom_lo.v_shape(1), device=device), args.re)
 
     sc = Scene.create(args.output)
     sc.write_params(vars(args).copy())
-    # previous pressures of the three solves (hi step, lo step, vdiff)
-    hist = [(torch.zeros_like(d_hi.values),) * 3, (torch.zeros_like(d_co.values),) * 3,
-            (torch.zeros_like(d_hi.values),) * 3]
     kept = {k: [] for k in ("densH", "veloH", "densC", "veloC", "dens", "velo", "corr")}
     outer, inner, frame_ids = [], [], []
     clock = StageClock(device)
@@ -146,35 +222,22 @@ def run(args):
         log.info("writing %s", sc.path)
         t_roll = clock.sync()
         for i in range(1, args.simsteps):
-            x_hi, x_lo, x_vd = (warm_start(i, h) for h in hist)
             clock.start()
-            d_hi, v_hi, p_hi, _ = flow_hi.step(d_hi, v_hi, re, dt=dt, p0=x_hi)
-            clock.mark("hires_step")
-            d_co, v_co_base, p_lo, _ = flow_lo.step(d_co, v_co, re, dt=dt, p0=x_lo)
-            clock.mark("lores_step")
-            up_u, up_v = upsample_staggered(v_co_base.u, v_co_base.v, args.scale)
-            vdiff, p_vd, _ = make_incompressible(
-                StaggeredGrid(v_hi.u - up_u, v_hi.v - up_v, dom_hi), flow_hi.masks, p0=x_vd,
-                precon=flow_hi.pressure_precon)
-            clock.mark("projection")
-            corr_u, corr_v, its = solve_correction(geom, vdiff.u, vdiff.v, corr_u, corr_v,
-                                                   beta=args.beta / dt, constrained=True)
-            clock.mark("lsq")
-            v_co = StaggeredGrid(v_co_base.u + corr_u, v_co_base.v + corr_v, dom_lo)
-            hist = [(p, h[0], h[1]) for p, h in zip((p_hi, p_lo, p_vd), hist)]
+            state, v_co_base, its = pre(state, mark=clock.mark)
             outer.append(its["outer"])
             inner.append(its["inner"])
 
             if i % 25 == 0 or i == 1:
                 log.info("step %06d |corr|max=%.4f lsq iterations %d outer, %d inner", i,
-                         float(corr_u.abs().max()), int(its["outer"]), int(its["inner"]))
+                         float(state.corr_u.abs().max()), int(its["outer"]), int(its["inner"]))
             if args.skipsteps < i:
                 frame_ids.append(i)
-                for name, t in (("densH", d_hi.values), ("densC", d_co.values),
-                                ("dens", d_co.values)):
+                for name, t in (("densH", state.d_hi.values), ("densC", state.d_co.values),
+                                ("dens", state.d_co.values)):
                     kept[name].append(t[0].cpu().numpy())
-                for name, g in (("veloH", v_hi), ("veloC", v_co), ("velo", v_co_base),
-                                ("corr", StaggeredGrid(corr_u, corr_v, dom_lo))):
+                for name, g in (("veloH", state.v_hi), ("veloC", state.v_co),
+                                ("velo", v_co_base),
+                                ("corr", StaggeredGrid(state.corr_u, state.corr_v, dom_lo))):
                     kept[name].append((g.u[0].cpu().numpy(), g.v[0].cpu().numpy()))
         t_write = clock.sync()
         seconds = dict(clock.seconds, rollout=t_write - t_roll)

@@ -26,6 +26,12 @@ result is the iterate the JAX loop stops at; the loops return their
 iteration counts as 0-d int32 tensors.
 
 PPCG also stops once r.z no longer falls: see `_ppcg`.
+
+Spans and counters (utils/profiling.py): `silt.pre.lsq` brackets
+`solve_correction`, `silt.pre.lsq.project` each projection's inner solve;
+`pre.lsq_outer_iters` and `pre.lsq_inner_iters` take each solve's counts
+(0-d tensors, no host read), `pre.lsq_host_reads` 1 for each read of a
+loop's stop flag.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import Domain
 from solver_in_the_loop_torch.ops.interp import bilinear_sample
+from solver_in_the_loop_torch.utils import profiling
 
 Vec = Dict[str, torch.Tensor]  # {"u": (1, Y, X+1), "v": (1, Y+1, X)}
 
@@ -198,8 +205,10 @@ def _loop(body, state, active, max_iter: int, check_every: int):
     Returns (state, iterations as a 0-d int32 tensor)."""
     iters = torch.zeros((), dtype=torch.int32, device=active.device)
     for i in range(max_iter):
-        if i % check_every == 0 and not bool(active):
-            break
+        if i % check_every == 0:
+            profiling.count("pre.lsq_host_reads", 1)
+            if not bool(active):
+                break
         new, still = body(state)
         state = {k: torch.where(active, new[k], state[k]) if torch.is_tensor(new[k])
                  else _keep(active, new[k], state[k]) for k in new}
@@ -296,10 +305,21 @@ def solve_correction(geom: PreGeometry, vdiff_hi_u: torch.Tensor, vdiff_hi_v: to
                      constrained: bool = True, tol: float = 1e-4, max_iter: int = 600):
     """The lo-grid correction (corr_u, corr_v), zero outside the valid faces,
     and its iteration counts {"outer": ..., "inner": ...} (0-d int32
-    tensors; "inner" sums the projections' CG iterations, 0 unconstrained).
+    tensors; "inner" sums the projections' CG iterations, 0 unconstrained),
+    in the `silt.pre.lsq` span.
 
     The defaults keep the tol^2-relative stop above the float32 noise floor
     (tol 1e-4: a 1e-8 relative residual)."""
+    with profiling.span("silt.pre.lsq"):
+        corr_u, corr_v, its = _solve_correction(geom, vdiff_hi_u, vdiff_hi_v, prev_u, prev_v,
+                                                beta, constrained, tol, max_iter)
+    profiling.count("pre.lsq_outer_iters", its["outer"])
+    profiling.count("pre.lsq_inner_iters", its["inner"])
+    return corr_u, corr_v, its
+
+
+def _solve_correction(geom, vdiff_hi_u, vdiff_hi_v, prev_u, prev_v, beta, constrained, tol,
+                      max_iter):
     device = prev_u.device
     m, apply_w, wt, apply_g, apply_gt = _operators(geom, device)
     lo = {"u": m["lo_fu"], "v": m["lo_fv"]}
@@ -330,7 +350,9 @@ def solve_correction(geom: PreGeometry, vdiff_hi_u: torch.Tensor, vdiff_hi_v: to
 
         def project(v: Vec) -> Vec:
             nonlocal inner
-            p, n = tree_cg(gtg, apply_gt(v) * cm, tol=tol, max_iter=min(max_iter, INNER_MAX_ITER))
+            with profiling.span("silt.pre.lsq.project"):
+                p, n = tree_cg(gtg, apply_gt(v) * cm, tol=tol,
+                               max_iter=min(max_iter, INNER_MAX_ITER))
             inner = inner + n
             return _axpy(-1.0, apply_g(p), v)
 

@@ -40,6 +40,10 @@ The names are fixed:
   silt.pressure.adjoint   one cold adjoint solve in the backward
   silt.pressure.vcycle    one multigrid preconditioner apply (ops/multigrid.py
                           `v_cycle` from its top level, or a graph's replay)
+  silt.pre.frame          one frame of the PRE generator (apps/karman_pre_gen.py
+                          `PreFrame`): both steps, the projection, the correction
+  silt.pre.lsq            the correction solve (pre/lsq.py `solve_correction`)
+  silt.pre.lsq.project    its child: one projection's inner CG
   silt.kernels.load       kernels/build.py: a kernel library's first load
   silt.kernels.nvcc       its child where nvcc builds the library
 
@@ -54,6 +58,9 @@ The names are fixed:
                           (ops/multigrid.py `GraphedCycle`; 0 on the CPU)
   multigrid.graph_captures
                           the V-cycle graphs the solve captured (0 or 1)
+  pre.lsq_outer_iters     a correction solve's outer (projected CG) iterations
+  pre.lsq_inner_iters     its projections' inner CG iterations, summed
+  pre.lsq_host_reads      1 for each host read of a stop flag in pre/lsq.py `_loop`
   kernels.nvcc_builds     the libraries one nvcc run built
   remat.taped             the sites one remat step taped in its forward
   remat.replayed          the sites its recompute replayed

@@ -121,7 +121,8 @@ each printing one JSON line:
                   lo-res on the PCG kernel, Re 160000), --beta 1.0 cut to 54
                   frames and --beta 0 cut to 30 (PRE_GEN_REDUCED), after a
                   2-frame warm-up: a pcg_solve and two pcg_cluster_solve
-                  launches a frame, frames 21, 25 and 29
+                  launches a frame, a cg_solve a projection of the
+                  correction solve, frames 21, 25 and 29
                   against the JAX golden
                   (tests/data/torch_port/karman_pre_gen_r32.npz), every kept
                   correction held to its constraint, seconds per frame split
@@ -2868,7 +2869,8 @@ def phase_pre_gen():
     --beta 0, cut to 30 frames, every launch count set to 0 just before
     each: one pcg_solve per frame (the lo-res step), two pcg_cluster_solve
     (the hi-res step and the projection, the cluster layout as the JAX
-    package takes its Pallas kernel there), no tap-sum (--advect gather); the
+    package takes its Pallas kernel there), a cg_solve for each of the
+    correction solve's projections, no tap-sum (--advect gather); the
     kept frames 21, 25 and 29 against the JAX golden, every kept correction
     held to its constraint (G^T corr on the valid cells within PRE_DIV_TOL
     of its max); seconds per frame and their split, and the correction
@@ -2924,9 +2926,14 @@ def phase_pre_gen():
                 "corr_divergence": {"max": max(div.values()), "tolerance": par.PRE_DIV_TOL,
                                     "frames": len(div)},
                 "errors_vs_jax_golden": errs, "worst": max(errs.values())}
-            require(launches == counts(pcg_solve=steps, pcg_cluster_solve=2 * steps),
+            # a frame's correction solve projects b, its warm start and the
+            # start's residual, then once an outer iteration: a cg_solve each
+            projections = int(res["lsq_outer"].sum()) + 3 * steps
+            require(launches == counts(pcg_solve=steps, pcg_cluster_solve=2 * steps,
+                                       cg_solve=projections),
                     f"karman-pre-gen --beta {beta}: launches {launches}, expected {steps} "
-                    f"pcg_solve, {2 * steps} pcg_cluster_solve and nothing else")
+                    f"pcg_solve, {2 * steps} pcg_cluster_solve, {projections} cg_solve and "
+                    "nothing else")
             require(res["frames"] == list(range(par.PRE_SKIP + 1, frames)),
                     f"karman-pre-gen --beta {beta} kept frames {res['frames']}")
             require(max(div.values()) <= par.PRE_DIV_TOL,

@@ -10,6 +10,14 @@ operator, M = W^T W + 2*beta*I and b = W^T v_hi + 2*beta*v_prev:
   G^T v = 0 by projected preconditioned CG, the projection
   P v = v - G (G^T G)^-1 G^T v an inner CG on the masked cell Laplacian.
 
+G^T G on the valid cells is the pressure solve's masked operator with the
+lo-res cell mask as its fluid and the face masks as its faces, so on the
+card each projection's inner CG is one launch of the fused CG kernel
+(csrc/cg.cu through `kernels.cg.cg_solve`, cold start, the same stop rule
+and guards as `tree_cg`; it raises for a field its kernels cannot take);
+on the CPU it is `tree_cg` on that operator (`inner_on_kernel` names the
+route, by the device alone).
+
 W is a function (masked, weight-renormalised `ops.interp.bilinear_sample`
 at the hi face positions); its adjoint W^T is the VJP of that linear map
 (`torch.func.vjp`, whose cotangent map is the transpose), G's adjoint is
@@ -31,7 +39,8 @@ Spans and counters (utils/profiling.py): `silt.pre.lsq` brackets
 `solve_correction`, `silt.pre.lsq.project` each projection's inner solve;
 `pre.lsq_outer_iters` and `pre.lsq_inner_iters` take each solve's counts
 (0-d tensors, no host read), `pre.lsq_host_reads` 1 for each read of a
-loop's stop flag.
+loop's stop flag, `pre.lsq_kernel_projections` 1 for each projection the
+fused kernel solved (none on the CPU).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from solver_in_the_loop_torch.core.grids import Domain
+from solver_in_the_loop_torch.kernels.cg import cg_solve
 from solver_in_the_loop_torch.ops.interp import bilinear_sample
 from solver_in_the_loop_torch.utils import profiling
 
@@ -56,6 +66,13 @@ Vec = Dict[str, torch.Tensor]  # {"u": (1, Y, X+1), "v": (1, Y+1, X)}
 CHECK_EVERY = 8
 # the projection's inner solve is capped at this many iterations
 INNER_MAX_ITER = 300
+
+
+def inner_on_kernel(rhs: torch.Tensor) -> bool:
+    """Whether a projection's inner CG on the right-hand side `rhs` (1, Y, X)
+    runs the fused kernel (`kernels.cg.cg_solve`) rather than `tree_cg`: on
+    the card, always."""
+    return rhs.is_cuda
 
 
 def _cell_mask(ny: int, nx: int, bnd: int) -> np.ndarray:
@@ -344,6 +361,7 @@ def _solve_correction(geom, vdiff_hi_u, vdiff_hi_v, prev_u, prev_v, beta, constr
         vl, outer = tree_cg(apply_m, b, tol=tol, max_iter=max_iter, x0=prev)
     else:
         cm = m["lo_cells"]
+        inner_max = min(max_iter, INNER_MAX_ITER)
 
         def gtg(x: torch.Tensor) -> torch.Tensor:
             return torch.where(cm > 0, apply_gt(apply_g(x * cm)), x)
@@ -351,8 +369,15 @@ def _solve_correction(geom, vdiff_hi_u, vdiff_hi_v, prev_u, prev_v, beta, constr
         def project(v: Vec) -> Vec:
             nonlocal inner
             with profiling.span("silt.pre.lsq.project"):
-                p, n = tree_cg(gtg, apply_gt(v) * cm, tol=tol,
-                               max_iter=min(max_iter, INNER_MAX_ITER))
+                rhs = apply_gt(v) * cm
+                if inner_on_kernel(rhs):
+                    # r, p and x stay 0 off the cells from the cold start,
+                    # where gtg's masking of the neighbours has no effect
+                    p, n = cg_solve(rhs, torch.zeros_like(rhs), cm, m["lo_fu"], m["lo_fv"], tol,
+                                    inner_max)
+                    profiling.count("pre.lsq_kernel_projections", 1)
+                else:
+                    p, n = tree_cg(gtg, rhs, tol=tol, max_iter=inner_max)
             inner = inner + n
             return _axpy(-1.0, apply_g(p), v)
 

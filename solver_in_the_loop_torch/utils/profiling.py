@@ -61,6 +61,10 @@ The names are fixed:
   pre.lsq_outer_iters     a correction solve's outer (projected CG) iterations
   pre.lsq_inner_iters     its projections' inner CG iterations, summed
   pre.lsq_host_reads      1 for each host read of a stop flag in pre/lsq.py `_loop`
+  pre.lsq_kernel_projections
+                          1 for each projection whose inner CG the fused kernel
+                          ran (csrc/cg.cu through kernels/cg.py `cg_solve`, on
+                          the card; the CPU runs `tree_cg` and counts none)
   kernels.nvcc_builds     the libraries one nvcc run built
   remat.taped             the sites one remat step taped in its forward
   remat.replayed          the sites its recompute replayed

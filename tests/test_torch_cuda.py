@@ -28,7 +28,11 @@ eager cycle to the bit, in a solve, its adjoint and a generator rollout,
 under inference mode and outside it, and goes with its hierarchy. The
 V-cycle's kernels (csrc/vcycle.cu) give the plain `_v_cycle` to the bit,
 launched directly and from the graph, in 2 (levels - 1) + 1 launches, and
-run every V-cycle of a multigrid solve on the card.
+run every V-cycle of a multigrid solve on the card. The PRE correction
+solve's projections run their inner CG as one `cg_solve` launch each, within
+CONSTRAINED_REL_TOL of the same solve on `tree_cg`, the host reading only
+the outer loop's stop flag; a field on the card never falls back to
+`tree_cg`.
 """
 
 from __future__ import annotations
@@ -1082,3 +1086,111 @@ def test_remat_step_equals_the_step_without_remat_and_holds_no_more(device):
     for a, b in zip(got, want):
         assert torch.equal(a, b) or _rel(a, b) <= 1e-6, _rel(a, b)
     assert remat_peak <= plain_peak, (remat_peak, plain_peak)
+
+
+def _pre_correction_case(device):
+    """The karman_pre cell's geometry (karman_domain(32) against
+    karman_domain(128), scale 4) and a pair like a developed wake's: a
+    smooth hi-res velocity difference, and as the previous correction the
+    constrained solution of a frame before, on the card."""
+    from solver_in_the_loop_torch.pre import lsq
+
+    geom = lsq.build_pre_geometry(karman_domain(32), karman_domain(128), 4, bnd=2)
+    gen = torch.Generator().manual_seed(26)
+
+    def smooth(shape, scale):
+        coarse = torch.randn(1, 1, shape[1] // 16 + 2, shape[2] // 16 + 2, generator=gen)
+        fine = torch.nn.functional.interpolate(coarse, size=shape[1:], mode="bilinear",
+                                               align_corners=True)[0]
+        return (scale * fine + 0.01 * scale * torch.randn(shape, generator=gen)).to(device)
+
+    hu, hv = smooth(geom.hi_fu.shape, 0.1), smooth(geom.hi_fv.shape, 0.1)
+    zu, zv = (torch.zeros(getattr(geom, n).shape, device=device) for n in ("lo_fu", "lo_fv"))
+    with torch.no_grad():
+        pu, pv, _ = lsq.solve_correction(geom, hu, hv, zu, zv, beta=1.0)
+    return geom, (hu + smooth(geom.hi_fu.shape, 0.02), hv + smooth(geom.hi_fv.shape, 0.02), pu, pv)
+
+
+def _correction_by_route(geom, args, beta, kernel: bool):
+    """solve_correction with each projection's inner CG on the fused kernel
+    or, the route taken away, on `tree_cg`: the correction, its counts,
+    each projection's iterations and the recording."""
+    from unittest import mock
+
+    from solver_in_the_loop_torch.pre import lsq
+
+    solver = "cg_solve" if kernel else "tree_cg"
+    real, iters = getattr(lsq, solver), []
+
+    def counted(*a, **k):
+        x, n = real(*a, **k)
+        iters.append(n)
+        return x, n
+
+    route = lsq.inner_on_kernel if kernel else (lambda rhs: False)
+    with mock.patch.object(lsq, solver, counted), mock.patch.object(lsq, "inner_on_kernel", route), \
+            profiling.recording() as rec, torch.no_grad():
+        cu, cv, its = lsq.solve_correction(geom, *args, beta=beta)
+    return cu, cv, its, [int(n) for n in iters], rec.read()
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.0])
+def test_projections_on_the_cg_kernel_match_tree_cg(device, beta):
+    """On the card each projection's inner CG is one `cg_solve` launch:
+    the correction within CONSTRAINED_REL_TOL of its max of the same solve
+    on `tree_cg`, each projection's iterations within one, every projection
+    counted as the kernel's, and the host reading only the outer loop's
+    stop flag (one an outer iteration, and the last). The outer loop ends
+    at the float32 noise floor (`_ppcg`), where rounding may take one
+    iteration, and so one projection, more or less (beta 0: 9 against 10)."""
+    geom, args = _pre_correction_case(device)
+    launches = cg_solve.launches
+    ku, kv, k_its, k_iters, k_rec = _correction_by_route(geom, args, beta, kernel=True)
+    k_projections = [s[0] for s in k_rec["spans"]].count("silt.pre.lsq.project")
+    assert cg_solve.launches - launches == k_projections == len(k_iters) > 0
+    assert sum(k_rec["counters"]["pre.lsq_kernel_projections"]) == k_projections
+    assert sum(k_rec["counters"]["pre.lsq_host_reads"]) == int(k_its["outer"]) + 1
+    assert sum(k_iters) == int(k_its["inner"])
+    tu, tv, t_its, t_iters, t_rec = _correction_by_route(geom, args, beta, kernel=False)
+    assert "pre.lsq_kernel_projections" not in t_rec["counters"]
+    assert cg_solve.launches - launches == k_projections
+    scale = max(float(tu.abs().max()), float(tv.abs().max()))
+    gap = max(float((ku - tu).abs().max()), float((kv - tv).abs().max()))
+    print(f"beta {beta}: outer {int(k_its['outer'])} / {int(t_its['outer'])}, projections' "
+          f"iterations {k_iters} / {t_iters}, gap {gap / scale:.3g} of the max")
+    assert 0 < scale and gap <= parity.CONSTRAINED_REL_TOL * scale, (gap, scale)
+    assert abs(int(k_its["outer"]) - int(t_its["outer"])) <= 1
+    assert len(k_iters) - len(t_iters) == int(k_its["outer"]) - int(t_its["outer"])
+    assert max(abs(a - b) for a, b in zip(k_iters, t_iters)) <= 1, (k_iters, t_iters)
+
+
+def test_a_constrained_solve_on_cpu_tensors_counts_no_kernel_projection(device):
+    """With the card present, a solve on CPU tensors keeps `tree_cg`."""
+    from solver_in_the_loop_torch.pre import lsq
+
+    geom = lsq.build_pre_geometry(karman_domain(8), karman_domain(32), 4, bnd=2)
+    rng = np.random.RandomState(3)
+    args = [torch.from_numpy(rng.randn(*getattr(geom, n).shape).astype(np.float32))
+            for n in ("hi_fu", "hi_fv", "lo_fu", "lo_fv")]
+    launches = cg_solve.launches
+    with profiling.recording() as rec, torch.no_grad():
+        lsq.solve_correction(geom, *args, beta=1.0)
+    got = rec.read()
+    assert [s[0] for s in got["spans"]].count("silt.pre.lsq.project") > 0
+    assert sum(got["counters"].get("pre.lsq_kernel_projections", [])) == 0
+    assert cg_solve.launches == launches
+
+
+def test_the_projection_route_on_the_card_depends_on_the_device_alone(device):
+    """A field on the card takes the kernel route whatever its dtype: one
+    the kernels cannot take raises in `cg_solve` rather than falling back
+    to `tree_cg`."""
+    from solver_in_the_loop_torch.pre import lsq
+
+    geom = lsq.build_pre_geometry(karman_domain(32), karman_domain(128), 4, bnd=2)
+    cells, fu, fv = (torch.from_numpy(getattr(geom, n)).to(device)
+                     for n in ("lo_cells", "lo_fu", "lo_fv"))
+    rhs = torch.ones(cells.shape, dtype=torch.float64, device=device) * cells
+    assert lsq.inner_on_kernel(rhs) and lsq.inner_on_kernel(rhs.float())
+    with pytest.raises(ValueError, match="cg_solve"):
+        cg_solve(rhs, torch.zeros_like(rhs), cells, fu, fv, 1e-4, lsq.INNER_MAX_ITER)

@@ -3,6 +3,8 @@ JAX package (solver_in_the_loop_tpu/pre/lsq.py, core/resample.py) on the CPU."""
 
 from __future__ import annotations
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +16,13 @@ from solver_in_the_loop_tpu.core import resample as jres
 from solver_in_the_loop_tpu.physics.karman import karman_domain as jax_karman_domain
 from solver_in_the_loop_tpu.pre import lsq as jlsq
 
+from solver_in_the_loop_torch import parity
 from solver_in_the_loop_torch.core import grids as tgrids
 from solver_in_the_loop_torch.core import resample as tres
+from solver_in_the_loop_torch.kernels.cg import cg_solve_plain, masked_matvec
 from solver_in_the_loop_torch.physics.karman import karman_domain
 from solver_in_the_loop_torch.pre import lsq
+from solver_in_the_loop_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -34,7 +39,7 @@ torch.set_num_threads(2)
 # within ORACLE_REL_TOL of the exact solution.
 OP_TOL = 1e-6
 UNCONSTRAINED_REL_TOL = 1e-6
-CONSTRAINED_REL_TOL = 1e-3
+CONSTRAINED_REL_TOL = parity.CONSTRAINED_REL_TOL
 ORACLE_REL_TOL = 2e-3
 
 
@@ -290,3 +295,75 @@ def test_constrained_box_solve_converges_in_float64():
     div = lsq.make_apply_gt(box)({"u": cu, "v": cv}) * torch.from_numpy(box.lo_cells)
     assert float(div.abs().max()) < 1e-10 * float(cu.abs().max())
     assert 0 < int(info["outer"]) < 20
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.fixture(scope="module")
+def karman_pre_inner():
+    """The karman_pre cell's geometry (karman_domain(32) against
+    karman_domain(128), scale 4, bnd 2) and the operator, tolerance and cap
+    of its projections' inner solve, as `solve_correction` hands them to
+    `tree_cg` (captured at the first projection, which ends the solve)."""
+    geom = lsq.build_pre_geometry(karman_domain(32), karman_domain(128), 4, bnd=2)
+    got = {}
+
+    def capture(matvec, b, tol, max_iter):
+        got.update(matvec=matvec, tol=tol, max_iter=max_iter)
+        raise _Captured
+
+    zeros = [torch.zeros(getattr(geom, n).shape) for n in ("hi_fu", "hi_fv", "lo_fu", "lo_fv")]
+    with mock.patch.object(lsq, "tree_cg", capture), torch.no_grad(), \
+            pytest.raises(_Captured):
+        lsq.solve_correction(geom, *zeros, beta=1.0)
+    return geom, got
+
+
+def _cells_and_faces(geom):
+    return [_t(getattr(geom, n)) for n in ("lo_cells", "lo_fu", "lo_fv")]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_kernel_operator_is_the_projections_operator(karman_pre_inner, seed):
+    """The fused CG kernel's operator (kernels/cg.py `masked_matvec`, the
+    cell mask as its fluid) is the projection's G^T G to the bit on fields
+    that are 0 off the cells, as the projection's iterates are."""
+    geom, inner = karman_pre_inner
+    cells, fu, fv = _cells_and_faces(geom)
+    x = _t(np.random.RandomState(seed).randn(*geom.lo_cells.shape)) * cells
+    assert torch.equal(masked_matvec(cells, fu, fv)(x), inner["matvec"](x))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_kernel_twin_solves_the_projection_as_tree_cg(karman_pre_inner, seed):
+    """The kernel's plain twin on a projection's right-hand side G^T v on
+    the cells (cold start, the projection's tolerance and cap) gives
+    `tree_cg`'s iterations and solution to the bit, 0 off the cells: what
+    the card's route runs in place of `tree_cg`."""
+    geom, inner = karman_pre_inner
+    assert (inner["tol"], inner["max_iter"]) == (1e-4, lsq.INNER_MAX_ITER)
+    cells, fu, fv = _cells_and_faces(geom)
+    rng = np.random.RandomState(seed)
+    v = {"u": _t(rng.randn(*geom.lo_fu.shape)), "v": _t(rng.randn(*geom.lo_fv.shape))}
+    rhs = lsq.make_apply_gt(geom)(v) * cells
+    want, want_n = lsq.tree_cg(inner["matvec"], rhs, tol=inner["tol"], max_iter=inner["max_iter"])
+    got, got_n = cg_solve_plain(rhs, torch.zeros_like(rhs), cells, fu, fv, inner["tol"],
+                                inner["max_iter"])
+    assert 0 < int(got_n) < inner["max_iter"] and int(got_n) == int(want_n)
+    assert torch.equal(got, want)
+    assert float(got[cells == 0].abs().max()) == 0.0
+
+
+def test_projections_on_the_cpu_run_tree_cg(geoms):
+    """On the CPU every projection's inner solve is `tree_cg` and none is
+    counted as the kernel's."""
+    t = geoms[1]
+    hu, hv, lu, lv = _random_pair(t, 7)
+    assert not lsq.inner_on_kernel(torch.zeros(t.lo_cells.shape))
+    with profiling.recording() as rec, torch.no_grad():
+        lsq.solve_correction(t, _t(hu), _t(hv), _t(0.3 * lu), _t(0.3 * lv), beta=1.0)
+    got = rec.read()
+    assert [s[0] for s in got["spans"]].count("silt.pre.lsq.project") > 0
+    assert "pre.lsq_kernel_projections" not in got["counters"]
